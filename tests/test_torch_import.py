@@ -1,0 +1,75 @@
+"""The port stands alone: importing it loads neither ``jax`` nor the JAX
+package ``repro``, and no file of it names either."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _modules():
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_slice_modules_are_all_there():
+    mods = set(_modules())
+    for m in ("repro_torch", "repro_torch.configs", "repro_torch.configs.base",
+              "repro_torch.configs.sm_cnn", "repro_torch.data.tokenizer",
+              "repro_torch.data.featurize", "repro_torch.data.qa",
+              "repro_torch.serving.telemetry", "repro_torch.core.treepath",
+              "repro_torch.core.export", "repro_torch.models.sm_cnn",
+              "repro_torch.kernels.sm_cnn_conv", "repro_torch.kernels.build",
+              "repro_torch.kernels.ops", "repro_torch.core.backends",
+              "repro_torch.core.bm25", "repro_torch.core.pipeline",
+              "repro_torch.core.batch_pipeline", "repro_torch.core.ops",
+              "repro_torch.core.plan", "repro_torch.core.wire"):
+        assert m in mods, m
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_of_the_port_names_jax_or_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Name):
+            names = [node.id]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            names = [a.value for a in node.args if isinstance(a, ast.Constant)]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (
+                f"{path.relative_to(ROOT)}:{node.lineno} names {name!r}")
