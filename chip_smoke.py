@@ -7,10 +7,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
   device    the card's name and power limit (nvidia-smi), versions; TF32
             off for matmul and cuDNN, so float32 is compared in float32
-  build     nvcc builds every kernel of the path from src/repro_torch/
-            kernels/csrc (ptxas register and spill report printed)
-  kernel    each kernel against its plain PyTorch version on the card at
-            every shape the main path gives it (and a ragged and a small
+  build     nvcc builds every kernel of the port from src/repro_torch/
+            kernels/csrc, one nvcc per source, all started together
+            (ptxas register and spill report printed)
+  kernel    the conv kernel against its plain PyTorch version on the card
+            at every shape the main path gives it (and a ragged and a small
             one), in float32 and bfloat16; then its time from CUDA events,
             the plain version's, one PyTorch library call's as a yardstick,
             and the bound the card's data-sheet rates put on the same work
@@ -22,7 +23,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             scorer call; then local == batched (verify_plans), pallas ==
             eager rankings, pallas scores == a CPU eager scorer, q/s, p50,
             p99, per-stage spans and the device's busy share of one batch
+  attn-kernel  the causal GQA attention kernel against its plain version
+            at qwen3-0.6b's H=16, Hkv=8, d=128 for (B, S) from (1, 1) to
+            (1, 4096), float32 and bfloat16 (randn inputs), by max absolute
+            error and by the error's norm over the output's; then at the LM
+            phase's prefills (8 x 2048 both types, 1 x 32768 bfloat16): the
+            same checks (at 32768 on the first and last 256 query rows
+            against all keys, where the plain version's full scores would
+            not fit), SDPA as a yardstick held against the kernel, times of
+            the kernel, the plain version where it fits and SDPA, the bound
+  lm-check  the LM path in float32 against itself: prefill through the
+            kernel ("flash") == plain torch ("chunked"), logits and cache;
+            decode at position S == forward over S+1 tokens
+  lm        qwen3-0.6b at full width in bfloat16 (weights from --seed,
+            tokens from data/lm.py): prefill 8 x 2048, 32 greedy decode
+            steps on the copied cache, prefill 1 x 32768; the attention
+            kernel's launch counter is set to 0 just before and read just
+            after, and must show 28 launches per prefill and none in
+            decode; prefill tokens/s, decode ms per step, busy shares
 
+The attn-kernel, lm-check and lm phases run under torch.inference_mode().
 It prints one `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check raises and ends the run
 with a nonzero exit; without a card, or without the repository's sources
@@ -51,6 +71,34 @@ TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 KERNEL_BATCHES = (1, 3, 8, 64, 256, 1024, 4096)
 TIMED_BATCHES = (256, 4096)
 TIE_ATOL = 1e-5
+#: every kernel of the port's paths (csrc/<name>.cu)
+KERNELS = ("sm_cnn_conv", "flash_attention")
+#: the attention kernel against its plain version: tests/test_kernels.py's
+#: tolerances for it, and (B, S) at qwen3-0.6b's H=16, Hkv=8, d=128, from
+#: one token through ragged lengths to the largest S whose plain version
+#: fits (its (1, 16, 4096, 4096) float32 scores take 1.07 GB)
+ATTN_TOLERANCE = {"float32": 2e-5, "bfloat16": 3e-2}
+#: and, since randn outputs shrink with S (about sqrt(e / S): 0.036 at
+#: S=2048) while the absolute tolerance does not, the error's norm over the
+#: output's norm: two right bfloat16 results differ by at most one rounding
+#: of the output, 2^-8 of it, so 1e-2 leaves 2.5x; float32 keeps 2e-5
+ATTN_REL_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-2}
+ATTN_SHAPES = ((1, 1), (2, 7), (1, 128), (2, 130), (4, 1024), (1, 4096))
+#: timed: the LM phase's two prefills; the plain version is timed only where
+#: its scores fit (at S=32768 they would take 68.7 GB)
+ATTN_TIMED = ((8, 2048, "bfloat16"), (8, 2048, "float32"), (1, 32768, "bfloat16"))
+PLAIN_MAX_S = 4096
+#: past PLAIN_MAX_S the kernel is checked on its first and last rows of
+#: queries, each against all keys (scores (1, 16, 256, 32768): 0.54 GB)
+ATTN_SLICE_ROWS = 256
+#: the LM path: a prefill of 8 x 2048 then 32 greedy decode steps, and a
+#: prefill of 1 x 32768 (LM_SHAPES' prefill_32k length; its batch of 32
+#: would need 120 GB of KV cache, more than one 80 GB card)
+LM_BATCH, LM_SEQ, LM_DECODE = 8, 2048, 32
+LM_LONG = 32768
+#: lm-check in float32: prefill flash vs chunked at this (B, S), and decode
+#: at position S against forward over S+1 tokens
+CHECK_B, CHECK_S = 2, 130
 
 
 class CheckFailed(AssertionError):
@@ -88,14 +136,20 @@ def phase_device(torch) -> dict:
 # ------------------------------------------------------------------- build --
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.load_library("sm_cnn_conv")
-    log(f"build: sm_cnn_conv ready in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {build.BUILD_SECONDS['sm_cnn_conv']:.3f} s, sm_90a)")
-    for line in build.BUILD_LOG.get("sm_cnn_conv", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc per source, together
+        list(pool.map(build.compile_library, KERNELS))
+    for name in KERNELS:
+        build.load_library(name)
+    log(f"build: {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.3f} s (sm_90a)")
+    for name in KERNELS:
+        log(f"build: {name} nvcc {build.BUILD_SECONDS[name]:.3f} s")
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
 
 # ------------------------------------------------------------------ kernel --
@@ -232,22 +286,26 @@ def _percentile(values, q):
     return vals[lo] + (vals[hi] - vals[lo]) * (pos - lo)
 
 
-def _busy_share(torch, run) -> str:
+def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool") -> str:
     """Device busy time (union of kernel intervals) over the host wall time
-    of one call of ``run``, from torch.profiler."""
+    of one call of ``run``, from torch.profiler, with the time and launches
+    of the kernels whose name holds ``kernel`` and the five kernel names
+    that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, conv_ms, conv_n = [], 0.0, 0
+    spans, kernel_ms, kernel_n, by_name = [], 0.0, 0, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
-            if "conv_tanh_maxpool" in e.name:
-                conv_ms += e.time_range.elapsed_us() / 1e3
-                conv_n += 1
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            if kernel in e.name:
+                kernel_ms += e.time_range.elapsed_us() / 1e3
+                kernel_n += 1
     if not spans:
         return f"busy share not measured (the profiler saw no device events in {wall_ms:.3f} ms)"
     busy, cur_s, cur_e = 0.0, None, None
@@ -259,10 +317,12 @@ def _busy_share(torch, run) -> str:
         else:
             cur_e = max(cur_e, e_)
     busy = (busy + cur_e - cur_s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return (f"device busy {busy:.3f} ms over {len(spans)} device events "
-            f"(conv kernel {conv_ms:.3f} ms, {conv_n} launches) in a "
-            f"{wall_ms:.3f} ms profiled batch: busy share {busy / wall_ms:.4f} "
-            f"(idle {1 - busy / wall_ms:.4f})")
+            f"({kernel} {kernel_ms:.3f} ms, {kernel_n} launches) in a "
+            f"{wall_ms:.3f} ms profiled run: busy share {busy / wall_ms:.4f} "
+            f"(idle {1 - busy / wall_ms:.4f}); top device time: "
+            + "; ".join(f"{name[:72]} {ms:.3f} ms x{n}" for name, (ms, n) in top))
 
 
 def phase_pipeline(torch, cfg, seed: int, n_docs: int = 2000, n_questions: int = 256,
@@ -382,6 +442,308 @@ def phase_pipeline(torch, cfg, seed: int, n_docs: int = 2000, n_questions: int =
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- attn-kernel --
+
+def attention_bound(b: int, s: int, h: int, hkv: int, d: int, dtype: str):
+    """Least time for causal GQA attention on the card: q, k, v read once
+    and o written once at the memory rate, against the products the
+    function needs at the dtype's peak: two products of d terms for each
+    visible (query, key) pair, S(S+1)/2 of them per query head (the causal
+    half with the diagonal). Products on masked pairs are not needed, so
+    they are not counted."""
+    es = 4 if dtype == "float32" else 2
+    n_bytes = es * b * s * d * (2 * h + 2 * hkv)
+    flops = 4 * b * h * d * s * (s + 1) // 2
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
+        n_bytes, flops
+
+
+def _attn_agrees(torch, got, want, dtype: str, what: str) -> float:
+    """Holds ``got`` against ``want`` at the dtype's absolute tolerance and
+    at its tolerance on the error's norm over ``want``'s; returns the max
+    absolute error."""
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want.float())).item()
+    ok = (math.isfinite(err) and err <= ATTN_TOLERANCE[dtype]
+          and math.isfinite(rel) and rel <= ATTN_REL_TOLERANCE[dtype])
+    log(f"attn-kernel: {what} {dtype}: max_abs_err={err:.3e} tol={ATTN_TOLERANCE[dtype]} "
+        f"rel_norm_err={rel:.3e} tol={ATTN_REL_TOLERANCE[dtype]} {'ok' if ok else 'FAIL'}")
+    check(ok, f"attention: {what} {dtype} disagree: max_abs_err {err}, rel_norm_err {rel}")
+    return err
+
+
+def phase_attn_kernel(torch, cfg) -> dict:
+    """The attention kernel against its plain version on the card at
+    qwen3-0.6b's widths, then its times, the plain version's, SDPA's as a
+    yardstick, and the bound.
+
+    Inputs are standard normal (randn), so the softmax stays spread over
+    the keys, not one-hot, and the outputs are averages of many rows of v
+    that a wrong weight or a wrong KV head would move. Every check holds
+    the max absolute error and the error's norm relative to the output's.
+    The timed shapes are checked too: against the plain version at
+    (8, 2048); at (1, 32768), where its scores would not fit, on the first
+    and last ATTN_SLICE_ROWS query rows against all keys; and SDPA against
+    the kernel at each.
+    """
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def inputs(b, s, dtype):
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dt)
+                     for n in (h, hkv, hkv))
+
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, s in ATTN_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = inputs(b, s, dtype)
+            got = FA.flash_attention(q, k, v)
+            want = FA.flash_attention_plain(q, k, v)
+            err = _attn_agrees(torch, got, want, dtype,
+                               f"kernel vs plain B={b} S={s} H={h} Hkv={hkv} d={d}")
+            max_err[dtype] = max(max_err[dtype], err)
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    timings = {}
+    for b, s, dtype in ATTN_TIMED:
+        q, k, v = inputs(b, s, dtype)
+        # the yardstick's (B, H, S, d) layouts are made once, outside the timing
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        fns = {"kernel": lambda: FA.flash_attention(q, k, v), "library": library}
+        got = FA.flash_attention(q, k, v)
+        if s <= PLAIN_MAX_S:
+            fns["plain"] = lambda: FA.flash_attention_plain(q, k, v)
+            err = _attn_agrees(torch, got, FA.flash_attention_plain(q, k, v), dtype,
+                               f"kernel vs plain B={b} S={s}")
+        else:
+            n = ATTN_SLICE_ROWS
+            err = max(_attn_agrees(torch, got[:, :n], FA.flash_attention_plain(
+                          q[:, :n], k, v), dtype,
+                          f"kernel vs plain B={b} S={s} query rows 0..{n - 1}"),
+                      _attn_agrees(torch, got[:, s - n:], FA.flash_attention_plain(
+                          q[:, s - n:], k, v, q_start=s - n), dtype,
+                          f"kernel vs plain B={b} S={s} query rows {s - n}..{s - 1}"))
+        max_err[dtype] = max(max_err[dtype], err)
+        lib_err = _attn_agrees(torch, library().transpose(1, 2), got, dtype,
+                               f"SDPA vs kernel B={b} S={s}")
+        del got
+        iters = 20 if s <= PLAIN_MAX_S else 2
+        t = _time_alternating(torch, fns, iters=iters)
+        dev_ms = _profiled_device_ms(torch, fns["kernel"], "flash_attention", iters=iters)
+        bound_ms, bound_by, n_bytes, flops = attention_bound(b, s, h, hkv, d, dtype)
+        timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                                      device_ms=dev_ms)
+        plain = f"{t['plain']:.5f}" if "plain" in t else "not run (scores too large)"
+        log(f"attn-kernel: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
+            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+            f"plain_ms={plain} library_ms={t['library']:.5f} (SDPA causal GQA, "
+            f"max_abs_err vs kernel {lib_err:.3e}) bound_ms={bound_ms:.5f} "
+            f"({bound_by}: {flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} "
+            f"TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
+            f"share_of_bound={bound_ms / t['kernel']:.4f} "
+            f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+        del q, k, v, qt, kt, vt, fns
+        torch.cuda.empty_cache()
+    return {"max_err": max_err, "timings": timings}
+
+
+# ---------------------------------------------------------------- lm-check --
+
+def phase_lm_check(torch, cfg, seed: int) -> None:
+    """The LM path against itself on the card in float32 (TF32 off): (a)
+    prefill with the kernel ("flash") against plain torch ("chunked"), and
+    (b) decode at position S after a prefill of S tokens against forward
+    over S+1 tokens."""
+    import dataclasses
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.models import transformer as tfm
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tfm.init_lm(cfg32, torch.Generator("cuda").manual_seed(seed), "cuda")
+    toks = torch.from_numpy(next(lm_data.token_batches(
+        cfg.vocab_size, CHECK_B, CHECK_S + 1, seed=seed))["tokens"]).cuda()
+    prompt = toks[:, :CHECK_S]
+
+    # (a) the two attentions differ only in the order of float32 sums (the
+    # kernel's online softmax against materialised scores), about 1e-6 per
+    # layer; 28 layers carry that into logits of std about 0.6, so the
+    # repo's score rtol 1e-4 with atol 1e-4 (not 1e-5) bounds it
+    flash_l, flash_c = tfm.prefill(params, prompt, cfg32)
+    chunk_l, chunk_c = tfm.prefill(params, prompt,
+                                   dataclasses.replace(cfg32, attn_impl="chunked"))
+    errs = {"logits": (flash_l - chunk_l).abs().max().item()}
+    ok = torch.allclose(flash_l, chunk_l, rtol=1e-4, atol=1e-4)
+    for key in ("k", "v"):
+        errs[key] = (flash_c[key] - chunk_c[key]).abs().max().item()
+        ok = ok and torch.allclose(flash_c[key], chunk_c[key], rtol=1e-4, atol=1e-4)
+    log(f"lm-check: float32 prefill B={CHECK_B} S={CHECK_S} flash (kernel) vs chunked "
+        f"(plain torch): max_abs_err logits={errs['logits']:.3e} cache k={errs['k']:.3e} "
+        f"v={errs['v']:.3e} (rtol=1e-4 atol=1e-4; logits std "
+        f"{flash_l.float().std().item():.4f}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"flash and chunked prefills disagree in float32: {errs}")
+    del chunk_l, chunk_c
+
+    # (b) tests/test_arch_smoke.py::test_lm_prefill_decode_consistency's check
+    full, _ = tfm.forward(params, toks, cfg32)
+    cache = tfm.init_cache(cfg32, CHECK_B, CHECK_S + 8)
+    for key in ("k", "v"):
+        cache[key][:, :, :CHECK_S] = flash_c[key]
+    pos = torch.full((CHECK_B,), CHECK_S, dtype=torch.int32, device="cuda")
+    lg, _ = tfm.decode_step(params, cache, toks[:, CHECK_S], pos, cfg32)
+    err = (lg - full[:, -1]).abs().max().item()
+    ok = torch.allclose(lg, full[:, -1], rtol=2e-2, atol=2e-2)
+    err_p = (flash_l - full[:, -2]).abs().max().item()
+    ok = ok and torch.allclose(flash_l, full[:, -2], rtol=2e-2, atol=2e-2)
+    log(f"lm-check: float32 decode at position {CHECK_S} vs forward over {CHECK_S + 1} "
+        f"tokens: max_abs_err={err:.3e}; prefill's last logits vs forward: "
+        f"{err_p:.3e} (rtol=atol=2e-2) {'ok' if ok else 'FAIL'}")
+    check(ok, f"decode after prefill disagrees with forward: {err}, {err_p}")
+    del params, flash_l, flash_c, full, cache, lg
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- lm --
+
+def phase_lm(torch, cfg, seed: int) -> dict:
+    """qwen3-0.6b's serving path at full width in bfloat16: prefill of
+    8 x 2048 tokens, the cache copied into a 2048+32 cache, 32 greedy decode
+    steps, then a prefill of 1 x 32768. The attention kernel's launch count
+    is set to 0 just before and read just after, and must be 28 per
+    prefill; decode launches it never."""
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    params = tfm.init_lm(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    toks = torch.from_numpy(next(lm_data.token_batches(
+        cfg.vocab_size, LM_BATCH, LM_SEQ, seed=seed))["tokens"]).cuda()
+    long_toks = torch.from_numpy(next(lm_data.token_batches(
+        cfg.vocab_size, 1, LM_LONG, seed=seed + 1))["tokens"]).cuda()
+    sync()
+    log(f"lm: cfg={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} {cfg.dtype} params={n_params} "
+        f"({n_params * 2 / 1e9:.3f} GB); setup {time.perf_counter() - t0:.3f} s")
+    tfm.prefill(params, toks[:, :128], cfg)           # warm-up: handles, first launches
+    sync()
+
+    # ---- the main path, counted ----
+    FA.reset_launches()
+    n_full = 0
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logits, pcache = tfm.prefill(params, toks, cfg)
+        sync()
+        prefill_s.append(time.perf_counter() - t)
+        n_full += 1
+    peak8 = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite (B, V)")
+    cache = tfm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_DECODE)
+    for key in ("k", "v"):
+        cache[key][:, :, :LM_SEQ] = pcache[key]
+    del pcache
+    tok = logits.argmax(-1)
+    pos = torch.full((LM_BATCH,), LM_SEQ, dtype=torch.int32, device="cuda")
+    step_s, generated = [], [tok]
+    for _ in range(LM_DECODE):
+        t = time.perf_counter()
+        logits, cache = tfm.decode_step(params, cache, tok, pos, cfg)
+        tok = logits.argmax(-1)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        generated.append(tok)
+        pos = pos + 1
+    decode_launches = FA.launches - cfg.n_layers * n_full
+    long_s = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        long_logits, long_cache = tfm.prefill(params, long_toks, cfg)
+        sync()
+        long_s.append(time.perf_counter() - t)
+        n_full += 1
+    peak_long = torch.cuda.max_memory_allocated()
+    launches = FA.launches
+    # ---- end of the counted run ----
+
+    check(tuple(long_logits.shape) == (1, cfg.vocab_padded)
+          and bool(torch.isfinite(long_logits).all()), "32k prefill logits not finite")
+    check(tuple(long_cache["k"].shape) == (cfg.n_layers, 1, LM_LONG, cfg.n_kv_heads,
+                                           cfg.d_head), "32k cache shape")
+    gen_toks = torch.stack(generated, 1)
+    check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
+          "a greedy token outside the vocabulary")
+    kv_bytes = cfg.n_layers * cfg.n_kv_heads * cfg.d_head * 2 * 2
+    med8, best_long = statistics.median(prefill_s), min(long_s)
+    med_step = statistics.median(step_s)
+    log(f"lm: prefill B={LM_BATCH} S={LM_SEQ}: {','.join(f'{x * 1e3:.3f}' for x in prefill_s)} "
+        f"ms, median {med8 * 1e3:.3f} ms, {LM_BATCH * LM_SEQ / med8:.1f} tokens/s; "
+        f"KV cache {LM_BATCH * LM_SEQ * kv_bytes / 1e9:.3f} GB ({kv_bytes} B a token); "
+        f"peak allocated {peak8 / 1e9:.3f} GB")
+    log(f"lm: decode B={LM_BATCH} from position {LM_SEQ}, {LM_DECODE} greedy steps: "
+        f"median {med_step * 1e3:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
+        f"{max(step_s) * 1e3:.3f}), {LM_BATCH / med_step:.1f} tokens/s; first tokens of "
+        f"row 0: {gen_toks[0, :8].tolist()}")
+    log(f"lm: prefill B=1 S={LM_LONG}: {','.join(f'{x * 1e3:.3f}' for x in long_s)} ms, "
+        f"best {best_long * 1e3:.3f} ms, {LM_LONG / best_long:.1f} tokens/s; KV cache "
+        f"{LM_LONG * kv_bytes / 1e9:.3f} GB; peak allocated {peak_long / 1e9:.3f} GB")
+    log(f"lm: flash_attention launches={launches} over {n_full} prefill calls "
+        f"(decode launched it {decode_launches} times)")
+    check(launches > 0, "the LM path launched the attention kernel no time")
+    check(launches == cfg.n_layers * n_full,
+          f"expected {cfg.n_layers} attention launches per prefill, got {launches} "
+          f"for {n_full} prefills")
+    check(decode_launches == 0, f"decode launched the attention kernel {decode_launches} times")
+    del long_logits, long_cache
+    torch.cuda.empty_cache()
+
+    # busy shares, outside the counted run: one B=8 prefill, then 8 decode
+    # steps redone on the last 8 positions with the tokens they had
+    log(f"lm: prefill B={LM_BATCH} S={LM_SEQ} "
+        f"{_busy_share(torch, lambda: tfm.prefill(params, toks, cfg), 'flash_attention')}")
+    pos0 = LM_SEQ + LM_DECODE - 8
+
+    def eight_steps():
+        for i in range(8):
+            tfm.decode_step(params, cache, gen_toks[:, LM_DECODE - 8 + i],
+                            torch.full((LM_BATCH,), pos0 + i, dtype=torch.int32,
+                                       device="cuda"), cfg)
+
+    log(f"lm: 8 decode steps B={LM_BATCH} {_busy_share(torch, eight_steps, 'flash_attention')}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 # -------------------------------------------------------------------- main --
 
 def main(argv=None) -> int:
@@ -399,7 +761,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.kernels import sm_cnn_conv
+    from repro_torch.kernels import flash_attention, sm_cnn_conv
 
     phases = {}
     t_all = time.perf_counter()
@@ -416,11 +778,23 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     pipe = phase_pipeline(torch, cfg, args.seed)
     phases["pipeline"] = time.perf_counter() - t
+    lm_cfg = get_config("qwen3-0.6b")
+    with torch.inference_mode():
+        t = time.perf_counter()
+        attn = phase_attn_kernel(torch, lm_cfg)
+        phases["attn-kernel"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_lm_check(torch, lm_cfg, args.seed)
+        phases["lm-check"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lm = phase_lm(torch, lm_cfg, args.seed)
+        phases["lm"] = time.perf_counter() - t
     for name, sec in phases.items():
         log(f"phase {name}: ok in {sec:.3f} s")
     log(f"total {time.perf_counter() - t_all:.3f} s on {dev['card']}")
 
     t32 = kern["timings"][(256, "float32")]
+    tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -429,6 +803,16 @@ def main(argv=None) -> int:
         "bound_by": t32["bound_by"], "library_ms": t32["library"],
         "device_ms": t32["device_ms"],
         "dtype": "float32", "shape": "B=256 S=64 d=50 w=5 F=100",
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": flash_attention.SOURCE,
+        "replaces": flash_attention.REPLACES, "launches": lm["launches"],
+        "max_abs_err": attn["max_err"]["bfloat16"],
+        "max_abs_err_float32": attn["max_err"]["float32"], "ms": tfa["kernel"],
+        "plain_ms": tfa["plain"], "bound_ms": tfa["bound_ms"],
+        "bound_by": tfa["bound_by"], "library_ms": tfa["library"],
+        "device_ms": tfa["device_ms"],
+        "dtype": "bfloat16", "shape": f"B={LM_BATCH} S={LM_SEQ} H={lm_cfg.n_heads} "
+                                      f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
     }]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

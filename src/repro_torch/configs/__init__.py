@@ -1,15 +1,18 @@
 """Architecture registry: ``get_config("sm-cnn")`` resolves here.
 
-Only the paper's own text-pair model is ported so far; the other families
-register here as their models are ported.
+The paper's own text-pair model and qwen3-0.6b of the LM family are ported
+so far; the other architectures register here as their models are ported.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import TextPairConfig, reduced  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    LM_SHAPES, LMConfig, MoESpec, ShapeSpec, TextPairConfig, reduced,
+)
 
 _MODULES = {
+    "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "sm-cnn": "repro_torch.configs.sm_cnn",
 }
 

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.treepath import keystr
 
 MAGIC = b"RPROAVRO1\n"
@@ -62,6 +63,22 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Dict:
             node = node.setdefault(h, {})
         node[last] = arr
     return out
+
+
+def to_torch(tree, device="cuda"):
+    """A parameter tree of numpy arrays (the JAX package's, or ``unflatten``
+    of ``loads``), or of tensors, as contiguous tensors of the same dtype on
+    ``device``, with the same nesting. bfloat16 arrays (``ml_dtypes``, as
+    ``np.asarray`` gives them for JAX's bfloat16) stay bfloat16."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev).contiguous()
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":   # numpy's own types have no bfloat16
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C")).to(dev)
 
 
 def dumps(params: Any, model: str = "", meta: Optional[Dict] = None) -> bytes:

@@ -1,4 +1,8 @@
-"""Model-level compositions over the kernels.
+"""Public wrappers of the kernels and model-level compositions over them.
+
+``flash_attention`` is the causal GQA attention kernel's wrapper (the
+Pallas kernel's block sizes are the CUDA kernel's own business here, so it
+takes no ``block_q``/``block_kv``).
 
 ``sm_cnn_score`` is the full paper model with both conv arms running through
 the fused conv kernel — the ``pallas`` integration backend (the name is kept
@@ -12,6 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import TextPairConfig
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.sm_cnn_conv import conv_tanh_maxpool
 
 

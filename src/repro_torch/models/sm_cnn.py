@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import TextPairConfig
+from repro_torch.core import export
 
 
 def _dtype(cfg: TextPairConfig) -> torch.dtype:
@@ -86,12 +87,7 @@ def params_from_numpy(tree, device="cuda"):
     """The JAX parameter tree (nested dicts of numpy arrays, or of tensors)
     as the port's parameters: the same nesting, contiguous tensors of the
     same dtype on ``device``."""
-    dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(np.asarray(tree)))
-    return t.to(dev).contiguous()
+    return export.to_torch(tree, device)
 
 
 def im2col(x: torch.Tensor, width: int) -> torch.Tensor:

@@ -1,0 +1,188 @@
+"""The port's causal GQA attention kernel module against the JAX package.
+
+On the CPU the wrapper runs the plain PyTorch version. It is held against
+the Pallas kernel in interpret mode at ``tests/test_kernels.py``'s four
+shapes, and against the jnp oracle ``ref.flash_attention_ref`` and the
+kv-chunked ``layers.flash_attention_jnp`` at those shapes and at ragged
+sequence lengths (37, 130), where the Pallas kernel asserts divisibility.
+Inputs are standard normal, so the softmax stays spread, not one-hot.
+
+The ``cuda``-marked tests hold the CUDA kernel itself against the plain
+version and skip where no card is present (``chip_smoke.py`` does the same
+at qwen3-0.6b's widths). The JAX side is imported by a fixture, so that the
+card-only tests also run on a machine with the port's dependencies alone:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash.py
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops as kops
+
+torch.set_num_threads(2)
+
+# (b, s, h, hkv, d, pallas block_q, pallas block_kv); block None: S is
+# ragged for the Pallas kernel, which is then left out
+SHAPES = [
+    (2, 128, 8, 4, 32, 32, 32),
+    (1, 64, 4, 1, 16, 16, 32),      # MQA
+    (2, 256, 4, 2, 64, 64, 64),
+    (1, 128, 8, 8, 64, 128, 128),   # MHA, single tile
+    (2, 37, 4, 2, 16, None, None),  # ragged
+    (1, 130, 16, 8, 32, None, None),
+]
+DTYPES = [("float32", 2e-5), ("bfloat16", 3e-2)]
+# shapes for the card: qwen3-0.6b's head width and grouping, ragged lengths
+CUDA_SHAPES = [(1, 1, 16, 8, 128), (2, 7, 16, 8, 128), (2, 130, 16, 8, 128),
+               (1, 257, 16, 8, 128)]
+
+
+def _qkv(b, s, h, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, s, hkv, d)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's side of the comparison."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jax_kops, ref as jax_ref
+    from repro.models import layers as jax_layers
+    return types.SimpleNamespace(jnp=jnp, kops=jax_kops, ref=jax_ref,
+                                 layers=jax_layers)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,bq,bk", SHAPES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_plain_flash_matches_pallas_oracle_and_jnp(ref, b, s, h, hkv, d, bq, bk,
+                                                   dtype, tol):
+    jnp = ref.jnp
+    q, k, v = _qkv(b, s, h, hkv, d)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    wants = {"oracle": ref.ref.flash_attention_ref(jq, jk, jv),
+             "jnp": ref.layers.flash_attention_jnp(jq, jk, jv, 32)}
+    if bq is not None and dtype == "float32":   # interpret mode is slow
+        wants["pallas"] = ref.kops.flash_attention(jq, jk, jv, block_q=bq,
+                                                   block_kv=bk, interpret=True)
+    before = FA.launches
+    got = kops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)))
+    assert FA.launches == before   # the CPU path launches nothing
+    assert got.dtype == tdt and tuple(got.shape) == (b, s, h, d)
+    got = got.float().numpy()
+    for name, want in wants.items():
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                                   rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("s", [1, 5, 33])
+def test_plain_flash_is_per_head_causal_softmax(s):
+    """Query head h reads KV head h // G, each row sees keys 0..its own
+    position: an independent loop over heads and rows with plain softmax."""
+    b, h, hkv, d = 2, 6, 2, 8
+    q, k, v = (torch.from_numpy(a).double() for a in _qkv(b, s, h, hkv, d, seed=3))
+    want = torch.empty((b, s, h, d), dtype=torch.float64)
+    for hh in range(h):
+        kh, vh = k[:, :, hh // (h // hkv)], v[:, :, hh // (h // hkv)]
+        for t in range(s):
+            sc = torch.einsum("bd,bsd->bs", q[:, t, hh], kh[:, :t + 1]) / d ** 0.5
+            want[:, t, hh] = torch.einsum("bs,bsd->bd", torch.softmax(sc, -1),
+                                          vh[:, :t + 1])
+    got = FA.flash_attention(*(x.float() for x in (q, k, v)))
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,start", [(9, 0), (9, 4), (130, 97)])
+def test_plain_flash_takes_a_slice_of_query_rows(s, start):
+    """Rows ``start..s-1`` against all ``s`` keys equal those rows of the
+    whole sequence's attention: how a long sequence is checked by slices."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, s, 4, 2, 16, seed=5))
+    whole = FA.flash_attention_plain(q, k, v)
+    part = FA.flash_attention_plain(q[:, start:], k, v, q_start=start)
+    np.testing.assert_allclose(part.numpy(), whole[:, start:].numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def _good():
+    q, k, v = _qkv(1, 4, 4, 2, 8)
+    return torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("case", [
+    "float64", "mixed_dtype", "rank", "kv_shape", "kv_differ", "gqa",
+    "non_contiguous", "empty",
+])
+def test_wrapper_refuses_bad_inputs(case):
+    q, k, v = _good()
+    if case == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif case == "mixed_dtype":
+        k = k.to(torch.bfloat16)
+    elif case == "rank":
+        q = q[0]
+    elif case == "kv_shape":
+        k, v = k[:, :3], v[:, :3]
+    elif case == "kv_differ":
+        v = v[:, :, :1].contiguous()
+    elif case == "gqa":
+        k, v = (torch.zeros((1, 4, 3, 8)),) * 2
+    elif case == "non_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "empty":
+        q, k, v = q[:, :0], k[:, :0], v[:, :0]
+    with pytest.raises((ValueError, TypeError)):
+        FA.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_matches_plain(cuda_device, b, s, h, hkv, d, dtype, tol):
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, tdt) for a in _qkv(b, s, h, hkv, d))
+    before = FA.launches
+    got = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_an_uncompiled_head_width(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 4, 2, 64))
+    before = FA.launches
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.flash_attention(q, k, v)
+    assert FA.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_a_group_that_does_not_divide_its_rows(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 12, 4, 128))
+    before = FA.launches
+    with pytest.raises(ValueError, match="divides 128"):
+        FA.flash_attention(q, k, v)
+    assert FA.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_a_cpu_key(cuda_device):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 128))
+    with pytest.raises(ValueError, match="devices differ"):
+        FA.flash_attention(q.to(cuda_device), k, v.to(cuda_device))

@@ -36,7 +36,10 @@ def test_slice_modules_are_all_there():
               "repro_torch.kernels.ops", "repro_torch.core.backends",
               "repro_torch.core.bm25", "repro_torch.core.pipeline",
               "repro_torch.core.batch_pipeline", "repro_torch.core.ops",
-              "repro_torch.core.plan", "repro_torch.core.wire"):
+              "repro_torch.core.plan", "repro_torch.core.wire",
+              "repro_torch.configs.qwen3_0_6b", "repro_torch.data.lm",
+              "repro_torch.models.layers", "repro_torch.models.transformer",
+              "repro_torch.kernels.flash_attention"):
         assert m in mods, m
 
 
@@ -48,6 +51,20 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules\n"
         f"             if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.transformer",
+                                    "repro_torch.kernels.flash_attention"])
+def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
+    """Each entry module of the LM path, imported alone in a fresh process."""
+    code = (f"import json, sys, {module}\n"
+            "print(json.dumps(sorted(n for n in sys.modules\n"
+            f"                      if n.split('.')[0] in {FORBIDDEN!r})))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
