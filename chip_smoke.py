@@ -41,8 +41,32 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             kernel's launch counter is set to 0 just before and read just
             after, and must show 28 launches per prefill and none in
             decode; prefill tokens/s, decode ms per step, busy shares
+  bag-kernel  the EmbeddingBag kernel against its plain version: at
+            tests/test_kernels.py's shapes and a ragged bag count, float32
+            and bfloat16, with and without weights; in float32 over a
+            20M-row table (past 2^31 elements) at the serve shapes' bag
+            counts with ids from its last 10% of rows, and multi-hot; then
+            dlrm-mlperf's full table (187,767,808 x 128 bfloat16, 48.07 GB,
+            drawn from --seed on the card) at serve_p99 and serve_bulk with
+            ids from data/recsys.py and from its last 10% of rows, and
+            multi-hot (B=16384, L=32) with and without weights; times of
+            the kernel, the plain version and F.embedding_bag (the
+            yardstick) at both serve shapes and the multi-hot one, and the
+            bound
+  rec-check dlrm-mlperf in bfloat16: serve_step and retrieval_step through
+            the kernel == through the plain version (torch.equal: a bag of
+            one row is its row); reduced(dlrm-mlperf) in float32 on the
+            card == on the CPU
+  rec       dlrm-mlperf at full width in bfloat16, batches from
+            data/recsys.py: serve_p99 (B=512, p50/p99 of 64 steps),
+            serve_bulk (B=262144, examples/s, median of 3), retrieval_cand
+            (1,000,000 candidates, median of 5); the bag kernel's launch
+            counter is set to 0 just before and read just after, and must
+            show 1 launch per serve_step and 2 per retrieval_step; peak
+            memory, the busy share of one serve_bulk step
 
-The attn-kernel, lm-check and lm phases run under torch.inference_mode().
+The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
+under torch.inference_mode().
 It prints one `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check raises and ends the run
 with a nonzero exit; without a card, or without the repository's sources
@@ -72,7 +96,7 @@ KERNEL_BATCHES = (1, 3, 8, 64, 256, 1024, 4096)
 TIMED_BATCHES = (256, 4096)
 TIE_ATOL = 1e-5
 #: every kernel of the port's paths (csrc/<name>.cu)
-KERNELS = ("sm_cnn_conv", "flash_attention")
+KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag")
 #: the attention kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, and (B, S) at qwen3-0.6b's H=16, Hkv=8, d=128, from
 #: one token through ragged lengths to the largest S whose plain version
@@ -99,6 +123,25 @@ LM_LONG = 32768
 #: lm-check in float32: prefill flash vs chunked at this (B, S), and decode
 #: at position S against forward over S+1 tokens
 CHECK_B, CHECK_S = 2, 130
+#: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
+#: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
+#: multiple of a block's 8 bags)
+BAG_TOLERANCE = {"float32": 1e-5, "bfloat16": 3e-2}
+BAG_SHAPES = ((100, 16, 8, 4), (1000, 32, 16, 10), (64, 8, 4, 1), (1000, 128, 13, 3),
+              (1000, 128, 1, 1))
+#: the large multi-hot shape (B, L) at d=128
+BAG_MULTI = (16384, 32)
+#: float32 checks over a table of this many rows: 2.56e9 elements, past 2^31
+BAG_F32_ROWS = 20_000_000
+#: ids "from the last rows" lie in the last tenth of a table's rows
+BAG_TOP = 0.1
+#: serve_p99's timing cycles through this many id sets, 109 MB of rows in
+#: all, more than the 50 MB L2 holds, so each launch finds its rows cold
+BAG_P99_SETS = 32
+#: the recsys path at RECSYS_SHAPES' serve and retrieval sizes: steps of each
+REC_P99_STEPS, REC_BULK_STEPS, REC_RETRIEVAL_STEPS = 64, 3, 5
+#: rec-check: serve batches and retrieval candidates
+REC_CHECK_BATCHES, REC_CHECK_CANDIDATES = (512, 4096), 65536
 
 
 class CheckFailed(AssertionError):
@@ -286,10 +329,10 @@ def _percentile(values, q):
     return vals[lo] + (vals[hi] - vals[lo]) * (pos - lo)
 
 
-def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool") -> str:
+def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool", top: int = 5) -> str:
     """Device busy time (union of kernel intervals) over the host wall time
     of one call of ``run``, from torch.profiler, with the time and launches
-    of the kernels whose name holds ``kernel`` and the five kernel names
+    of the kernels whose name holds ``kernel`` and the ``top`` kernel names
     that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -317,12 +360,12 @@ def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool") -> str:
         else:
             cur_e = max(cur_e, e_)
     busy = (busy + cur_e - cur_s) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return (f"device busy {busy:.3f} ms over {len(spans)} device events "
             f"({kernel} {kernel_ms:.3f} ms, {kernel_n} launches) in a "
             f"{wall_ms:.3f} ms profiled run: busy share {busy / wall_ms:.4f} "
             f"(idle {1 - busy / wall_ms:.4f}); top device time: "
-            + "; ".join(f"{name[:72]} {ms:.3f} ms x{n}" for name, (ms, n) in top))
+            + "; ".join(f"{name[:72]} {ms:.3f} ms x{n}" for name, (ms, n) in ranked))
 
 
 def phase_pipeline(torch, cfg, seed: int, n_docs: int = 2000, n_questions: int = 256,
@@ -736,9 +779,336 @@ def phase_lm(torch, cfg, seed: int) -> dict:
     return {"launches": launches}
 
 
+# -------------------------------------------------------------- bag-kernel --
+
+def bag_bound(ids, weighted: bool, d: int, dtype: str):
+    """Least time for the bag sum on the card, from this call's ids: the
+    ids (and weights) read once, each distinct row they name read once, the
+    (B, d) output written once, at the memory rate, against the d adds (and
+    d multiplies, weighted) of each named row at the float32 peak."""
+    es = 4 if dtype == "float32" else 2
+    b, l = ids.shape
+    distinct = int(ids.unique().numel())
+    n_bytes = ids.numel() * (4 + (4 if weighted else 0)) + (distinct + b) * d * es
+    flops = b * l * d * (2 if weighted else 1)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
+        n_bytes, distinct
+
+
+def _bag_agrees(torch, EB, table, ids, weights, dtype: str, what: str) -> float:
+    """The kernel against its plain version on the same inputs, by max
+    absolute error at the dtype's tolerance; returns the error."""
+    got = EB.embedding_bag(table, ids, weights)
+    want = EB.embedding_bag_plain(table, ids, weights)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    exact = bool(torch.equal(got, want))
+    ok = math.isfinite(err) and err <= BAG_TOLERANCE[dtype]
+    log(f"bag-kernel: {what} {dtype}: max_abs_err={err:.3e} tol={BAG_TOLERANCE[dtype]} "
+        f"bit_equal={exact} {'ok' if ok else 'FAIL'}")
+    check(ok, f"bag kernel disagrees with its plain version at {what} {dtype}: {err}")
+    if ids.shape[1] == 1 and weights is None:   # a bag of one row is that row
+        check(exact, f"bag kernel: single-row bags are not their rows at {what} {dtype}")
+    return err
+
+
+def _top_ids(torch, gen, v: int, shape):
+    """int32 ids drawn from the last BAG_TOP of a table's v rows."""
+    return torch.randint(int(v * (1 - BAG_TOP)), v, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _serve_ids(torch, cfg, batch: int, seed: int):
+    """A serve batch's ids from data/recsys.py with the field offsets folded
+    in, as embedding_lookup hands them to the kernel: (batch * 26, 1)."""
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+    ids = torch.from_numpy(rec_data.batch_for(cfg, batch, seed=seed)["ids"]).cuda()
+    return (ids + rec.field_offsets(cfg.vocab_sizes, "cuda")).reshape(-1, 1)
+
+
+def phase_bag_kernel(torch, cfg, seed: int) -> dict:
+    """The bag kernel against its plain version, then dlrm-mlperf's table
+    drawn at full width, the kernel over it at the path's shapes, and the
+    times there. Returns the DLRM parameters for the recsys phases."""
+    import torch.nn.functional as F
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import recsys as rec
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    sizes = {s.name: s for s in RECSYS_SHAPES}
+    p99, bulk = sizes["serve_p99"].batch, sizes["serve_bulk"].batch
+    mb, ml = BAG_MULTI
+    d = cfg.embed_dim
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def weights(b, l):
+        return torch.rand((b, l), generator=gen, device="cuda")
+
+    for v, d_, b, l in BAG_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            table = torch.randn((v, d_), generator=gen, device="cuda").to(getattr(torch, dtype))
+            ids = torch.randint(0, v, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+            for w in (None, weights(b, l)):
+                err = _bag_agrees(torch, EB, table, ids, w, dtype,
+                                  f"V={v} d={d_} B={b} L={l} weighted={w is not None}")
+                max_err[dtype] = max(max_err[dtype], err)
+
+    # float32 over a table past 2^31 elements: a 32-bit offset would wrap
+    table = torch.empty((BAG_F32_ROWS, d), device="cuda").normal_(generator=gen)
+    for name, n_bags in (("serve_p99", p99 * cfg.n_sparse), ("serve_bulk", bulk * cfg.n_sparse)):
+        err = _bag_agrees(torch, EB, table, _top_ids(torch, gen, BAG_F32_ROWS, (n_bags, 1)),
+                          None, "float32", f"{name} {n_bags} bags L=1 V={BAG_F32_ROWS} "
+                          f"ids in the last {BAG_TOP:.0%} of rows")
+        max_err["float32"] = max(max_err["float32"], err)
+    ids = torch.randint(0, BAG_F32_ROWS, (mb, ml), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for w in (None, weights(mb, ml)):
+        err = _bag_agrees(torch, EB, table, ids, w, "float32",
+                          f"multi-hot B={mb} L={ml} V={BAG_F32_ROWS} weighted={w is not None}")
+        max_err["float32"] = max(max_err["float32"], err)
+    del table, ids
+    torch.cuda.empty_cache()
+
+    # dlrm-mlperf's table at full width, drawn on the card from --seed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = rec.init_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table = params["emb"]
+    v = table.shape[0]
+    # every chunk of the in-place draw holds N(0, 0.02) values: a chunk
+    # left undrawn would hold whatever the allocator's memory held
+    stds = [table[i:i + rec.INIT_CHUNK_ROWS:509].float().std().item()
+            for i in range(0, v, rec.INIT_CHUNK_ROWS)]
+    log(f"bag-kernel: dlrm-mlperf parameters drawn on the card in {init_s:.3f} s: table "
+        f"{v} x {d} {table.dtype} ({table.numel() * table.element_size() / 1e9:.3f} GB), "
+        f"memory allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB; std of every "
+        f"{rec.INIT_CHUNK_ROWS}-row chunk (every 509th row) {min(stds):.5f}..{max(stds):.5f}")
+    check(all(abs(x - 0.02) < 5e-4 for x in stds),
+          f"the table's chunks are not N(0, 0.02): stds {min(stds)}..{max(stds)}")
+    serve = {"serve_p99": _serve_ids(torch, cfg, p99, seed),
+             "serve_bulk": _serve_ids(torch, cfg, bulk, seed + 1)}
+    for name, ids in serve.items():
+        for what, ids_ in (("ids from data/recsys.py", ids),
+                           (f"ids in the last {BAG_TOP:.0%} of rows",
+                            _top_ids(torch, gen, v, tuple(ids.shape)))):
+            err = _bag_agrees(torch, EB, table, ids_, None, "bfloat16",
+                              f"{name} {ids.shape[0]} bags L=1 V={v} {what}")
+            max_err["bfloat16"] = max(max_err["bfloat16"], err)
+    multi = torch.randint(0, v, (mb, ml), generator=gen, device="cuda", dtype=torch.int32)
+    for w in (None, weights(mb, ml)):
+        err = _bag_agrees(torch, EB, table, multi, w, "bfloat16",
+                          f"multi-hot B={mb} L={ml} V={v} weighted={w is not None}")
+        max_err["bfloat16"] = max(max_err["bfloat16"], err)
+
+    # times over the full table: serve_p99 cycles through BAG_P99_SETS id
+    # sets so each launch finds its rows cold in L2, as a stream of
+    # requests would
+    sets = {"serve_p99": [serve["serve_p99"]]
+            + [_serve_ids(torch, cfg, p99, seed + 100 + i) for i in range(BAG_P99_SETS - 1)],
+            "serve_bulk": [serve["serve_bulk"]], "multi-hot": [multi]}
+    timings = {}
+    for name, id_sets in sets.items():
+        turn = dict.fromkeys(("kernel", "plain", "library", "gather"), 0)
+
+        def cycled(key, fn, id_sets=id_sets, turn=turn):
+            def call():
+                turn[key] = (turn[key] + 1) % len(id_sets)
+                return fn(id_sets[turn[key]])
+            return call
+
+        fns = {"kernel": cycled("kernel", lambda i: EB.embedding_bag(table, i)),
+               "plain": cycled("plain", lambda i: EB.embedding_bag_plain(table, i)),
+               "library": cycled("library", lambda i: F.embedding_bag(i, table, mode="sum"))}
+        if id_sets[0].shape[1] == 1:   # a plain row gather, for scale (not the function)
+            fns["gather"] = cycled("gather", lambda i: table.index_select(0, i.view(-1)))
+        lib_err = (F.embedding_bag(id_sets[0], table, mode="sum").float()
+                   - EB.embedding_bag_plain(table, id_sets[0]).float()).abs().max().item()
+        check(lib_err <= BAG_TOLERANCE["bfloat16"],
+              f"F.embedding_bag disagrees with the plain version at {name}: {lib_err}")
+        iters = 200 if name == "serve_p99" else 20
+        t = _time_alternating(torch, fns, iters=iters)
+        dev_ms = _profiled_device_ms(torch, fns["kernel"], "embedding_bag_kernel", iters=iters)
+        bounds = [bag_bound(i, False, d, "bfloat16") for i in id_sets]
+        bound_ms = statistics.mean(b[0] for b in bounds)
+        n_bytes = statistics.mean(b[2] for b in bounds)
+        distinct = statistics.mean(b[3] for b in bounds)
+        b, l = id_sets[0].shape
+        rows_ms = (b * l * 4 + (b * l + b) * d * 2) / HBM_BYTES_PER_S * 1e3
+        timings[name] = dict(t, bound_ms=bound_ms, bound_by=bounds[0][1], device_ms=dev_ms,
+                             shape=f"B={b} L={l} d={d} V={v}")
+        log(f"bag-kernel: {name} B={b} L={l} bfloat16 kernel_ms={t['kernel']:.5f} "
+            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+            f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} (F.embedding_bag "
+            f"mode=sum, max_abs_err vs plain {lib_err:.2e}) "
+            + (f"gather_ms={t['gather']:.5f} (index_select of the rows) " if "gather" in t else "")
+            + f"bound_ms={bound_ms:.5f} "
+            f"({bounds[0][1]}: {n_bytes / 1e6:.3f} MB at 3.35 TB/s, {distinct:.0f} distinct "
+            f"rows of {b * l} named; every named row once: {rows_ms:.5f} ms) "
+            f"share_of_bound={bound_ms / t['kernel']:.4f} "
+            f"achieved_GB/s={n_bytes / t['kernel'] / 1e6:.1f}")
+    del serve, sets, multi
+    torch.cuda.empty_cache()
+    return {"max_err": max_err, "timings": timings, "params": params, "init_s": init_s}
+
+
+# --------------------------------------------------------------- rec-check --
+
+def _rec_batch(torch, batch: dict) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items() if k != "label"}
+
+
+def phase_rec_check(torch, cfg, params, seed: int) -> None:
+    """The DLRM path in bfloat16 through the kernel against the same path
+    through the plain version, and reduced(dlrm-mlperf) in float32 on the
+    card against the CPU."""
+    from repro_torch.configs import reduced
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+
+    for b in REC_CHECK_BATCHES:
+        batch = _rec_batch(torch, rec_data.batch_for(cfg, b, seed=seed + 7 + b))
+        got = rec.serve_step(params, batch, cfg)
+        want = rec.serve_step(params, batch, cfg, lookup="plain")
+        ok = (tuple(got.shape) == (b,) and bool(torch.isfinite(got).all())
+              and bool(torch.equal(got, want)))
+        log(f"rec-check: serve_step B={b} bfloat16 kernel == plain lookup: "
+            f"{'ok' if ok else 'FAIL'} (max_abs_err "
+            f"{(got - want).abs().max().item():.3e}, scores std {got.std().item():.4f})")
+        check(ok, f"serve_step through the kernel != through the plain lookup at B={b}")
+    batch = _rec_batch(torch, rec_data.retrieval_batch(cfg, REC_CHECK_CANDIDATES, seed=seed + 9))
+    got = rec.retrieval_step(params, batch, cfg)
+    want = rec.retrieval_step(params, batch, cfg, lookup="plain")
+    ok = (tuple(got.shape) == (REC_CHECK_CANDIDATES,) and bool(torch.isfinite(got).all())
+          and bool(torch.equal(got, want)))
+    log(f"rec-check: retrieval_step N={REC_CHECK_CANDIDATES} bfloat16 kernel == plain "
+        f"lookup: {'ok' if ok else 'FAIL'} (max_abs_err {(got - want).abs().max().item():.3e})")
+    check(ok, "retrieval_step through the kernel != through the plain lookup")
+
+    small = reduced(cfg)
+    cpu = rec.init_model(small, torch.Generator().manual_seed(seed), "cpu")
+    card = rec.params_from_numpy(cpu, "cuda")
+    batch = rec_data.batch_for(small, 256, seed=seed)
+    rbatch = rec_data.retrieval_batch(small, 1000, seed=seed)
+    for what, fn, b in (("serve_step B=256", rec.serve_step, batch),
+                        ("retrieval_step N=1000", rec.retrieval_step, rbatch)):
+        on_card = fn(card, _rec_batch(torch, b), small).cpu()
+        on_cpu = fn(cpu, {k: torch.from_numpy(v) for k, v in b.items()}, small)
+        err = (on_card - on_cpu).abs().max().item()
+        ok = bool(torch.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-5))
+        log(f"rec-check: {small.name} float32 {what} on the card == on the CPU: "
+            f"max_abs_err={err:.3e} (rtol=1e-4 atol=1e-5) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{small.name} {what}: the card disagrees with the CPU: {err}")
+
+
+# --------------------------------------------------------------------- rec --
+
+def phase_rec(torch, cfg, params, seed: int) -> dict:
+    """dlrm-mlperf's serving path at full width in bfloat16. The bag
+    kernel's launch count is set to 0 just before and read just after, and
+    must be 1 per serve_step and 2 per retrieval_step."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import recsys as rec
+
+    sync = torch.cuda.synchronize
+    sizes = {s.name: s for s in RECSYS_SHAPES}
+    p99, bulk = sizes["serve_p99"].batch, sizes["serve_bulk"].batch
+    n_cand = sizes["retrieval_cand"].n_candidates
+    t0 = time.perf_counter()
+    gen = rec_data.batches(cfg, p99, seed=seed)
+    p99_batches = [_rec_batch(torch, next(gen)) for _ in range(REC_P99_STEPS + 1)]
+    bulk_batch = _rec_batch(torch, rec_data.batch_for(cfg, bulk, seed=seed + 1))
+    ret_batch = _rec_batch(torch, rec_data.retrieval_batch(cfg, n_cand, seed=seed + 2))
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"rec: cfg={cfg.name} fields={cfg.n_sparse} embed_dim={cfg.embed_dim} "
+        f"bot={cfg.bot_mlp} top={cfg.top_mlp} {cfg.dtype} params={n_params} "
+        f"(n_params() {cfg.n_params()}; the table padded to {params['emb'].shape[0]} rows); "
+        f"batches made in {time.perf_counter() - t0:.3f} s")
+    # warm-up at each shape: allocator, cuBLAS handles and heuristics
+    rec.serve_step(params, p99_batches[-1], cfg)
+    rec.serve_step(params, bulk_batch, cfg)
+    rec.retrieval_step(params, ret_batch, cfg)
+    sync()
+    torch.cuda.empty_cache()
+
+    # ---- the main path, counted ----
+    EB.reset_launches()
+    peak = {}
+    torch.cuda.reset_peak_memory_stats()
+    p99_s = []
+    for batch in p99_batches[:REC_P99_STEPS]:
+        t = time.perf_counter()
+        scores = rec.serve_step(params, batch, cfg)
+        sync()
+        p99_s.append(time.perf_counter() - t)
+        check(tuple(scores.shape) == (p99,) and bool(torch.isfinite(scores).all()),
+              "serve_p99 scores not finite (B,)")
+    peak["serve_p99"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bulk_s = []
+    for _ in range(REC_BULK_STEPS):
+        t = time.perf_counter()
+        scores = rec.serve_step(params, bulk_batch, cfg)
+        sync()
+        bulk_s.append(time.perf_counter() - t)
+    check(tuple(scores.shape) == (bulk,) and bool(torch.isfinite(scores).all()),
+          "serve_bulk scores not finite (B,)")
+    bulk_std = scores.std().item()
+    del scores
+    peak["serve_bulk"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ret_s = []
+    for _ in range(REC_RETRIEVAL_STEPS):
+        t = time.perf_counter()
+        cand = rec.retrieval_step(params, ret_batch, cfg)
+        sync()
+        ret_s.append(time.perf_counter() - t)
+    peak["retrieval_cand"] = torch.cuda.max_memory_allocated()
+    launches = EB.launches
+    # ---- end of the counted run ----
+
+    check(tuple(cand.shape) == (n_cand,) and bool(torch.isfinite(cand).all()),
+          "retrieval scores not finite (N,)")
+    n_serve = REC_P99_STEPS + REC_BULK_STEPS
+    log(f"rec: serve_p99 B={p99}, {REC_P99_STEPS} steps: p50_ms={_percentile(p99_s, 0.5) * 1e3:.3f} "
+        f"p99_ms={_percentile(p99_s, 0.99) * 1e3:.3f} (min {min(p99_s) * 1e3:.3f}, max "
+        f"{max(p99_s) * 1e3:.3f}); peak allocated {peak['serve_p99'] / 1e9:.3f} GB")
+    med = statistics.median(bulk_s)
+    log(f"rec: serve_bulk B={bulk}: {','.join(f'{x * 1e3:.3f}' for x in bulk_s)} ms, median "
+        f"{med * 1e3:.3f} ms, {bulk / med:.1f} examples/s; scores std {bulk_std:.4f}; peak "
+        f"allocated {peak['serve_bulk'] / 1e9:.3f} GB")
+    med_r = statistics.median(ret_s)
+    log(f"rec: retrieval_cand 1 query x {n_cand} candidates: "
+        f"{','.join(f'{x * 1e3:.3f}' for x in ret_s)} ms, median {med_r * 1e3:.3f} ms, "
+        f"{n_cand / med_r:.1f} candidates/s; peak allocated "
+        f"{peak['retrieval_cand'] / 1e9:.3f} GB; top candidate {int(cand.argmax())}")
+    log(f"rec: embedding_bag launches={launches} over {n_serve} serve_step and "
+        f"{REC_RETRIEVAL_STEPS} retrieval_step calls")
+    check(launches > 0, "the DLRM path launched the bag kernel no time")
+    check(launches == n_serve + 2 * REC_RETRIEVAL_STEPS,
+          f"expected 1 bag launch per serve_step and 2 per retrieval_step, got {launches} "
+          f"for {n_serve} and {REC_RETRIEVAL_STEPS}")
+    del cand
+    torch.cuda.empty_cache()
+    log(f"rec: serve_bulk B={bulk} "
+        f"{_busy_share(torch, lambda: rec.serve_step(params, bulk_batch, cfg), 'embedding_bag', top=12)}")
+    return {"launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -761,7 +1131,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, sm_cnn_conv
+    from repro_torch.kernels import embedding_bag, flash_attention, sm_cnn_conv
 
     phases = {}
     t_all = time.perf_counter()
@@ -789,12 +1159,26 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         lm = phase_lm(torch, lm_cfg, args.seed)
         phases["lm"] = time.perf_counter() - t
+        rec_cfg = get_config("dlrm-mlperf")
+        t = time.perf_counter()
+        bag = phase_bag_kernel(torch, rec_cfg, args.seed)
+        phases["bag-kernel"] = time.perf_counter() - t
+        params = bag.pop("params")
+        t = time.perf_counter()
+        phase_rec_check(torch, rec_cfg, params, args.seed)
+        phases["rec-check"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec = phase_rec(torch, rec_cfg, params, args.seed)
+        phases["rec"] = time.perf_counter() - t
+        del params
+        torch.cuda.empty_cache()
     for name, sec in phases.items():
         log(f"phase {name}: ok in {sec:.3f} s")
     log(f"total {time.perf_counter() - t_all:.3f} s on {dev['card']}")
 
     t32 = kern["timings"][(256, "float32")]
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
+    tbg = bag["timings"]["serve_bulk"]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -813,6 +1197,15 @@ def main(argv=None) -> int:
         "device_ms": tfa["device_ms"],
         "dtype": "bfloat16", "shape": f"B={LM_BATCH} S={LM_SEQ} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
+    }, {
+        "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
+        "replaces": embedding_bag.REPLACES, "launches": rec["launches"],
+        "max_abs_err": bag["max_err"]["bfloat16"],
+        "max_abs_err_float32": bag["max_err"]["float32"], "ms": tbg["kernel"],
+        "plain_ms": tbg["plain"], "bound_ms": tbg["bound_ms"],
+        "bound_by": tbg["bound_by"], "library_ms": tbg["library"],
+        "device_ms": tbg["device_ms"],
+        "dtype": "bfloat16", "shape": f"serve_bulk {tbg['shape']}",
     }]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

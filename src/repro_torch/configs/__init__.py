@@ -1,17 +1,20 @@
 """Architecture registry: ``get_config("sm-cnn")`` resolves here.
 
-The paper's own text-pair model and qwen3-0.6b of the LM family are ported
-so far; the other architectures register here as their models are ported.
+The paper's own text-pair model, qwen3-0.6b of the LM family and
+dlrm-mlperf of the recsys family are ported so far; the other architectures
+register here as their models are ported.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    LM_SHAPES, LMConfig, MoESpec, ShapeSpec, TextPairConfig, reduced,
+    CRITEO_VOCABS, LM_SHAPES, LMConfig, MoESpec, RECSYS_SHAPES, RecsysConfig,
+    ShapeSpec, TextPairConfig, reduced,
 )
 
 _MODULES = {
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "sm-cnn": "repro_torch.configs.sm_cnn",
 }

@@ -1,7 +1,8 @@
-"""Config dataclasses: the text-pair family (the paper's own model) and the
-LM transformers, plus the input-shape specs of the LM cells.
+"""Config dataclasses: the text-pair family (the paper's own model), the LM
+transformers and the recsys models, plus the input-shape specs of their
+cells.
 
-The GNN and recsys families follow with their models.
+The GNN family follows with its models.
 """
 from __future__ import annotations
 
@@ -122,6 +123,77 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
+# RecSys
+# ---------------------------------------------------------------------------
+
+# Criteo-1TB per-field vocabulary sizes (MLPerf DLRM reference).
+CRITEO_VOCABS = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36,
+)
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str                       # "fm" | "dlrm" | "din" | "bert4rec"
+    embed_dim: int
+    n_dense: int = 0
+    n_sparse: int = 0
+    vocab_sizes: Tuple[int, ...] = ()
+    # dlrm
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    interaction: str = ""
+    # din
+    seq_len: int = 0
+    attn_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    # bert4rec
+    n_blocks: int = 0
+    n_heads: int = 0
+    n_items: int = 0
+    # training
+    n_negatives: int = 1024         # sampled-softmax negatives (bert4rec)
+    dtype: str = "bfloat16"
+    family: str = "recsys"
+
+    @property
+    def total_vocab(self) -> int:
+        return sum(self.vocab_sizes) + self.n_items
+
+    def n_params(self) -> int:
+        p = self.total_vocab * self.embed_dim
+        def mlp_p(dims):
+            return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+        if self.kind == "fm":
+            p += self.total_vocab  # linear term
+        elif self.kind == "dlrm":
+            p += mlp_p((self.n_dense,) + self.bot_mlp)
+            n_f = self.n_sparse + 1
+            d_int = n_f * (n_f - 1) // 2 + self.bot_mlp[-1]
+            p += mlp_p((d_int,) + self.top_mlp)
+        elif self.kind == "din":
+            d = self.embed_dim
+            p += mlp_p((4 * d,) + self.attn_mlp + (1,))
+            p += mlp_p((2 * d,) + self.mlp + (1,))
+        elif self.kind == "bert4rec":
+            d = self.embed_dim
+            p += self.seq_len * d  # positional
+            p += self.n_blocks * (4 * d * d + 8 * d * d)
+        return p
+
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "rec_train", batch=65536),
+    ShapeSpec("serve_p99", "rec_serve", batch=512),
+    ShapeSpec("serve_bulk", "rec_serve", batch=262144),
+    ShapeSpec("retrieval_cand", "rec_retrieval", batch=1, n_candidates=1000000),
+)
+
+
+# ---------------------------------------------------------------------------
 # Text-pair CNN (the paper's own model)
 # ---------------------------------------------------------------------------
 
@@ -159,6 +231,22 @@ def reduced(cfg):
             cfg, name=cfg.name + "-smoke", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=min(cfg.n_kv_heads, 2), d_head=16, d_ff=128,
             vocab_size=256, moe=moe, dtype="float32", attn_chunk=16)
+    if isinstance(cfg, RecsysConfig):
+        kw = dict(name=cfg.name + "-smoke", embed_dim=8, dtype="float32",
+                  n_negatives=16)
+        if cfg.vocab_sizes:
+            kw["vocab_sizes"] = tuple(min(v, 50) for v in cfg.vocab_sizes)
+        if cfg.n_items:
+            kw["n_items"] = 100
+        if cfg.seq_len:
+            kw["seq_len"] = min(cfg.seq_len, 16)
+        if cfg.kind == "dlrm":
+            kw["bot_mlp"] = (16, 8)
+            kw["top_mlp"] = (16, 8, 1)
+        if cfg.kind == "din":
+            kw["attn_mlp"] = (8, 4)
+            kw["mlp"] = (16, 8)
+        return dataclasses.replace(cfg, **kw)
     if isinstance(cfg, TextPairConfig):
         return dataclasses.replace(cfg, name=cfg.name + "-smoke", vocab_size=200,
                                    embed_dim=8, conv_filters=12, n_hidden=28,

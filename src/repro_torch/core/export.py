@@ -10,9 +10,10 @@ Header: {"schema_version", "model", "meta", "tensors": [{name, dtype, shape,
 offset, nbytes}]}. Buffers are little-endian C-order — readable from any
 language with a JSON parser (the interoperability property Avro provided).
 The byte layout is the one the JAX package writes, so a blob written by
-either package loads in the other. Parameter trees are nested dicts of
-``torch.Tensor`` or numpy arrays; tensor names are their '/'-joined key
-paths (``core.treepath.keystr``).
+either package loads in the other. Parameter trees are nested dicts and
+lists of ``torch.Tensor`` or numpy arrays; tensor names are their
+'/'-joined key paths (``core.treepath.keystr``), list items by index
+(``bot/w/0``), as JAX names the items of a pytree's lists.
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ def _walk(tree, path=()):
     if isinstance(tree, dict):
         for k in tree:
             yield from _walk(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, item in enumerate(tree):
+            yield from _walk(item, path + (i,))
     else:
         yield path, tree
 
@@ -52,9 +56,19 @@ def flatten_named(params) -> Dict[str, np.ndarray]:
     return {keystr(path): _to_numpy(leaf) for path, leaf in _walk(params)}
 
 
+def _lists(node):
+    """Dicts whose keys are exactly "0" .. "n-1" become lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def unflatten(flat: Dict[str, np.ndarray]) -> Dict:
-    """Inverse of ``flatten_named`` for dict trees: ``"conv_q/w"`` ->
-    ``{"conv_q": {"w": ...}}``."""
+    """Inverse of ``flatten_named``: ``"conv_q/w"`` -> ``{"conv_q": {"w":
+    ...}}``, and ``"bot/w/0"``, ``"bot/w/1"`` -> ``{"bot": {"w": [..., ...]}}``."""
     out: Dict = {}
     for name, arr in flat.items():
         node = out
@@ -62,17 +76,20 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Dict:
         for h in heads:
             node = node.setdefault(h, {})
         node[last] = arr
-    return out
+    return _lists(out)
 
 
 def to_torch(tree, device="cuda"):
     """A parameter tree of numpy arrays (the JAX package's, or ``unflatten``
     of ``loads``), or of tensors, as contiguous tensors of the same dtype on
-    ``device``, with the same nesting. bfloat16 arrays (``ml_dtypes``, as
-    ``np.asarray`` gives them for JAX's bfloat16) stay bfloat16."""
+    ``device``, with the same nesting (lists and tuples become lists).
+    bfloat16 arrays (``ml_dtypes``, as ``np.asarray`` gives them for JAX's
+    bfloat16) stay bfloat16."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, dev) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(dev).contiguous()
     arr = np.asarray(tree)

@@ -1,1 +1,2 @@
-"""Tokenizer, cached featurization and the synthetic QA corpus (numpy only)."""
+"""Tokenizer, cached featurization, the synthetic QA corpus and the LM and
+recsys generators (numpy only)."""

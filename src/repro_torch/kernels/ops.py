@@ -2,7 +2,8 @@
 
 ``flash_attention`` is the causal GQA attention kernel's wrapper (the
 Pallas kernel's block sizes are the CUDA kernel's own business here, so it
-takes no ``block_q``/``block_kv``).
+takes no ``block_q``/``block_kv``). ``embedding_bag`` is the EmbeddingBag
+kernel's wrapper (no ``block_b``, for the same reason).
 
 ``sm_cnn_score`` is the full paper model with both conv arms running through
 the fused conv kernel — the ``pallas`` integration backend (the name is kept
@@ -16,6 +17,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import TextPairConfig
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.sm_cnn_conv import conv_tanh_maxpool
 

@@ -1,6 +1,7 @@
-"""Foundational LM layers: RMS norm, RoPE, GQA attention, SwiGLU, inits.
+"""Foundational layers: RMS norm, RoPE, GQA attention, SwiGLU, MLPs, inits.
 
-The LM subset of the JAX package's ``models/layers.py``, as pure functions
+The LM subset of the JAX package's ``models/layers.py`` and its plain MLP
+stack (the recsys models'), as pure functions
 over plain dicts of tensors, with the same names, layouts and order of
 float32 casts: ``q (B, S, H, D)``, ``k/v (B, S, Hkv, D)``, query head ``h``
 on KV head ``h // G`` with ``G = H / Hkv``. Initializers draw from an
@@ -39,6 +40,29 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
     return (torch.randn((vocab, d), generator=generator,
                         device=generator.device) * 0.02).to(dtype)
+
+
+def mlp_params(generator: torch.Generator, dims: Tuple[int, ...],
+               dtype=torch.float32) -> Dict:
+    """Plain MLP param stack: dims = (in, h1, ..., out); weights (in, out)
+    at std 1/sqrt(in), biases zero, as lists ``{"w": [...], "b": [...]}``."""
+    ws, bs = [], []
+    for a, b in zip(dims[:-1], dims[1:]):
+        ws.append(dense_init(generator, a, b, dtype))
+        bs.append(torch.zeros((b,), dtype=dtype, device=generator.device))
+    return {"w": ws, "b": bs}
+
+
+def mlp_apply(params: Dict, x: torch.Tensor, act=torch.relu,
+              final_act=None) -> torch.Tensor:
+    n = len(params["w"])
+    for i, (w, b) in enumerate(zip(params["w"], params["b"])):
+        x = x @ w + b
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
 
 
 # ---------------------------------------------------------------------------

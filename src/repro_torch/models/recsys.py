@@ -1,0 +1,238 @@
+"""RecSys models: the EmbeddingBag substrate and DLRM's serving path.
+
+The port of the JAX package's ``models/recsys.py``, with its names,
+parameter tree and layouts. Every embedding lives in one unified table
+(the fields' vocabularies one after another, padded to ``ROW_PAD`` rows);
+a field's id plus the field's offset is its row.
+
+DLRM's per-field single-hot lookup (``embedding_lookup``) runs as
+``B * F`` bags of one row each on the EmbeddingBag kernel of
+``kernels/embedding_bag.py`` (its plain version on CPU tensors): one launch
+per ``serve_step``, two per ``retrieval_step`` (the user's fields, then the
+candidates). With weights 1 and one row a bag, the bag is its row, bit for
+bit, so the kernel computes what JAX's ``jnp.take`` computes. The keyword
+``lookup="plain"`` sends the lookups through the kernel's plain version
+instead, on any device; it exists to check the kernel against it on the
+card and nothing on the serving path sets it.
+
+The JAX code's ``constrain`` calls are sharding hints and are left out
+until ``distributed/`` is ported. Not ported yet, and refused with
+``NotImplementedError``: FM, DIN and BERT4Rec, and training (``loss_fn``)
+of every kind (ROADMAP.md §1 item 10e). Nothing here disables autograd:
+serving callers run under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.core import export
+from repro_torch.kernels.embedding_bag import embedding_bag as _bag_kernel
+from repro_torch.kernels.embedding_bag import embedding_bag_plain
+from repro_torch.models.layers import mlp_apply, mlp_params
+
+#: rows drawn per call when the table is initialised in place, so no
+#: full-size float32 copy of a 48 GB table is ever made
+INIT_CHUNK_ROWS = 1 << 22
+_LOOKUPS = {"kernel": _bag_kernel, "plain": embedding_bag_plain}
+
+
+def _not_ported(cfg: RecsysConfig, what: str):
+    return NotImplementedError(
+        f"{cfg.name}: {what} for recsys kind {cfg.kind!r} is not ported yet "
+        f"(ROADMAP.md §1 item 10e); only DLRM serving is")
+
+
+def _bag(lookup: str):
+    if lookup not in _LOOKUPS:
+        raise ValueError(f"unknown lookup {lookup!r} (kernel or plain)")
+    return _LOOKUPS[lookup]
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag substrate
+# ---------------------------------------------------------------------------
+
+ROW_PAD = 512  # tables pad to a multiple of the largest mesh (shard-evenly)
+
+
+def padded_rows(n: int) -> int:
+    return ((n + ROW_PAD - 1) // ROW_PAD) * ROW_PAD
+
+
+def field_offsets(vocab_sizes, device="cuda") -> torch.Tensor:
+    """Start row of each field inside the unified table (int32)."""
+    off = [0]
+    for v in vocab_sizes[:-1]:
+        off.append(off[-1] + v)
+    return torch.tensor(off, dtype=torch.int32, device=resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_on(vocab_sizes, device: torch.device) -> torch.Tensor:
+    """``field_offsets`` made once per device: a copy to the card on every
+    step would wait for the work already queued. Callers do not write it."""
+    return field_offsets(vocab_sizes, device)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     offsets: torch.Tensor, lookup: str = "kernel") -> torch.Tensor:
+    """Single-hot per field: ids (B, F) -> (B, F, d), as B*F bags of one
+    row (the row ``ids[b, f] + offsets[f]``)."""
+    b, f = ids.shape
+    gids = (ids.to(torch.int32) + offsets[None, :]).reshape(b * f, 1)
+    return _bag(lookup)(table, gids).reshape(b, f, table.shape[1])
+
+
+def embedding_bag(table: torch.Tensor, flat_ids: torch.Tensor,
+                  segment_ids: torch.Tensor, n_bags: int,
+                  weights: Optional[torch.Tensor] = None,
+                  mode: str = "sum") -> torch.Tensor:
+    """Ragged multi-hot bag: gather rows then segment-reduce into bags.
+
+    flat_ids (L,), segment_ids (L,) sorted bag ids, -> (n_bags, d). Plain
+    torch (no path calls it yet): sums and counts in the table's type as
+    ``jax.ops.segment_sum`` keeps them; an empty bag is 0 for "sum" and
+    "mean" and -inf for "max", as in JAX."""
+    rows = table[flat_ids.long()]
+    if weights is not None:
+        rows = rows * weights[:, None]
+    seg = segment_ids.long()
+    shape = (n_bags, rows.shape[1])
+    if mode in ("sum", "mean"):
+        s = torch.zeros(shape, dtype=rows.dtype, device=rows.device).index_add_(0, seg, rows)
+        if mode == "sum":
+            return s
+        c = torch.zeros((n_bags,), dtype=s.dtype, device=s.device).index_add_(
+            0, seg, torch.ones_like(seg, dtype=s.dtype))
+        return s / torch.clamp(c, min=1.0)[:, None]
+    if mode == "max":
+        init = torch.full(shape, float("-inf"), dtype=rows.dtype, device=rows.device)
+        return init.scatter_reduce(0, seg[:, None].expand_as(rows), rows, "amax")
+    raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# DLRM — bottom MLP + embedding lookups + dot interaction + top MLP
+# ---------------------------------------------------------------------------
+
+def _table_init(generator: torch.Generator, rows: int, d: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """A (rows, d) table at std 0.02 (the JAX init's), drawn in place in
+    row chunks on the generator's device: no float32 copy of the table."""
+    table = torch.empty((rows, d), dtype=dtype, device=generator.device)
+    for i in range(0, rows, INIT_CHUNK_ROWS):
+        table[i:i + INIT_CHUNK_ROWS].normal_(0.0, 0.02, generator=generator)
+    return table
+
+
+def init_dlrm(generator: torch.Generator, cfg: RecsysConfig) -> Dict:
+    """DLRM's parameters on the generator's device: the unified table
+    ``emb`` (padded_rows(total vocab), d), and the bottom and top MLPs
+    (``{"w": [...], "b": [...]}``)."""
+    v_total = padded_rows(sum(cfg.vocab_sizes))
+    dt = getattr(torch, cfg.dtype)
+    n_f = cfg.n_sparse + 1
+    d_int = n_f * (n_f - 1) // 2 + cfg.bot_mlp[-1]
+    return {
+        "emb": _table_init(generator, v_total, cfg.embed_dim, dt),
+        "bot": mlp_params(generator, (cfg.n_dense,) + cfg.bot_mlp, dt),
+        "top": mlp_params(generator, (d_int,) + cfg.top_mlp, dt),
+    }
+
+
+def dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
+    """vecs (B, F, d) -> upper-triangle of pairwise dots (B, F*(F-1)/2),
+    in the row-major order of ``jnp.triu_indices(F, k=1)``."""
+    z = torch.bmm(vecs, vecs.transpose(1, 2))
+    f = vecs.shape[1]
+    iu, ju = torch.triu_indices(f, f, 1, device=vecs.device)
+    return z[:, iu, ju]
+
+
+def _bottom(params: Dict, dense: torch.Tensor) -> torch.Tensor:
+    return mlp_apply(params["bot"], dense.to(params["emb"].dtype), act=torch.relu,
+                     final_act=torch.relu)
+
+
+def dlrm_forward(params: Dict, dense: torch.Tensor, ids: torch.Tensor,
+                 cfg: RecsysConfig, lookup: str = "kernel") -> torch.Tensor:
+    """dense (B, 13), ids (B, 26) -> logits (B,) float32."""
+    bot = _bottom(params, dense)                                     # (B,128)
+    emb = embedding_lookup(params["emb"], ids,
+                           _offsets_on(cfg.vocab_sizes, ids.device),
+                           lookup)                                   # (B,26,128)
+    vecs = torch.cat([bot[:, None, :], emb], dim=1)                  # (B,27,128)
+    x = torch.cat([bot, dot_interaction(vecs)], dim=-1)
+    return mlp_apply(params["top"], x)[:, 0].float()
+
+
+def dlrm_retrieval(params: Dict, dense: torch.Tensor, user_ids: torch.Tensor,
+                   cand_ids: torch.Tensor, cfg: RecsysConfig,
+                   lookup: str = "kernel") -> torch.Tensor:
+    """1 query context vs N candidates in the last sparse field.
+
+    Decomposed as in JAX: the 25 user rows and the bottom MLP are computed
+    once and broadcast into the interaction; only the candidate field
+    gathers at N scale."""
+    n = cand_ids.shape[0]
+    offs = _offsets_on(cfg.vocab_sizes, cand_ids.device)
+    bot = _bottom(params, dense)                                     # (1, d_bot)
+    user_emb = embedding_lookup(params["emb"], user_ids, offs[:-1],
+                                lookup)                              # (1,25,d)
+    cand_emb = embedding_lookup(params["emb"], cand_ids[:, None], offs[-1:],
+                                lookup)                              # (N,1,d)
+    fixed = torch.cat([bot[:, None, :], user_emb], dim=1)            # (1,26,d)
+    vecs = torch.cat([fixed.expand(n, -1, -1), cand_emb], dim=1)     # (N,27,d)
+    x = torch.cat([bot.expand(n, -1), dot_interaction(vecs)], dim=-1)
+    return mlp_apply(params["top"], x)[:, 0].float()
+
+
+# ---------------------------------------------------------------------------
+# Unified dispatch
+# ---------------------------------------------------------------------------
+
+def init_model(cfg: RecsysConfig, generator: torch.Generator,
+               device="cuda") -> Dict:
+    """Random parameters with the JAX init's distributions (the table at
+    std 0.02, dense layers at std 1/sqrt(fan_in), biases 0), drawn from
+    ``generator`` on ``device``, which must be the generator's own: a
+    full-width table (48 GB in bfloat16 for dlrm-mlperf) is drawn where it
+    lives, never moved."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"draw on {dev.type} with a {dev.type} generator, not "
+                         f"{generator.device.type}: the table is drawn in place")
+    if cfg.kind != "dlrm":
+        raise _not_ported(cfg, "init_model")
+    return init_dlrm(generator, cfg)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The JAX parameter tree (nested dicts and lists of numpy arrays, or
+    of tensors; the MLPs' ``w``/``b`` are lists) as the port's parameters:
+    the same nesting, contiguous tensors of the same dtype on ``device``
+    (bfloat16 arrays stay bfloat16)."""
+    return export.to_torch(tree, device)
+
+
+def serve_step(params: Dict, batch: Dict, cfg: RecsysConfig,
+               lookup: str = "kernel") -> torch.Tensor:
+    """Scores of a request batch: {"dense" (B, 13), "ids" (B, 26)} -> (B,)."""
+    if cfg.kind != "dlrm":
+        raise _not_ported(cfg, "serve_step")
+    return dlrm_forward(params, batch["dense"], batch["ids"], cfg, lookup)
+
+
+def retrieval_step(params: Dict, batch: Dict, cfg: RecsysConfig,
+                   lookup: str = "kernel") -> torch.Tensor:
+    """One query context vs N candidates: {"dense" (1, 13), "user_ids"
+    (1, 25), "candidates" (N,)} -> scores (N,)."""
+    if cfg.kind != "dlrm":
+        raise _not_ported(cfg, "retrieval_step")
+    return dlrm_retrieval(params, batch["dense"], batch["user_ids"],
+                          batch["candidates"], cfg, lookup)

@@ -39,7 +39,9 @@ def test_slice_modules_are_all_there():
               "repro_torch.core.plan", "repro_torch.core.wire",
               "repro_torch.configs.qwen3_0_6b", "repro_torch.data.lm",
               "repro_torch.models.layers", "repro_torch.models.transformer",
-              "repro_torch.kernels.flash_attention"):
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.configs.dlrm_mlperf", "repro_torch.data.recsys",
+              "repro_torch.models.recsys", "repro_torch.kernels.embedding_bag"):
         assert m in mods, m
 
 
@@ -58,10 +60,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("module", ["repro_torch.models.transformer",
-                                    "repro_torch.kernels.flash_attention"])
-def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
-    """Each entry module of the LM path, imported alone in a fresh process."""
+def _alone(module):
+    """The forbidden modules loaded by importing ``module`` alone in a
+    fresh process."""
     code = (f"import json, sys, {module}\n"
             "print(json.dumps(sorted(n for n in sys.modules\n"
             f"                      if n.split('.')[0] in {FORBIDDEN!r})))\n")
@@ -69,7 +70,23 @@ def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.transformer",
+                                    "repro_torch.kernels.flash_attention"])
+def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
+    """Each entry module of the LM path, imported alone in a fresh process."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.recsys",
+                                    "repro_torch.kernels.embedding_bag",
+                                    "repro_torch.data.recsys"])
+def test_the_dlrm_path_alone_loads_no_jax_and_no_repro(module):
+    """Each entry module of the DLRM serving path, imported alone in a
+    fresh process."""
+    assert _alone(module) == []
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
