@@ -31,7 +31,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             same checks (at 32768 on the first and last 256 query rows
             against all keys, where the plain version's full scores would
             not fit), SDPA as a yardstick held against the kernel, times of
-            the kernel, the plain version where it fits and SDPA, the bound
+            the kernel, the plain version where it fits and SDPA, the bound;
+            bfloat16 also at B=2 for S around the 64-key tiles (63 .. 191),
+            where a tile crosses the diagonal; first each route's design
+            stage (bfloat16: mma.sync or wgmma; float32: CUDA cores),
+            registers, spills, shared memory and blocks resident on an SM
   lm-check  the LM path in float32 against itself: prefill through the
             kernel ("flash") == plain torch ("chunked"), logits and cache;
             decode at position S == forward over S+1 tokens
@@ -40,10 +44,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             steps on the copied cache, prefill 1 x 32768; the attention
             kernel's launch counter is set to 0 just before and read just
             after, and must show 28 launches per prefill and none in
-            decode; prefill tokens/s, decode ms per step, busy shares
+            decode; prefill tokens/s, decode ms per step, busy shares and
+            the attention kernel's share of a prefill's device time
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
-            and bfloat16, with and without weights; in float32 over a
+            and bfloat16, with and without weights; ids outside the table
+            (-1, -V, V, -V-1: jnp.take's wrap, and a NaN bag outside
+            [-V, V)), NaN positions equal; in float32 over a
             20M-row table (past 2^31 elements) at the serve shapes' bag
             counts with ids from its last 10% of rows, and multi-hot; then
             dlrm-mlperf's full table (187,767,808 x 128 bfloat16, 48.07 GB,
@@ -108,6 +115,9 @@ ATTN_TOLERANCE = {"float32": 2e-5, "bfloat16": 3e-2}
 #: of the output, 2^-8 of it, so 1e-2 leaves 2.5x; float32 keeps 2e-5
 ATTN_REL_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-2}
 ATTN_SHAPES = ((1, 1), (2, 7), (1, 128), (2, 130), (4, 1024), (1, 4096))
+#: bfloat16 lengths whose last tile of 64 keys crosses the diagonal inside
+#: it, at its edge or one key past it, at B=2
+ATTN_DIAGONAL_S = (63, 64, 65, 127, 129, 191)
 #: timed: the LM phase's two prefills; the plain version is timed only where
 #: its scores fit (at S=32768 they would take 68.7 GB)
 ATTN_TIMED = ((8, 2048, "bfloat16"), (8, 2048, "float32"), (1, 32768, "bfloat16"))
@@ -191,7 +201,7 @@ def phase_build() -> None:
     for name in KERNELS:
         log(f"build: {name} nvcc {build.BUILD_SECONDS[name]:.3f} s")
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "arning")):
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -362,7 +372,8 @@ def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool", top: int = 5) -> 
     busy = (busy + cur_e - cur_s) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return (f"device busy {busy:.3f} ms over {len(spans)} device events "
-            f"({kernel} {kernel_ms:.3f} ms, {kernel_n} launches) in a "
+            f"({kernel} {kernel_ms:.3f} ms, {kernel_n} launches, "
+            f"{kernel_ms / busy:.4f} of the device time) in a "
             f"{wall_ms:.3f} ms profiled run: busy share {busy / wall_ms:.4f} "
             f"(idle {1 - busy / wall_ms:.4f}); top device time: "
             + "; ".join(f"{name[:72]} {ms:.3f} ms x{n}" for name, (ms, n) in ranked))
@@ -543,16 +554,26 @@ def phase_attn_kernel(torch, cfg) -> dict:
         return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dt)
                      for n in (h, hkv, hkv))
 
+    routes = {}
+    for dtype in ("float32", "bfloat16"):
+        info = routes[dtype] = FA.route_info(getattr(torch, dtype))
+        log(f"attn-kernel: {dtype} route: stage {info['stage']} ({info['design']}), "
+            f"{info['registers']} registers and {info['local_bytes']} local (spill) bytes a "
+            f"thread, shared memory {info['static_smem']} B static + {info['dynamic_smem']} B "
+            f"dynamic a block, {info['threads']} threads a block, {info['blocks_per_sm']} "
+            f"blocks resident on an SM")
+
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for b, s in ATTN_SHAPES:
-        for dtype in ("float32", "bfloat16"):
-            q, k, v = inputs(b, s, dtype)
-            got = FA.flash_attention(q, k, v)
-            want = FA.flash_attention_plain(q, k, v)
-            err = _attn_agrees(torch, got, want, dtype,
-                               f"kernel vs plain B={b} S={s} H={h} Hkv={hkv} d={d}")
-            max_err[dtype] = max(max_err[dtype], err)
-            del q, k, v, got, want
+    checks = [(b, s, dtype) for b, s in ATTN_SHAPES for dtype in ("float32", "bfloat16")]
+    checks += [(2, s, "bfloat16") for s in ATTN_DIAGONAL_S]
+    for b, s, dtype in checks:
+        q, k, v = inputs(b, s, dtype)
+        got = FA.flash_attention(q, k, v)
+        want = FA.flash_attention_plain(q, k, v)
+        err = _attn_agrees(torch, got, want, dtype,
+                           f"kernel vs plain B={b} S={s} H={h} Hkv={hkv} d={d}")
+        max_err[dtype] = max(max_err[dtype], err)
+        del q, k, v, got, want
     torch.cuda.empty_cache()
 
     timings = {}
@@ -600,7 +621,7 @@ def phase_attn_kernel(torch, cfg) -> dict:
             f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
         del q, k, v, qt, kt, vt, fns
         torch.cuda.empty_cache()
-    return {"max_err": max_err, "timings": timings}
+    return {"max_err": max_err, "timings": timings, "routes": routes}
 
 
 # ---------------------------------------------------------------- lm-check --
@@ -809,8 +830,9 @@ def _bag_agrees(torch, EB, table, ids, weights, dtype: str, what: str) -> float:
     log(f"bag-kernel: {what} {dtype}: max_abs_err={err:.3e} tol={BAG_TOLERANCE[dtype]} "
         f"bit_equal={exact} {'ok' if ok else 'FAIL'}")
     check(ok, f"bag kernel disagrees with its plain version at {what} {dtype}: {err}")
-    if ids.shape[1] == 1 and weights is None:   # a bag of one row is that row
-        check(exact, f"bag kernel: single-row bags are not their rows at {what} {dtype}")
+    # both sum each bag in float32 in order, each product and sum rounded
+    # on its own, so they agree bit for bit (a bag of one row is that row)
+    check(exact, f"bag kernel is not bit-equal to its plain version at {what} {dtype}")
     return err
 
 
@@ -856,6 +878,30 @@ def phase_bag_kernel(torch, cfg, seed: int) -> dict:
                 err = _bag_agrees(torch, EB, table, ids, w, dtype,
                                   f"V={v} d={d_} B={b} L={l} weighted={w is not None}")
                 max_err[dtype] = max(max_err[dtype], err)
+
+    # ids outside the table, as jnp.take reads them: [-V, 0) wraps to
+    # id + V, and an id outside [-V, V) makes its whole bag NaN
+    v, b, l = BAG_SHAPES[3][0], 13, 3
+    for dtype in ("float32", "bfloat16"):
+        table = torch.randn((v, d), generator=gen, device="cuda").to(getattr(torch, dtype))
+        for bad in (-1, -v, v, -v - 1):
+            ids = torch.randint(0, v, (b, l), generator=gen, device="cuda", dtype=torch.int32)
+            ids[1, 2] = ids[4, 0] = bad
+            for w in (None, weights(b, l)):
+                got = EB.embedding_bag(table, ids, w).float()
+                want = EB.embedding_bag_plain(table, ids, w).float()
+                nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+                same_nan = bool(torch.equal(nan_got, nan_want))
+                nan_bags = nan_want.all(dim=1).nonzero().view(-1).tolist()
+                err = (got - want).nan_to_num(0.0).abs().max().item()
+                ok = (same_nan and nan_bags == ([1, 4] if bad in (v, -v - 1) else [])
+                      and err <= BAG_TOLERANCE[dtype])
+                log(f"bag-kernel: id {bad} at bags 1 and 4, V={v} B={b} L={l} "
+                    f"weighted={w is not None} {dtype}: NaN positions equal={same_nan}, "
+                    f"NaN bags {nan_bags}, max_abs_err elsewhere={err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"bag kernel: id {bad} outside the table disagrees with the "
+                          f"plain version ({dtype}, weighted={w is not None})")
 
     # float32 over a table past 2^31 elements: a 32-bit offset would wrap
     table = torch.empty((BAG_F32_ROWS, d), device="cuda").normal_(generator=gen)
@@ -1194,7 +1240,7 @@ def main(argv=None) -> int:
         "max_abs_err_float32": attn["max_err"]["float32"], "ms": tfa["kernel"],
         "plain_ms": tfa["plain"], "bound_ms": tfa["bound_ms"],
         "bound_by": tfa["bound_by"], "library_ms": tfa["library"],
-        "device_ms": tfa["device_ms"],
+        "device_ms": tfa["device_ms"], "design": attn["routes"]["bfloat16"]["design"],
         "dtype": "bfloat16", "shape": f"B={LM_BATCH} S={LM_SEQ} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
     }, {

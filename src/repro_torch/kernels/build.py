@@ -7,6 +7,10 @@ one ``nvcc`` call builds it in seconds:
        -shared -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so
        csrc/<name>.cu
 
+The toolkit must be CUDA 12.5 or later: ``flash_attention.cu`` takes
+``cuTensorMapEncodeTiled`` from ``cudaGetDriverEntryPointByVersion`` and
+refuses to compile on an older one.
+
 The library lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads the library already built. It is loaded with ``ctypes``. Nothing here
@@ -34,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 when it was
 #: found already built), and what nvcc printed (ptxas: registers, spills,
-#: shared memory per kernel)
+#: shared memory per kernel), also kept beside the library as ``.log``
 BUILD_SECONDS: Dict[str, float] = {}
 BUILD_LOG: Dict[str, str] = {}
 #: ``build/kernels/`` at the repository root (listed in ``.gitignore``)
@@ -59,8 +63,11 @@ def compile_library(name: str) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():   # keeps the time of a build made earlier in this process
         BUILD_SECONDS.setdefault(name, 0.0)
+        if name not in BUILD_LOG and log.exists():
+            BUILD_LOG[name] = log.read_text()
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
@@ -70,9 +77,10 @@ def compile_library(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stdout + proc.stderr
+    log.write_text(BUILD_LOG[name])   # before the library, so a found library has its log
+    os.replace(tmp, lib)
     return lib
 
 

@@ -34,14 +34,16 @@
 //     every slice is aligned; the wrapper refuses anything else;
 //   * every lane reads the bag's id (and weight) itself: the 32 reads of
 //     one address are one broadcast transaction;
-//   * offsets are 64-bit: (size_t)id * d reaches 2.4e10 elements in the
+//   * offsets are 64-bit: (size_t)row * d reaches 2.4e10 elements in the
 //     full 187,767,808-row dlrm-mlperf table, past 2^31;
-//   * an id outside [0, V) contributes nothing to its bag (its row is read
-//     as zeros): the kernel never reads outside the table. The wrapper
-//     refuses such ids on the CPU; on the card it does not check them,
-//     which would cost a pass over the ids and a synchronisation;
+//   * ids follow the reference's jnp.take: an id in [-V, 0) names row
+//     id + V, and an id outside [-V, V) makes its whole bag NaN (take fills
+//     such a row with NaN, and the sum carries it). Such an id is never
+//     used as an address, so the kernel never reads outside the table;
 //   * with no weights nothing is multiplied, so an L = 1 bag is its row,
-//     bit for bit (0 + x is x), in either type.
+//     bit for bit (0 + x is x), in either type; with weights each product
+//     and each sum is rounded on its own (no fused multiply-add), so the
+//     plain version, which sums in the same order, agrees bit for bit.
 // It runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() after the launch.
 
@@ -102,23 +104,32 @@ embedding_bag_kernel(const T* __restrict__ table, long long n_rows, int d,
   T* dst = out + bag * d;
   for (int c = lane * VEC; c < d; c += 32 * VEC) {
     Vec4 acc = {0.f, 0.f, 0.f, 0.f};
+    bool outside = false;
 #pragma unroll 4
     for (int l = 0; l < bag_len; ++l) {
       const int32_t id = __ldg(bag_ids + l);
-      if (id < 0 || id >= n_rows) continue;
-      const Vec4 r = load4(table + (size_t)id * d + c);
+      const long long row = id < 0 ? id + n_rows : id;
+      if (row < 0 || row >= n_rows) {
+        outside = true;
+        continue;
+      }
+      const Vec4 r = load4(table + (size_t)row * d + c);
       if (bag_w == nullptr) {
         acc.x += r.x;
         acc.y += r.y;
         acc.z += r.z;
         acc.w += r.w;
-      } else {
+      } else {   // product and sum each rounded (no fused multiply-add)
         const float w = __ldg(bag_w + l);
-        acc.x += w * r.x;
-        acc.y += w * r.y;
-        acc.z += w * r.z;
-        acc.w += w * r.w;
+        acc.x = __fadd_rn(acc.x, __fmul_rn(w, r.x));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(w, r.y));
+        acc.z = __fadd_rn(acc.z, __fmul_rn(w, r.z));
+        acc.w = __fadd_rn(acc.w, __fmul_rn(w, r.w));
       }
+    }
+    if (outside) {
+      const float nan = __int_as_float(0x7fc00000);
+      acc = {nan, nan, nan, nan};
     }
     store4(dst + c, acc);
   }

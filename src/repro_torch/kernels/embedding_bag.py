@@ -13,10 +13,9 @@ plain PyTorch version of the same function. There is no other route: a CUDA
 call launches the kernel or raises. ``weights=None`` reaches the kernel as a
 null pointer, not as a tensor of ones.
 
-Ids must lie in ``[0, V)``. The wrapper checks that on CPU tensors; on the
-card it does not (that would cost a pass over the ids and a
-synchronisation), and the kernel adds nothing for an id outside the table,
-never reading outside it.
+Ids follow the JAX package's ``jnp.take``: an id in ``[-V, 0)`` names row
+``id + V``, and an id outside ``[-V, V)`` makes its whole bag NaN. Both
+routes do this, and neither reads outside the table.
 
 ``launches`` counts the kernel's launches, so a run can show that its path
 went through the kernel; ``reset_launches`` sets it to 0.
@@ -52,11 +51,22 @@ def embedding_bag_plain(table: torch.Tensor, ids: torch.Tensor,
                         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """take + weighted sum over the bag axis, the port of the JAX package's
     oracle ``ref.embedding_bag_ref``: the rows in float32, times the
-    weights, summed in float32, cast to the table's type."""
-    rows = table[ids.long()].float()                  # (B, L, d)
+    weights, summed in float32 in order l = 0 .. L-1 (the kernel's order,
+    so the two agree bit for bit), cast to the table's type. Ids index as
+    ``jnp.take`` does: ``[-V, 0)`` wraps, and a bag holding an id outside
+    ``[-V, V)`` is NaN."""
+    v = table.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + v, idx)
+    outside = ((idx < 0) | (idx >= v)).any(dim=1, keepdim=True)   # (B, 1)
+    rows = table[idx.clamp(0, v - 1)].float()         # (B, L, d)
     if weights is not None:
         rows = rows * weights.float()[..., None]
-    return rows.sum(dim=1).to(table.dtype)
+    out = torch.zeros((ids.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for l in range(ids.shape[1]):
+        out = out + rows[:, l]
+    return out.masked_fill(outside, float("nan")).to(table.dtype)
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor,
@@ -118,10 +128,6 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     global launches
     _check(table, ids, weights)
     if table.device.type == "cpu":
-        bad = (ids < 0) | (ids >= table.shape[0])
-        if bool(bad.any()):
-            raise ValueError(f"ids outside [0, {table.shape[0]}): "
-                             f"{ids[bad][:8].tolist()}")
         return embedding_bag_plain(table, ids, weights)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")

@@ -4,12 +4,15 @@ On the CPU the wrapper runs the plain PyTorch version. It is held against
 the JAX package's oracle ``ref.embedding_bag_ref`` at
 ``tests/test_kernels.py``'s parameter grid, with its tolerances (float32
 1e-5, bfloat16 3e-2), and an L=1 bag with no weights is held bit for bit
-against ``jnp.take``, the lookup DLRM makes. The Pallas kernel itself is no
+against ``jnp.take``, the lookup DLRM makes. Ids outside the table follow
+``jnp.take`` too: [-V, 0) wraps, and a bag with an id outside [-V, V) is
+NaN, at the same positions. The Pallas kernel itself is no
 target: under the installed jax it raises ``AttributeError`` on ``pl.load``
 (ROADMAP.md, faults item 1).
 
 The ``cuda``-marked tests hold the CUDA kernel itself against the plain
-version and skip where no card is present (``chip_smoke.py`` does the same
+version, bit for bit (both sum a bag in order, each product and sum
+rounded on its own), and skip where no card is present (``chip_smoke.py`` does the same
 at dlrm-mlperf's shapes over its full table). The JAX side is imported by
 a fixture, so that the card-only tests also run on a machine with the
 port's dependencies alone:
@@ -110,7 +113,7 @@ def _good():
 
 @pytest.mark.parametrize("case", [
     "float64", "int64_ids", "rank", "weights_shape", "int_weights",
-    "non_contiguous", "empty", "id_past_the_table", "negative_id",
+    "non_contiguous", "empty",
 ])
 def test_wrapper_refuses_bad_inputs(case):
     table, ids, w = _good()
@@ -128,12 +131,59 @@ def test_wrapper_refuses_bad_inputs(case):
         table = table.t().contiguous().t()
     elif case == "empty":
         ids, w = ids[:0], w[:0]
-    elif case == "id_past_the_table":
-        ids[1, 1] = table.shape[0]
-    elif case == "negative_id":
-        ids[0, 0] = -1
     with pytest.raises((ValueError, TypeError)):
         EB.embedding_bag(table, ids, w)
+
+
+def _ids_outside(v, bad_id, weighted, seed=4):
+    """A (6, 3) bag batch over a (v, 8) table with ``bad_id`` at bag 1
+    position 2 and bag 4 position 0; the other ids lie in [0, v)."""
+    table, ids, w = _inputs(v, 8, 6, 3, weighted, seed=seed)
+    ids[1, 2] = ids[4, 0] = bad_id
+    return table, ids, w
+
+
+@pytest.mark.parametrize("which", ["minus_1", "minus_v", "v", "minus_v_minus_1"])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_ids_outside_the_table_follow_the_jax_oracle(ref, which, weighted, dtype, tol):
+    """``jnp.take``'s indexing: ids in [-V, 0) wrap to id + V, and an id
+    outside [-V, V) makes its whole bag NaN. NaN positions match exactly."""
+    jnp, v = ref.jnp, 40
+    bad_id = {"minus_1": -1, "minus_v": -v, "v": v, "minus_v_minus_1": -v - 1}[which]
+    table, ids, w = _ids_outside(v, bad_id, weighted)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = np.asarray(ref.ref.embedding_bag_ref(
+        jnp.asarray(table).astype(jdt), jnp.asarray(ids),
+        None if w is None else jnp.asarray(w)).astype(jnp.float32))
+    got = EB.embedding_bag(torch.from_numpy(table).to(tdt), torch.from_numpy(ids),
+                           None if w is None else torch.from_numpy(w))
+    assert got.dtype == tdt and tuple(got.shape) == (6, 8)
+    got = got.float().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want).any() == (which in ("v", "minus_v_minus_1"))
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)   # NaN == NaN here
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["minus_1", "minus_v", "v", "minus_v_minus_1"])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_ids_outside_the_table_match_plain(cuda_device, which, weighted,
+                                                        dtype, tol):
+    """The kernel wraps ids in [-V, 0) and makes a bag with an id outside
+    [-V, V) NaN, as the plain version (and jnp.take) does."""
+    v = 40
+    bad_id = {"minus_1": -1, "minus_v": -v, "v": v, "minus_v_minus_1": -v - 1}[which]
+    table, ids, w = (None if a is None else torch.from_numpy(a).to(cuda_device)
+                     for a in _ids_outside(v, bad_id, weighted))
+    table = table.to(getattr(torch, dtype))
+    got = EB.embedding_bag(table, ids, w).float()
+    want = EB.embedding_bag_plain(table, ids, w).float()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(want).any()) == (which in ("v", "minus_v_minus_1"))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -151,8 +201,7 @@ def test_cuda_kernel_matches_plain(cuda_device, v, d, b, l, weighted, dtype, tol
     assert EB.launches == before + 1
     want = EB.embedding_bag_plain(table, ids, w)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    if l == 1 and not weighted:
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)   # the same float32 sums in the same order
 
 
 @pytest.mark.cuda

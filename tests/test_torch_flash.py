@@ -8,8 +8,11 @@ sequence lengths (37, 130), where the Pallas kernel asserts divisibility.
 Inputs are standard normal, so the softmax stays spread, not one-hot.
 
 The ``cuda``-marked tests hold the CUDA kernel itself against the plain
-version and skip where no card is present (``chip_smoke.py`` does the same
-at qwen3-0.6b's widths). The JAX side is imported by a fixture, so that the
+version, by max absolute error and by the error's norm, at d=128 for
+lengths around its 64-key tiles, for 1, 2, 4 and 8 query heads a KV head,
+and at qwen3-0.6b's 8 x 2048 prefill, in both routes (bfloat16 on the
+tensor cores, float32 on the CUDA cores); they skip where no card is
+present (``chip_smoke.py`` does the same at qwen3-0.6b's widths). The JAX side is imported by a fixture, so that the
 card-only tests also run on a machine with the port's dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash.py
@@ -36,9 +39,18 @@ SHAPES = [
     (1, 130, 16, 8, 32, None, None),
 ]
 DTYPES = [("float32", 2e-5), ("bfloat16", 3e-2)]
-# shapes for the card: qwen3-0.6b's head width and grouping, ragged lengths
-CUDA_SHAPES = [(1, 1, 16, 8, 128), (2, 7, 16, 8, 128), (2, 130, 16, 8, 128),
-               (1, 257, 16, 8, 128)]
+# the card also holds the error's norm over the output's norm: float32 to
+# 2e-5; two right bfloat16 results differ by about one rounding of the
+# output (2^-8 of it), so 1e-2
+REL_NORM_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# shapes for the card at qwen3-0.6b's head width: ragged lengths and
+# lengths around the kernel's 64-key tiles (63, 64, 65 cross the diagonal
+# inside a tile, at its edge, one key past it), at G = H / Hkv of 1, 2
+# (qwen3-0.6b's 16 / 8), 4 and 8 query heads a KV head
+CUDA_LENGTHS = [1, 7, 63, 64, 65, 130, 257]
+CUDA_GROUPS = [1, 2, 4, 8]
+CUDA_SHAPES = [(1 if s in (1, 257) else 2, s, 16, 16 // g, 128)
+               for g in CUDA_GROUPS for s in CUDA_LENGTHS]
 
 
 def _qkv(b, s, h, hkv, d, seed=0):
@@ -149,18 +161,45 @@ def test_wrapper_refuses_bad_inputs(case):
         FA.flash_attention(q, k, v)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES)
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-def test_cuda_kernel_matches_plain(cuda_device, b, s, h, hkv, d, dtype, tol):
+def _assert_kernel_matches_plain(b, s, h, hkv, d, dtype, tol, device):
     tdt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).to(cuda_device, tdt) for a in _qkv(b, s, h, hkv, d))
+    q, k, v = (torch.from_numpy(a).to(device, tdt) for a in _qkv(b, s, h, hkv, d))
     before = FA.launches
     got = FA.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert FA.launches == before + 1
-    want = FA.flash_attention_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert got.dtype == tdt and tuple(got.shape) == (b, s, h, d)
+    want = FA.flash_attention_plain(q, k, v).float()
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    rel = (torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want)).item()
+    assert rel <= REL_NORM_TOL[dtype], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_matches_plain(cuda_device, b, s, h, hkv, d, dtype, tol):
+    _assert_kernel_matches_plain(b, s, h, hkv, d, dtype, tol, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_matches_plain_at_the_prefill_shape(cuda_device, dtype, tol):
+    """qwen3-0.6b's prefill of 8 x 2048 (H=16, Hkv=8): 32 diagonal tiles a
+    row of blocks, and the error's norm gate where randn outputs are small."""
+    _assert_kernel_matches_plain(8, 2048, 16, 8, 128, dtype, tol, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_routes_report_their_design(cuda_device):
+    """bfloat16 runs on the tensor cores (wgmma + TMA, stage 2: a producer
+    and two consumer warpgroups), float32 on the CUDA cores (256 threads);
+    each fits at least one block on an SM and spills nothing."""
+    bf16, f32 = FA.route_info(torch.bfloat16), FA.route_info(torch.float32)
+    assert (bf16["stage"], bf16["design"], bf16["threads"]) == (2, "wgmma + TMA", 384)
+    assert (f32["stage"], f32["design"], f32["threads"]) == (0, "CUDA-core FMA", 256)
+    for info in (bf16, f32):
+        assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
 
 
 @pytest.mark.cuda
