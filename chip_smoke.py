@@ -12,9 +12,14 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             (ptxas register and spill report printed)
   kernel    the conv kernel against its plain PyTorch version on the card
             at every shape the main path gives it (and a ragged and a small
-            one), in float32 and bfloat16; then its time from CUDA events,
-            the plain version's, one PyTorch library call's as a yardstick,
-            and the bound the card's data-sheet rates put on the same work
+            one, and shapes that cross the float32 kernel's tile edges), in
+            float32 and bfloat16; with NaN and +-inf in the inputs at B=256
+            (NaN positions equal, +-inf giving +-1); each route's design
+            stage, registers, spills, shared memory and blocks resident on
+            an SM; then its time from CUDA events, the plain version's, one
+            PyTorch library call's as a yardstick, and the bound the card's
+            data-sheet rates put on the same work (float32: on the CUDA
+            cores and in 3xTF32 on the tensor cores)
   pipeline  the paper's system at the full width of sm-cnn (weights from
             --seed): Retrieve(h=20) >> Rerank("pallas") % 10 planned on the
             card through PlanContext + plan, `local` on 32 queries and
@@ -96,10 +101,22 @@ SRC = ROOT / "src"
 #: H100 SXM data-sheet rates (NVIDIA's published dense peaks)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: dense TF32 on the tensor cores: float32-accurate work in 3xTF32 takes
+#: three of its products for each float32 one
+TF32_FLOPS = 495e12
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
 #: kernel batch sizes: the scorer buckets of both plans (1..4096) and a
 #: ragged one; S, d, w, F are sm-cnn's
 KERNEL_BATCHES = (1, 3, 8, 64, 256, 1024, 4096)
+#: (B, S, d, w, F) across the float32 kernel's tile edges: S=1 (5 windows),
+#: S=13 (17 windows, not a multiple of 8 or 16), F around 8 and past 104 and
+#: 112 (filter tiles of 16, the bank padded to 8), d around the k8 pad, more
+#: samples than 132 SMs hold blocks; S past one chunk of 9 window tiles (69:
+#: two, 141: three) up to the longest S its shared memory takes (180)
+KERNEL_EDGE_SHAPES = ((4, 1, 50, 5, 100), (4, 13, 50, 5, 100), (4, 64, 50, 5, 8),
+                      (4, 64, 50, 5, 9), (4, 64, 50, 5, 105), (4, 64, 50, 5, 113),
+                      (4, 64, 8, 5, 100), (4, 64, 57, 5, 100), (133, 64, 50, 5, 100),
+                      (4, 69, 50, 5, 100), (2, 141, 50, 5, 100), (2, 180, 50, 5, 100))
 TIMED_BATCHES = (256, 4096)
 TIE_ATOL = 1e-5
 #: every kernel of the port's paths (csrc/<name>.cu)
@@ -249,16 +266,20 @@ def _profiled_device_ms(torch, fn, name: str, iters: int = 20):
 def conv_bound(b: int, s: int, d: int, w: int, f: int, dtype: str):
     """Least time for the conv on the card: each input read once and the
     output written once at the memory rate, against the multiply-adds at
-    the dtype's peak (tensor cores for bfloat16). Each of the S real rows
-    meets each of the w taps once; products with the zero pad rows are not
-    needed, so they are not counted."""
+    the dtype's peak (the CUDA cores for float32, the tensor cores for
+    bfloat16). Each of the S real rows meets each of the w taps once;
+    products with the zero pad rows are not needed, so they are not counted.
+    Also the float32-accurate bound on the tensor cores: 3xTF32, three TF32
+    products for each float32 one (None for bfloat16)."""
     es = 4 if dtype == "float32" else 2
     n_bytes = (b * s * d + w * d * f + f + b * f) * es
     flops = 2 * b * s * w * d * f
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_3xtf32 = (max(t_bytes, 3 * flops / TF32_FLOPS * 1e3) if dtype == "float32"
+                else None)
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
-        n_bytes, flops
+        n_bytes, flops, t_3xtf32
 
 
 def phase_kernel(torch, cfg) -> dict:
@@ -278,8 +299,19 @@ def phase_kernel(torch, cfg) -> dict:
         bias = (torch.randn((f_,), generator=gen, device="cuda") * 0.1).to(dt)
         return x, filt, bias
 
+    routes = {}
+    for dtype in ("float32", "bfloat16"):
+        info = routes[dtype] = K.route_info(getattr(torch, dtype), s, d, f)
+        log(f"kernel: {dtype} route: stage {info['stage']} ({info['design']}), "
+            f"registers={info['registers']} spill_bytes={info['local_bytes']} "
+            f"static_smem={info['static_smem']} dynamic_smem={info['dynamic_smem']} "
+            f"blocks_per_sm={info['blocks_per_sm']} threads={info['threads']} "
+            f"at S={s} d={d} F={f}")
+        check(info["local_bytes"] == 0, f"the {dtype} conv kernel spills")
+
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    shapes = [(b, s, d, w, f) for b in KERNEL_BATCHES] + [(8, 16, 8, 5, 12)]
+    shapes = ([(b, s, d, w, f) for b in KERNEL_BATCHES] + [(8, 16, 8, 5, 12)]
+              + list(KERNEL_EDGE_SHAPES))
     for shape in shapes:
         for dtype in ("float32", "bfloat16"):
             x, filt, bias = inputs(*shape, dtype)
@@ -295,6 +327,33 @@ def phase_kernel(torch, cfg) -> dict:
                       f"{shape} {dtype}: {err}")
             if shape[1:] == (s, d, w, f):
                 max_err[dtype] = max(max_err[dtype], err)
+
+    # NaN and +-inf, as tests/test_torch_kernels.py places them: a NaN in
+    # sample 0, +inf and -inf at sample 1's first and last rows, a NaN in
+    # the last filter column. JAX's max keeps NaN and tanh(+-inf) is +-1.
+    for dtype in ("float32", "bfloat16"):
+        x, filt, bias = inputs(256, s, d, w, f, dtype)
+        x[0, s // 2, 1] = math.nan
+        x[1, 0, 2] = math.inf
+        x[1, s - 1, 0] = -math.inf
+        filt[3, f - 1] = math.nan
+        got = K.conv_tanh_maxpool(x, filt, bias, w).float()
+        want = K.conv_tanh_maxpool_plain(x, filt, bias, w).float()
+        torch.cuda.synchronize()
+        same_nan = bool(torch.equal(got.isnan(), want.isnan()))
+        finite = ~want.isnan()
+        err = (got[finite] - want[finite]).abs().max().item()
+        shape_ok = (bool(got[0].isnan().all()) and bool(got[:, -1].isnan().all())
+                    and bool(torch.isfinite(got[1:, :-1]).all())
+                    and bool((got[1, :-1] == 1.0).any()))
+        ok = same_nan and shape_ok and err <= TOLERANCE[dtype]
+        log(f"kernel: non-finite inputs B=256 {dtype}: NaN positions "
+            f"{'equal' if same_nan else 'DIFFER'} ({int(got.isnan().sum())} NaN), "
+            f"sample 0 and filter {f - 1} NaN, +-inf giving +1: {shape_ok}; "
+            f"finite max_abs_err={err:.3e} tol={TOLERANCE[dtype]} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"conv kernel on non-finite inputs {dtype}: NaN positions equal "
+                  f"{same_nan}, pattern {shape_ok}, finite error {err}")
 
     timings = {}
     for b in TIMED_BATCHES:
@@ -317,17 +376,22 @@ def phase_kernel(torch, cfg) -> dict:
             })
             dev_ms = _profiled_device_ms(
                 torch, lambda: K.conv_tanh_maxpool(x, filt, bias, w), "conv_tanh_maxpool")
-            bound_ms, bound_by, n_bytes, flops = conv_bound(b, s, d, w, f, dtype)
+            bound_ms, bound_by, n_bytes, flops, tf32_ms = conv_bound(b, s, d, w, f, dtype)
             timings[(b, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
-                                       device_ms=dev_ms)
+                                       device_ms=dev_ms, bound_ms_3xtf32=tf32_ms)
+            tf32_note = ("" if tf32_ms is None else
+                         f" bound_ms_3xtf32={tf32_ms:.5f} (3 x {flops / 1e9:.3f} GFLOP "
+                         f"at 495 TFLOP/s) share_of_3xtf32_bound="
+                         f"{tf32_ms / t['kernel']:.3f}")
             log(f"kernel: B={b} {dtype} kernel_ms={t['kernel']:.5f} "
                 f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
                 f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
                 f"(F.conv1d+tanh+amax, max_abs_err vs plain {lib_err:.2e}) "
                 f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e9:.3f} GFLOP "
                 f"at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.3f} MB "
-                f"at 3.35 TB/s) share_of_bound={bound_ms / t['kernel']:.3f}")
-    return {"max_err": max_err, "timings": timings}
+                f"at 3.35 TB/s) share_of_bound={bound_ms / t['kernel']:.3f}"
+                f"{tf32_note} achieved_tflops={flops / t['kernel'] / 1e9:.1f}")
+    return {"max_err": max_err, "timings": timings, "routes": routes}
 
 
 # ---------------------------------------------------------------- pipeline --
@@ -1231,7 +1295,8 @@ def main(argv=None) -> int:
         "max_abs_err": kern["max_err"]["float32"], "ms": t32["kernel"],
         "plain_ms": t32["plain"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": t32["library"],
-        "device_ms": t32["device_ms"],
+        "device_ms": t32["device_ms"], "bound_ms_3xtf32": t32["bound_ms_3xtf32"],
+        "design": kern["routes"]["float32"]["design"],
         "dtype": "float32", "shape": "B=256 S=64 d=50 w=5 F=100",
     }, {
         "name": "flash_attention", "route": "cuda", "source": flash_attention.SOURCE,

@@ -9,12 +9,34 @@ bound with ``ctypes``; a CPU tensor goes to ``conv_tanh_maxpool_plain``, the
 plain PyTorch version of the same function. There is no other route: a CUDA
 call launches the kernel or raises.
 
+The C entry point picks a kernel by dtype:
+
+* float32, the main path's: the products on the tensor cores in three TF32
+  passes (3xTF32: each operand split into a TF32 ``hi`` and ``lo``, summing
+  ``lo*hi + hi*lo + hi*hi`` in float32, ~1e-6 from float32 where one TF32
+  pass is ~1e-4 off), ``mma.sync`` m16n8k8, the filter bank staged in
+  shared memory once per persistent block and each sample by ``cp.async``
+  (the copy engine's bulk copies where a sample and a tap are whole
+  16-byte chunks, as on the main path; else 4-byte copies) while the one
+  before it computes. Non-finite inputs follow float32: only the ``hi*hi``
+  pass carries inf and NaN.
+* bfloat16: the CUDA-core kernel (float32 FMAs, one block a sample).
+
+Both propagate NaN through the max over windows, as ``jnp.max`` does. A
+shape whose staged operands do not fit a block's shared memory raises
+``ValueError`` (at sm-cnn's S=64, d=50, F=100 the float32 kernel takes
+157,408 of the 232,448 bytes an H100 allows a block; at that d and F it
+takes S up to 180, the bfloat16 kernel S up to 1,016).
+
 ``launches`` counts the kernel's launches, so a run can show that its path
-went through the kernel; ``reset_launches`` sets it to 0.
+went through the kernel; ``reset_launches`` sets it to 0. ``route_info``
+reports what a dtype's kernel holds on the card (design, registers, spills,
+shared memory, resident blocks).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +50,8 @@ SOURCE = "src/repro_torch/kernels/csrc/sm_cnn_conv.cu"
 #: version takes any width
 KERNEL_WIDTHS = (5,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: design stage of a route's kernel, as the C library reports it
+STAGES = {0: "CUDA-core FMA", 1: "3xTF32 mma.sync + cp.async"}
 
 launches = 0
 
@@ -85,20 +109,57 @@ def _kernel_fn():
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def route_info(dtype: torch.dtype, s: int = 64, d: int = 50, f: int = 100) -> dict:
+    """The CUDA kernel that serves ``dtype`` on the current card at filter
+    width 5 and (S, d, F), sm-cnn's by default: its design stage, registers
+    and local (spill) bytes a thread, static and dynamic shared memory a
+    block, blocks resident on an SM (0 where the card cannot hold a block)
+    and threads a block, from the CUDA runtime (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); and the card's most
+    shared memory a block and SMs."""
+    return dict(_route_info(dtype, s, d, f, torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _route_info(dtype: torch.dtype, s: int, d: int, f: int, device: int) -> dict:
+    """``route_info`` on card ``device``, the current one; cached, so that a
+    launch asks the runtime nothing once its shape has been seen."""
+    fn = build.load_library("sm_cnn_conv").sm_cnn_conv_route_info
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 9)()
+    err = fn(_DTYPE_CODES[dtype], s, d, f, info)
+    if err != 0:
+        raise RuntimeError(f"sm_cnn_conv_route_info failed: CUDA error {err}")
+    keys = ("stage", "registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads", "smem_limit", "sms")
+    out = dict(zip(keys, info))
+    out["design"] = STAGES[out["stage"]]
+    return out
 
 
 def _launch(x_emb: torch.Tensor, filters: torch.Tensor, bias: torch.Tensor,
             width: int) -> torch.Tensor:
     b, s, d = x_emb.shape
     f = filters.shape[1]
+    info = _route_info(x_emb.dtype, s, d, f, torch.cuda.current_device())
+    need = info["static_smem"] + info["dynamic_smem"]
+    if need > info["smem_limit"]:
+        raise ValueError(f"the {x_emb.dtype} CUDA kernel needs {need} bytes of shared "
+                         f"memory a block at S={s} d={d} F={f}; the card allows "
+                         f"{info['smem_limit']}")
     out = torch.empty((b, f), dtype=x_emb.dtype, device=x_emb.device)
     stream = torch.cuda.current_stream(x_emb.device).cuda_stream
     err = _kernel_fn()(_DTYPE_CODES[x_emb.dtype], x_emb.data_ptr(),
                        filters.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                       b, s, d, width, f, stream)
+                       b, s, d, width, f, info["sms"] * info["blocks_per_sm"], stream)
     if err != 0:
         raise RuntimeError(f"conv_tanh_maxpool kernel launch failed: CUDA "
                            f"error {err} at B={b} S={s} d={d} w={width} F={f} "
