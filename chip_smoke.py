@@ -28,6 +28,21 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             scorer call; then local == batched (verify_plans), pallas ==
             eager rankings, pallas scores == a CPU eager scorer, q/s, p50,
             p99, per-stage spans and the device's busy share of one batch
+  backends  the paper's integration strategies (its Table 1) at the full
+            width of sm-cnn, same weights and corpus: for each of eager, jit,
+            aot, numpy, pallas and artifact over buckets (1, 8, 64, 256),
+            make_scorer's build seconds; each bucket's scores against eager
+            on the card (rtol 1e-4, atol 1e-5); p50/p99 of each bucket's
+            scorer call (host clock, as Scorer times it) and rows/s; the
+            conv kernel's launch counter over the timed calls (2 a call for
+            pallas, 0 for the others); jit compiles one program a bucket and
+            never again, aot and artifact nothing after make_scorer
+            (dynamo's graph counter and the scorer's own), aot replays one
+            CUDA graph a call. Then Retrieve(h=20) >> Rerank(backend) % 10
+            through both plans: batched q/s over the first 64 questions,
+            local p50/p99 over 32, nothing compiled while timed, the top 10
+            against eager's (neighbours may swap only where eager's scores
+            are within 2e-5; the swaps are counted)
   attn-kernel  the causal GQA attention kernel against its plain version
             at qwen3-0.6b's H=16, Hkv=8, d=128 for (B, S) from (1, 1) to
             (1, 4096), float32 and bfloat16 (randn inputs), by max absolute
@@ -89,10 +104,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -167,6 +184,14 @@ BAG_TOP = 0.1
 BAG_P99_SETS = 32
 #: the recsys path at RECSYS_SHAPES' serve and retrieval sizes: steps of each
 REC_P99_STEPS, REC_BULK_STEPS, REC_RETRIEVAL_STEPS = 64, 3, 5
+#: backends: the scorer buckets, timed calls a bucket, warm-up, batched and
+#: local questions, timed batches, and the score gap under which two
+#: neighbours may swap
+BACKEND_BUCKETS = (1, 8, 64, 256)
+BACKEND_CALLS = 50
+BACKEND_WARM_Q, BACKEND_BATCH_Q, BACKEND_LOCAL_Q, BACKEND_ROUNDS = 8, 64, 32, 3
+SWAP_ATOL = 2e-5
+
 #: rec-check: serve batches and retrieval candidates
 REC_CHECK_BATCHES, REC_CHECK_CANDIDATES = (512, 4096), 65536
 
@@ -557,7 +582,217 @@ def phase_pipeline(torch, cfg, seed: int, n_docs: int = 2000, n_questions: int =
           f"pallas on the card disagrees with eager on the CPU: {err}")
     log(f"pipeline: pallas on the card == eager on the CPU on 8 rows "
         f"(max_abs_err={err:.3e}, rtol=1e-4 atol=1e-5)")
-    return {"launches": launches}
+    return {"launches": launches, "world": (tree, corpus, tok, index)}
+
+
+# ---------------------------------------------------------------- backends --
+
+def _swaps(want, got, what: str) -> int:
+    """The neighbour swaps between two top-k lists of one query; any other
+    difference, or a swap of scores ``SWAP_ATOL`` or more apart in ``want``,
+    fails. A last place that differs counts as a swap with the candidate
+    past the cut when the two scores are that close."""
+    ids = [(c.doc_id, c.sent_id) for c in want]
+    gids = [(c.doc_id, c.sent_id) for c in got]
+    check(len(ids) == len(gids), f"{what}: {len(gids)} candidates, eager {len(ids)}")
+    swaps, i = 0, 0
+    while i < len(ids):
+        if ids[i] == gids[i]:
+            i += 1
+            continue
+        if i + 1 < len(ids):
+            check(ids[i] == gids[i + 1] and ids[i + 1] == gids[i]
+                  and abs(want[i].score - want[i + 1].score) < SWAP_ATOL,
+                  f"{what}: rank {i} differs from eager's beyond a swap of near-ties "
+                  f"({gids[i]} for {ids[i]})")
+            i += 2
+        else:
+            check(abs(want[i].score - got[i].score) < SWAP_ATOL,
+                  f"{what}: last place differs from eager's ({gids[i]} for {ids[i]})")
+            i += 1
+        swaps += 1
+    return swaps
+
+
+def phase_backends(torch, cfg, world) -> dict:
+    import numpy as np
+    from torch._dynamo.utils import counters
+
+    from repro_torch.core import backends, ops
+    from repro_torch.core.plan import PlanContext, plan
+    from repro_torch.data import qa
+    from repro_torch.kernels import sm_cnn_conv as K
+    from repro_torch.serving import telemetry
+
+    tree, corpus, tok, index = world
+    buckets = BACKEND_BUCKETS
+    rows = qa.make_batch(corpus, tok, cfg.max_len, corpus.pairs[:buckets[-1]])
+    q, a, f = rows["q_tok"], rows["a_tok"], rows["feats"]
+    eager = backends.make_scorer("eager", tree, cfg, buckets, device="cuda")
+    want = {b: eager(q[:b], a[:b], f[:b]) for b in buckets}
+    log(f"backends: sm-cnn full width, buckets {buckets}, {BACKEND_CALLS} timed calls "
+        f"a bucket (host clock around each Scorer call, which ends in the copy of "
+        f"the scores to the host)")
+    table = {}
+    for name in backends.BACKENDS:
+        t0 = time.perf_counter()
+        scorer = backends.make_scorer(name, tree, cfg, buckets, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        stats = scorer.programs
+        errs = {}
+        for b in buckets:   # first calls: jit compiles here
+            got = scorer(q[:b], a[:b], f[:b])
+            errs[b] = float(abs(got - want[b]).max())
+            check(bool((abs(got - want[b]) <= 1e-5 + 1e-4 * abs(want[b])).all()),
+                  f"backends: {name} bucket {b} disagrees with eager: {errs[b]:.3e}")
+        compiles = stats.compiles if stats else 0
+        if name == "jit":
+            check(compiles == len(buckets),
+                  f"backends: jit compiled {compiles} programs for {len(buckets)} buckets")
+        if name == "aot":
+            check(compiles == len(buckets) and stats.replays == len(buckets),
+                  f"backends: aot compiled {compiles} programs and replayed "
+                  f"{stats.replays} graphs for {len(buckets)} buckets and calls")
+            check(stats.inputs == [3] * len(buckets),
+                  f"backends: aot's programs take {stats.inputs} inputs, not the 3 rows "
+                  f"alone: the weights were not frozen into constants")
+        if name == "jit":
+            check(all(n > 3 for n in stats.inputs),
+                  f"backends: jit's programs take {stats.inputs} inputs: the weights "
+                  f"are not arguments")
+
+        # ---- timed calls, counted ----
+        graphs = counters["stats"]["unique_graphs"]
+        replays = stats.replays if stats else 0
+        K.reset_launches()
+        calls0 = scorer.calls
+        per_bucket = {}
+        for b in buckets:
+            lat = []
+            for _ in range(BACKEND_CALLS):
+                t = time.perf_counter()
+                scorer(q[:b], a[:b], f[:b])
+                lat.append(time.perf_counter() - t)
+            per_bucket[b] = lat
+        launches, calls = K.launches, scorer.calls - calls0
+        # ---- end of the counted calls ----
+        check(launches == (2 * calls if name == "pallas" else 0),
+              f"backends: {name} launched the conv kernel {launches} times in {calls} calls")
+        check(counters["stats"]["unique_graphs"] == graphs
+              and (stats.compiles if stats else 0) == compiles,
+              f"backends: {name} compiled during the timed calls")
+        if name == "aot":
+            check(stats.replays - replays == calls,
+                  f"backends: aot replayed {stats.replays - replays} graphs in {calls} calls")
+        log(f"backends: {name} build_s={build_s:.3f} compiled={compiles} "
+            f"conv_launches={launches} in {calls} calls"
+            + (f" graph_replays={stats.replays - replays}" if name == "aot" else "")
+            + (f" program_inputs={stats.inputs}" if stats else "")
+            + f" max_abs_err_vs_eager={max(errs.values()):.3e}")
+        table[name] = {"build_s": build_s, "buckets": {}}
+        for b, lat in per_bucket.items():
+            p50, p99 = _percentile(lat, 0.5) * 1e3, _percentile(lat, 0.99) * 1e3
+            table[name]["buckets"][b] = (p50, p99)
+            log(f"backends: {name} bucket {b}: p50_ms={p50:.4f} p99_ms={p99:.4f} "
+                f"rows/s={b / (p50 / 1e3):.1f}")
+
+    # ---- the ranking pipeline on each backend ----
+    # Each backend ranks in a context of its own: its own featurization
+    # cache and scorers. Every bucket of its scorers is built on rows of
+    # zeros, and the plans warm up on questions that no timed run takes.
+    # Each timed batch then takes questions the context has not seen, as
+    # ranking traffic does, and the backends take turns batch by batch, so
+    # that the host's drift falls on all of them alike.
+    queries = corpus.questions
+    start = BACKEND_WARM_Q + BACKEND_ROUNDS * BACKEND_BATCH_Q
+    timed = [queries[BACKEND_WARM_Q + r * BACKEND_BATCH_Q:][:BACKEND_BATCH_Q]
+             for r in range(BACKEND_ROUNDS)]
+    local_q = queries[start:start + BACKEND_LOCAL_Q]
+    check(len(local_q) == BACKEND_LOCAL_Q,
+          f"backends: {len(queries)} questions are too few for the timed runs")
+    names = ("eager",) + tuple(n for n in backends.BACKENDS if n != "eager")
+    runs = {}
+    for name in names:
+        ctx = PlanContext.from_world(cfg, tree, corpus, tok, index, device="cuda")
+        pipe = ops.Retrieve(h=20) >> ops.Rerank(name) % 10
+        t0 = time.perf_counter()
+        local, batched = plan(pipe, "local", ctx), plan(pipe, "batched", ctx)
+        mine = [s_ for s_ in ctx.scorers() if s_.name == name]
+        for s_ in mine:
+            for b in s_._buckets:
+                s_(np.zeros((b, cfg.max_len), np.int32), np.zeros((b, cfg.max_len), np.int32),
+                   np.zeros((b, cfg.n_extra_feats), np.float32))
+        local.run_many(queries[:BACKEND_WARM_Q])
+        batched.run_many(queries[:BACKEND_WARM_Q])
+        torch.cuda.synchronize()
+        compiles = [s_.programs.compiles if s_.programs else 0 for s_ in mine]
+        if name in ("jit", "aot"):
+            for s_, c in zip(mine, compiles):
+                check(c == len(s_._buckets),
+                      f"backends: {name} compiled {c} programs for ladder {s_._buckets}")
+        runs[name] = {"local": local, "batched": batched, "mine": mine,
+                      "compiles": compiles, "warm_s": time.perf_counter() - t0,
+                      "batch_s": [], "feat": [], "lat": []}
+
+    # ---- timed, in turns; a last batch runs the last one's questions
+    # again, so that its featurization comes from the context's cache ----
+    graphs = counters["stats"]["unique_graphs"]
+    tracer = telemetry.get_tracer()
+    results = {}
+    for r, qs in enumerate(timed + timed[-1:]):
+        for name in names:
+            run = runs[name]
+            tracer.clear()
+            t = time.perf_counter()
+            res = run["batched"].run_many(qs)
+            torch.cuda.synchronize()
+            run["batch_s"].append(time.perf_counter() - t)
+            feats = [sp for sp in tracer.finished() if sp.name == "featurize"]
+            run["feat"].append((sum(sp.dur_us for sp in feats) / 1e3,
+                                sum(int(sp.attrs.get("hits", 0)) for sp in feats),
+                                sum(int(sp.attrs.get("misses", 0)) for sp in feats)))
+            if r == 0:
+                results[name] = res
+    tracer.clear()
+    for qq in local_q:
+        for name in names:
+            t = time.perf_counter()
+            runs[name]["local"].run(qq)
+            torch.cuda.synchronize()
+            runs[name]["lat"].append(time.perf_counter() - t)
+    # ---- end of the timed runs ----
+    check(counters["stats"]["unique_graphs"] == graphs,
+          "backends: a pipeline compiled a graph while timed")
+
+    for name in names:
+        run, mine = runs[name], runs[name]["mine"]
+        check([s_.programs.compiles if s_.programs else 0 for s_ in mine] == run["compiles"],
+              f"backends: the {name} pipeline compiled while timed")
+        swaps = sum(_swaps(w, g, f"backends: {name} query {i}")
+                    for i, ((w, _), (g, _)) in enumerate(zip(results["eager"], results[name])))
+        batch_s, feat, lat = run["batch_s"][:-1], run["feat"][:-1], run["lat"]
+        med = statistics.median(batch_s)
+        busy = _busy_share(torch, lambda: run["batched"].run_many(timed[0]))
+        log(f"backends: {name} pipeline batched, profiled on the first batch's "
+            f"questions: {busy}")
+        log(f"backends: {name} pipeline ladders={[s_._buckets for s_ in mine]} "
+            f"compiled={run['compiles']} "
+            f"inputs={[s_.programs.inputs for s_ in mine if s_.programs]} "
+            f"warm-up {run['warm_s']:.3f} s; batched {BACKEND_BATCH_Q} unseen q "
+            f"batch_s={','.join(f'{b_:.4f}' for b_ in batch_s)} q/s={BACKEND_BATCH_Q / med:.3f} "
+            f"featurize_ms={','.join(f'{f_[0]:.3f}' for f_ in feat)} "
+            f"cache hits={','.join(str(f_[1]) for f_ in feat)} "
+            f"misses={','.join(str(f_[2]) for f_ in feat)}; the last batch's questions "
+            f"again: batch_s={run['batch_s'][-1]:.4f} featurize_ms={run['feat'][-1][0]:.3f} "
+            f"hits={run['feat'][-1][1]} misses={run['feat'][-1][2]}; "
+            f"local {BACKEND_LOCAL_Q} unseen q p50_ms={_percentile(lat, 0.5) * 1e3:.3f} "
+            f"p99_ms={_percentile(lat, 0.99) * 1e3:.3f}; "
+            f"top-10 == eager's with {swaps} near-tie swaps")
+        table[name]["pipeline"] = {"qps": BACKEND_BATCH_Q / med, "swaps": swaps,
+                                   "p50_ms": _percentile(lat, 0.5) * 1e3,
+                                   "p99_ms": _percentile(lat, 0.99) * 1e3}
+    return table
 
 
 # ------------------------------------------------------------- attn-kernel --
@@ -1235,7 +1470,14 @@ def main(argv=None) -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # inductor's and Triton's caches (the backends phase) inside the checkout
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
+    # inductor's notes on its softmax lowering, and torch.export's on loading
+    # from a read-only buffer, once per compile or load
+    warnings.filterwarnings("ignore", message=r"\s*Online softmax is disabled")
+    warnings.filterwarnings("ignore", message="The given buffer is not writable")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1258,6 +1500,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     pipe = phase_pipeline(torch, cfg, args.seed)
     phases["pipeline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_backends(torch, cfg, pipe.pop("world"))
+    phases["backends"] = time.perf_counter() - t
     lm_cfg = get_config("qwen3-0.6b")
     with torch.inference_mode():
         t = time.perf_counter()

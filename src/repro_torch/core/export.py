@@ -68,13 +68,20 @@ def _lists(node):
 
 def unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     """Inverse of ``flatten_named``: ``"conv_q/w"`` -> ``{"conv_q": {"w":
-    ...}}``, and ``"bot/w/0"``, ``"bot/w/1"`` -> ``{"bot": {"w": [..., ...]}}``."""
+    ...}}``, and ``"bot/w/0"``, ``"bot/w/1"`` -> ``{"bot": {"w": [..., ...]}}``.
+    A name that nests under another name's tensor, or names one twice,
+    raises ``ValueError``."""
     out: Dict = {}
     for name, arr in flat.items():
         node = out
         *heads, last = name.split("/")
         for h in heads:
             node = node.setdefault(h, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"tensor name {name!r} nests under a leaf "
+                                 f"tensor {h!r}")
+        if last in node:
+            raise ValueError(f"duplicate tensor name {name!r}")
         node[last] = arr
     return _lists(out)
 
@@ -139,3 +146,29 @@ def loads(data: bytes) -> Tuple[Dict[str, np.ndarray], Dict]:
         out[t["name"]] = np.frombuffer(raw, dtype=np.dtype(t["dtype"])
                                        ).reshape(t["shape"]).copy()
     return out, header
+
+
+def load(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
+    with open(path, "rb") as f:
+        return loads(f.read())
+
+
+def restore_into(template, flat: Dict[str, np.ndarray]):
+    """Rebuild a tree with the template's structure from named tensors (the
+    Java-side 'reshape using saved dimension metadata' step). Each leaf
+    takes the template leaf's dtype, and a tensor leaf its device too."""
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, path + (i,)) for i, v in enumerate(node)]
+        name = keystr(path)
+        if name not in flat:
+            raise KeyError(f"tensor {name!r} missing from export")
+        arr = flat[name]
+        if list(arr.shape) != list(node.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(node.shape)}")
+        if isinstance(node, torch.Tensor):
+            return to_torch(arr, node.device).to(node.dtype)
+        return arr.astype(np.asarray(node).dtype)
+    return build(template, ())

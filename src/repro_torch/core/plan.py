@@ -81,8 +81,9 @@ class PlanContext:
     featurization cache, and the device BM25 and the scorers run on.
 
     ``params`` is the JAX parameter tree as numpy arrays (or the port's
-    tensors). ``device`` defaults to ``"cuda"``; without a card the context
-    raises unless it is built with ``device="cpu"``.
+    tensors), or comes from ``registry`` at ``model_version``. ``device``
+    defaults to ``"cuda"``; without a card the context raises unless it is
+    built with ``device="cpu"``.
     """
 
     tokenizer: Any
@@ -98,6 +99,14 @@ class PlanContext:
     batch_hint: int = 32
     buckets: Optional[Tuple[int, ...]] = None
     device: Any = DEFAULT_DEVICE
+    #: Model registry binding (``core.registry.ModelRegistry``). With a
+    #: ``model_version`` set, construction resolves the version and loads
+    #: its weights INSTEAD of serving ``params`` as passed — the version id
+    #: becomes the context's model identity. ``params`` then only serves as
+    #: the template for restore (optional: without one the tree is rebuilt
+    #: from the stored tensor names).
+    registry: Any = None
+    model_version: Optional[str] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -105,7 +114,23 @@ class PlanContext:
             self.cache = FeaturizationCache(self.tokenizer, self.idf,
                                             self.max_len,
                                             self.cache_capacity)
+        if self.model_version is not None:
+            if self.registry is None:
+                raise PlanError(f"model_version "
+                                f"{self.model_version!r} is bound but no "
+                                f"registry is")
+            self.model_version = self.registry.resolve(self.model_version)
+            self.params = self.registry.load_params(self.model_version,
+                                                    template=self.params)
         self._scorers: Dict[Tuple, Any] = {}
+
+    def bind_version(self, version: str) -> "PlanContext":
+        """A NEW context serving ``version`` ("latest", an id, or a unique
+        prefix): same corpus/cache bindings, freshly resolved params and an
+        empty scorer memo."""
+        if self.registry is None:
+            raise PlanError("bind_version needs ctx.registry bound")
+        return dataclasses.replace(self, model_version=version)
 
     @classmethod
     def from_world(cls, cfg, params, corpus, tokenizer, index,

@@ -41,7 +41,9 @@ def test_slice_modules_are_all_there():
               "repro_torch.models.layers", "repro_torch.models.transformer",
               "repro_torch.kernels.flash_attention",
               "repro_torch.configs.dlrm_mlperf", "repro_torch.data.recsys",
-              "repro_torch.models.recsys", "repro_torch.kernels.embedding_bag"):
+              "repro_torch.models.recsys", "repro_torch.kernels.embedding_bag",
+              "repro_torch.core.numpy_eval", "repro_torch.core.compiled_artifact",
+              "repro_torch.core.registry"):
         assert m in mods, m
 
 

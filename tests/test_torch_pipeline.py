@@ -136,15 +136,16 @@ def test_scorer_buckets_chunks_and_metrics_match_jax(worlds):
 
 
 def test_unported_targets_and_backends_raise(worlds):
+    """The remote targets wait for the serving slice; every backend of the
+    JAX package is ported, and an unknown one raises."""
     ctx, _, _ = worlds
     pipe = ops.Retrieve(h=5) >> ops.Rerank("eager") % 4
     for target in ("remote", "remote_pipeline"):
         with pytest.raises(P.PlanError, match="not ported"):
             P.plan(pipe, target, ctx)
-    for backend in ("jit", "aot", "numpy", "artifact"):
-        with pytest.raises(NotImplementedError, match=backend):
-            backends.make_scorer(backend, ctx.params, ctx.cfg, device="cpu")
     assert backends.BACKENDS == jax_backends.BACKENDS
+    with pytest.raises(ValueError, match="unknown backend"):
+        backends.make_scorer("onnx", ctx.params, ctx.cfg, device="cpu")
 
 
 def test_expired_deadline_sheds(worlds):
