@@ -43,6 +43,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             local p50/p99 over 32, nothing compiled while timed, the top 10
             against eager's (neighbours may swap only where eager's scores
             are within 2e-5; the swaps are counted)
+  service   the paper's service strategy (its Table 2) on the card, with the
+            backends phase's scorers: 300 get_score RPCs from one client to
+            a SimpleServer over a QuestionAnsweringHandler for pallas, jit,
+            aot and numpy (q/s, p50/p99, the overhead: RPC p50 less the
+            same handler's in-process p50 in the same run, and less the
+            backends phase's bucket-1 scorer p50); every RPC score
+            against the same handler in process (rtol 1e-4, atol 1e-5); the
+            conv's launch counter set to 0 before and read after: 2 a pallas
+            RPC, 0 for the others; each backend again behind a
+            ThreadPoolServer under 8 client threads, each with pairs of its
+            own, every reply against its pair's score in process (a scorer
+            that mixed concurrent calls up would answer with another
+            client's score); then a ServingEngine (max_batch 64,
+            max_wait 1 ms) behind a ThreadPoolServer under 8 client threads
+            (q/s, p50/p99, mean batch); Retrieve(h=20) >> Rerank("pallas")
+            % 10 planned local, remote (a ThreadPoolServer over a handler)
+            and remote_pipeline (a ThreadPoolServer over a PipelineEngine)
+            ranking 64 questions alike (verify_plans); a past deadline shed
+            as ShedError; a drain reaching 0 in flight
   attn-kernel  the causal GQA attention kernel against its plain version
             at qwen3-0.6b's H=16, Hkv=8, d=128 for (B, S) from (1, 1) to
             (1, 4096), float32 and bfloat16 (randn inputs), by max absolute
@@ -105,9 +124,11 @@ import argparse
 import json
 import math
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -191,6 +212,17 @@ BACKEND_BUCKETS = (1, 8, 64, 256)
 BACKEND_CALLS = 50
 BACKEND_WARM_Q, BACKEND_BATCH_Q, BACKEND_LOCAL_Q, BACKEND_ROUNDS = 8, 64, 32, 3
 SWAP_ATOL = 2e-5
+
+#: service: the paper's Table 2 (RPCs a backend from one client, warm-up
+#: RPCs), its beyond-paper micro-batched row (client threads, RPCs each, the
+#: engine's batching), and the unseen questions the remote plans rank
+SERVICE_BACKENDS = ("pallas", "jit", "aot", "numpy")
+SERVICE_RPCS, SERVICE_WARM = 300, 10
+ENGINE_CLIENTS, ENGINE_MAX_BATCH, ENGINE_MAX_WAIT_S = 8, 64, 0.001
+CONCURRENT_RPCS = 50   # a client thread's RPCs in each backend's concurrent check
+SERVICE_PLAN_Q = 64
+#: every wait of the service phase on a thread, a reply or a drain
+SERVICE_WAIT_S = 60.0
 
 #: rec-check: serve batches and retrieval candidates
 REC_CHECK_BATCHES, REC_CHECK_CANDIDATES = (512, 4096), 65536
@@ -637,6 +669,7 @@ def phase_backends(torch, cfg, world) -> dict:
     for name in backends.BACKENDS:
         t0 = time.perf_counter()
         scorer = backends.make_scorer(name, tree, cfg, buckets, device="cuda")
+        table[name] = {"scorer": scorer}
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         stats = scorer.programs
@@ -690,7 +723,7 @@ def phase_backends(torch, cfg, world) -> dict:
             + (f" graph_replays={stats.replays - replays}" if name == "aot" else "")
             + (f" program_inputs={stats.inputs}" if stats else "")
             + f" max_abs_err_vs_eager={max(errs.values()):.3e}")
-        table[name] = {"build_s": build_s, "buckets": {}}
+        table[name].update(build_s=build_s, buckets={})
         for b, lat in per_bucket.items():
             p50, p99 = _percentile(lat, 0.5) * 1e3, _percentile(lat, 0.99) * 1e3
             table[name]["buckets"][b] = (p50, p99)
@@ -793,6 +826,365 @@ def phase_backends(torch, cfg, world) -> dict:
                                    "p50_ms": _percentile(lat, 0.5) * 1e3,
                                    "p99_ms": _percentile(lat, 0.99) * 1e3}
     return table
+
+
+# ----------------------------------------------------------------- service --
+
+def _rpc_table_row(torch, scorer, handler, reqs, K, SV, telemetry) -> dict:
+    """One Table 2 row: ``SERVICE_RPCS`` get_score RPCs from one client to a
+    SimpleServer over ``handler``, each timed on the host clock; the conv's
+    launch counter and the scorer's call count read around them, and the
+    p50 of the server's request spans (``server.score``: decode to reply
+    encoded) and of the scorer's spans inside them. The same pairs then go
+    through the handler in process, one a call: back to back on this thread,
+    and on a second thread that a queue wakes for each call and that hands
+    each score back through another, as the server's thread is woken by
+    each request (the socket, codec and spans left out)."""
+    tracer = telemetry.get_tracer()
+    with SV.SimpleServer(handler).start_background() as srv, SV.Client(srv.address) as cl:
+        for q, a in reqs[:SERVICE_WARM]:
+            cl.get_score(q, a)
+        torch.cuda.synchronize()
+        tracer.clear()
+        # ---- the service path, counted ----
+        K.reset_launches()
+        calls0 = scorer.calls
+        lat, got = [], []
+        t0 = time.perf_counter()
+        for q, a in reqs:
+            t = time.perf_counter()
+            got.append(cl.get_score(q, a))
+            lat.append(time.perf_counter() - t)
+        wall = time.perf_counter() - t0
+        launches, calls = K.launches, scorer.calls - calls0
+        # ---- end of the counted RPCs ----
+    spans = {}
+    for sp in tracer.finished():
+        spans.setdefault(sp.name, []).append(sp.dur_us / 1e3)
+    tracer.clear()
+    local_lat, want = [], []
+    for q, a in reqs:
+        t = time.perf_counter()
+        want.append(float(handler.get_scores([(q, a)])[0]))
+        local_lat.append(time.perf_counter() - t)
+    inbox, outbox = queue.Queue(), queue.Queue()
+
+    def serve():
+        for pair in iter(inbox.get, None):
+            outbox.put(float(handler.get_scores([pair])[0]))
+
+    worker = threading.Thread(target=serve, daemon=True)
+    worker.start()
+    woken_lat = []
+    try:
+        for q, a in reqs:
+            t = time.perf_counter()
+            inbox.put((q, a))
+            outbox.get(timeout=SERVICE_WAIT_S)
+            woken_lat.append(time.perf_counter() - t)
+    finally:
+        inbox.put(None)
+        worker.join(timeout=SERVICE_WAIT_S)
+    check(not worker.is_alive(), "service: the woken handler thread did not stop")
+    return {"lat": lat, "wall": wall, "got": got, "want": want, "launches": launches,
+            "calls": calls, "local_lat": local_lat, "woken_lat": woken_lat,
+            "server_p50_ms": _percentile(spans.get("server.score", [0.0]), 0.5),
+            "scorer_span_p50_ms": _percentile(spans.get("scorer", [0.0]), 0.5)}
+
+
+def _concurrent_rows(scorer, handler, pairs, name, K, SV) -> dict:
+    """``ENGINE_CLIENTS`` client threads at once, each sending its own share
+    of ``pairs`` one ``get_score`` at a time, to a ThreadPoolServer of as
+    many workers over ``handler``; every reply is held against its pair's
+    score from the handler in process, one pair a call. Returns q/s, p50
+    and p99 ms, the conv's launches and the scorer's calls."""
+    import numpy as np
+
+    results, lat = {}, {}
+    with SV.ThreadPoolServer(handler, num_workers=ENGINE_CLIENTS).start_background() as srv:
+        def client(c: int) -> None:
+            out, ls = [], []
+            with SV.Client(srv.address) as cl:
+                for q, a in pairs[c::ENGINE_CLIENTS]:
+                    t = time.perf_counter()
+                    out.append(cl.get_score(q, a))
+                    ls.append(time.perf_counter() - t)
+            results[c], lat[c] = out, ls
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(ENGINE_CLIENTS)]
+        K.reset_launches()
+        calls0 = scorer.calls
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVICE_WAIT_S)
+        wall = time.perf_counter() - t0
+        launches, calls = K.launches, scorer.calls - calls0
+    check(not any(t.is_alive() for t in threads) and len(results) == ENGINE_CLIENTS,
+          f"service: a concurrent {name} client did not finish")
+    want = [float(handler.get_scores([p])[0]) for p in pairs]
+    err = 0.0
+    for c, got in results.items():
+        got, ref = np.asarray(got), np.asarray(want[c::ENGINE_CLIENTS])
+        err = max(err, float(abs(got - ref).max()))
+        check(len(got) == len(ref) and bool((abs(got - ref) <= 1e-5 + 1e-4 * abs(ref)).all()),
+              f"service: {name} behind a ThreadPoolServer answered client {c} with "
+              f"scores not its own pairs' (max error {err:.3e})")
+    check(calls == len(pairs) and launches == (2 * calls if name == "pallas" else 0),
+          f"service: {len(pairs)} concurrent {name} RPCs made {calls} scorer calls and "
+          f"{launches} conv launches")
+    all_lat = [x for v in lat.values() for x in v]
+    p50, p99 = _percentile(all_lat, 0.5) * 1e3, _percentile(all_lat, 0.99) * 1e3
+    log(f"service: concurrent {name}: ThreadPoolServer {ENGINE_CLIENTS} workers, "
+        f"{ENGINE_CLIENTS} client threads x {len(pairs) // ENGINE_CLIENTS} RPCs of pairs "
+        f"of their own: q/s={len(pairs) / wall:.3f} p50_ms={p50:.4f} p99_ms={p99:.4f}; "
+        f"every reply its own pair's score (max_abs_err_vs_in_process={err:.3e}); "
+        f"conv_launches={launches} in {calls} scorer calls")
+    return {"qps": len(pairs) / wall, "p50_ms": p50, "p99_ms": p99, "launches": launches}
+
+
+def phase_service(torch, cfg, world, scorers: dict) -> dict:
+    """The paper's first integration strategy, the Thrift-style service
+    (its Table 2), on the card; ``scorers`` are the backends phase's, with
+    their bucket-1 p50."""
+    import numpy as np
+
+    from repro_torch.core import ops, wire
+    from repro_torch.core import service as SV
+    from repro_torch.core.plan import PlanContext, plan, verify_plans
+    from repro_torch.kernels import sm_cnn_conv as K
+    from repro_torch.serving.admission import AdmissionController
+    from repro_torch.serving import telemetry
+    from repro_torch.serving.engine import PipelineEngine, ServingEngine
+
+    tree, corpus, tok, index = world
+    reqs = [(corpus.questions[qi], corpus.documents[di][si])
+            for qi, di, si, _ in corpus.pairs[:SERVICE_RPCS]]
+    check(len(reqs) == SERVICE_RPCS, f"service: {len(reqs)} pairs, fewer than {SERVICE_RPCS}")
+    log(f"service: Table 2: {SERVICE_RPCS} get_score RPCs a backend from one client "
+        f"thread to a SimpleServer over a QuestionAnsweringHandler (tokenize + overlap "
+        f"features + the backends phase's scorer) on 127.0.0.1, host clock around each "
+        f"RPC; overhead = RPC p50 - the same handler's p50 in process, back to back, in "
+        f"this run (the codec, loopback and wake-ups); overhead_vs_b1 = RPC p50 - that "
+        f"scorer's bucket-1 p50 in the backends phase")
+    live = sorted(t.name for t in threading.enumerate())
+    log(f"service: {len(live)} threads live in the process before serving: {', '.join(live)}")
+
+    class NullHandler:
+        """The service stack alone: no featurization, no scorer."""
+        calls = 0
+
+        def get_scores(self, pairs):
+            self.calls += 1
+            return np.zeros(len(pairs))
+
+    null = NullHandler()
+    r = _rpc_table_row(torch, null, null, reqs, K, SV, telemetry)
+    check(r["launches"] == 0 and r["calls"] == SERVICE_RPCS and not any(r["got"]),
+          "service: the null handler's RPCs went wrong")
+    p50, p99 = _percentile(r["lat"], 0.5) * 1e3, _percentile(r["lat"], 0.99) * 1e3
+    log(f"service: table2 null handler (codec, socket, server dispatch and spans; no "
+        f"featurization, no scorer): q/s={SERVICE_RPCS / r['wall']:.3f} p50_ms={p50:.4f} "
+        f"p99_ms={p99:.4f} server_span_p50_ms={r['server_p50_ms']:.4f}")
+    rows = {"null": {"qps": SERVICE_RPCS / r["wall"], "p50_ms": p50, "p99_ms": p99}}
+    for name in SERVICE_BACKENDS:
+        scorer = scorers[name]["scorer"]
+        compiles = scorer.programs.compiles if scorer.programs else 0
+        handler = SV.QuestionAnsweringHandler(scorer, tok, corpus.idf, cfg.max_len)
+        r = _rpc_table_row(torch, scorer, handler, reqs, K, SV, telemetry)
+        got, want = np.asarray(r["got"]), np.asarray(r["want"])
+        err = float(abs(got - want).max())
+        check(bool((abs(got - want) <= 1e-5 + 1e-4 * abs(want)).all()),
+              f"service: {name} RPC scores disagree with the scorer in process: {err:.3e}")
+        check(r["calls"] == SERVICE_RPCS,
+              f"service: {name} scorer called {r['calls']} times for {SERVICE_RPCS} RPCs")
+        check(r["launches"] == (2 * SERVICE_RPCS if name == "pallas" else 0),
+              f"service: {name} launched the conv kernel {r['launches']} times in "
+              f"{SERVICE_RPCS} RPCs")
+        check((scorer.programs.compiles if scorer.programs else 0) == compiles,
+              f"service: {name} compiled while serving")
+        p50, p99 = _percentile(r["lat"], 0.5) * 1e3, _percentile(r["lat"], 0.99) * 1e3
+        h50 = _percentile(r["local_lat"], 0.5) * 1e3
+        w50 = _percentile(r["woken_lat"], 0.5) * 1e3
+        s50 = scorers[name]["buckets"][1][0]
+        rows[name] = {"qps": SERVICE_RPCS / r["wall"], "p50_ms": p50, "p99_ms": p99,
+                      "scorer_p50_ms": s50, "overhead_ms": p50 - h50,
+                      "overhead_vs_b1_ms": p50 - s50, "handler_p50_ms": h50,
+                      "woken_p50_ms": w50,
+                      "launches": r["launches"], "server_p50_ms": r["server_p50_ms"],
+                      "scorer_span_p50_ms": r["scorer_span_p50_ms"]}
+        log(f"service: table2 {name}: q/s={SERVICE_RPCS / r['wall']:.3f} p50_ms={p50:.4f} "
+            f"p99_ms={p99:.4f} overhead_p50_ms={p50 - h50:.4f} over the handler in "
+            f"process (p50_ms={h50:.4f} back to back: featurize + scorer; {w50:.4f} on a "
+            f"woken thread); overhead_vs_b1_ms={p50 - s50:.4f} over scorer_b1_p50_ms="
+            f"{s50:.4f}; server span p50_ms={r['server_p50_ms']:.4f}, the "
+            f"scorer's span in it {r['scorer_span_p50_ms']:.4f}) "
+            f"conv_launches={r['launches']} in {r['calls']} "
+            f"scorer calls; max_abs_err_vs_in_process={err:.3e}")
+
+    engine_reqs = [(corpus.questions[qi], corpus.documents[di][si])
+                   for qi, di, si, _ in corpus.pairs[:ENGINE_CLIENTS * SERVICE_RPCS]]
+    check(len(engine_reqs) == ENGINE_CLIENTS * SERVICE_RPCS,
+          f"service: {len(engine_reqs)} pairs for the concurrent clients")
+
+    # ---- every backend behind a ThreadPoolServer under concurrent clients:
+    # one scorer called from many threads at once answers each its own pair ----
+    for name in SERVICE_BACKENDS:
+        rows[name]["concurrent"] = _concurrent_rows(
+            scorers[name]["scorer"], SV.QuestionAnsweringHandler(
+                scorers[name]["scorer"], tok, corpus.idf, cfg.max_len),
+            engine_reqs[:ENGINE_CLIENTS * CONCURRENT_RPCS], name, K, SV)
+
+    # ---- beyond the paper: the micro-batching engine under concurrent clients,
+    # each sending pairs of its own, every pair once ----
+    scorer = scorers["pallas"]["scorer"]
+    with ServingEngine(scorer, tok, corpus.idf, cfg.max_len, max_batch=ENGINE_MAX_BATCH,
+                       max_wait_s=ENGINE_MAX_WAIT_S) as eng, \
+            SV.ThreadPoolServer(eng, num_workers=ENGINE_CLIENTS).start_background() as srv:
+        with SV.Client(srv.address) as cl:
+            for q, a in reqs[:SERVICE_WARM]:
+                cl.get_score(q, a)
+        results, lat = {}, {}
+
+        def client(c: int) -> None:
+            mine = engine_reqs[c::ENGINE_CLIENTS]
+            out, ls = [], []
+            with SV.Client(srv.address) as cl_:
+                for q, a in mine:
+                    t = time.perf_counter()
+                    out.append(cl_.get_score(q, a))
+                    ls.append(time.perf_counter() - t)
+            results[c], lat[c] = (mine, out), ls
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(ENGINE_CLIENTS)]
+        b0 = eng.batcher.stats()["batches"]
+        K.reset_launches()
+        calls0 = scorer.calls
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVICE_WAIT_S)
+        wall = time.perf_counter() - t0
+        launches, calls = K.launches, scorer.calls - calls0
+        check(not any(t.is_alive() for t in threads) and len(results) == ENGINE_CLIENTS,
+              "service: an engine client did not finish")
+        stats = eng.stats()
+        batches = stats["batches"] - b0
+    n = sum(len(v) for v in lat.values())
+    all_lat = [x for v in lat.values() for x in v]
+    pairs = [p for mine, _ in results.values() for p in mine]
+    got = np.asarray([x for _, out in results.values() for x in out])
+    want = np.concatenate([SV.QuestionAnsweringHandler(scorer, tok, corpus.idf, cfg.max_len)
+                           .get_scores(pairs[i:i + 256]) for i in range(0, len(pairs), 256)])
+    err = float(abs(got - want).max())
+    check(bool((abs(got - want) <= 1e-5 + 1e-4 * abs(want)).all()),
+          f"service: engine RPC scores disagree with the scorer in process: {err:.3e}")
+    check(launches == 2 * calls and calls == batches,
+          f"service: the engine's {batches} batches made {calls} scorer calls and "
+          f"{launches} conv launches")
+    p50, p99 = _percentile(all_lat, 0.5) * 1e3, _percentile(all_lat, 0.99) * 1e3
+    rows["engine"] = {"qps": n / wall, "p50_ms": p50, "p99_ms": p99,
+                      "mean_batch": n / max(batches, 1), "launches": launches}
+    log(f"service: table2 engine (ServingEngine pallas, max_batch={ENGINE_MAX_BATCH}, "
+        f"max_wait_s={ENGINE_MAX_WAIT_S}, ThreadPoolServer {ENGINE_CLIENTS} workers, "
+        f"{ENGINE_CLIENTS} client threads x {n // ENGINE_CLIENTS} RPCs): q/s={n / wall:.3f} "
+        f"p50_ms={p50:.4f} p99_ms={p99:.4f} mean_batch={n / max(batches, 1):.3f} over "
+        f"{int(batches)} batches; conv_launches={launches} in {calls} scorer calls; "
+        f"max_abs_err_vs_in_process={err:.3e}")
+
+    # ---- the remote targets against servers on the card ----
+    ctx = PlanContext.from_world(cfg, tree, corpus, tok, index, device="cuda")
+    server_ctx = PlanContext.from_world(cfg, tree, corpus, tok, index, device="cuda")
+    pipe = ops.Retrieve(h=20) >> ops.Rerank("pallas") % 10
+    queries = corpus.questions[-SERVICE_PLAN_Q:]
+    handler = SV.QuestionAnsweringHandler(server_ctx.scorer_for("pallas"), tok, corpus.idf,
+                                          cfg.max_len)
+    engine = PipelineEngine(pipe, server_ctx, target="batched")
+    plans = []
+    with SV.ThreadPoolServer(handler, admission=AdmissionController(1024)
+                             ).start_background() as srv, \
+            SV.ThreadPoolServer(engine, admission=AdmissionController(
+                SERVICE_PLAN_Q * engine.rows_per_query)).start_background() as psrv:
+        try:
+            plans = [plan(pipe, "local", ctx),
+                     plan(pipe, "remote", ctx=ctx, remote=srv.address),
+                     plan(pipe, "remote_pipeline", ctx=ctx, remote=psrv.address)]
+            for p in plans:
+                log(f"service: {p.describe()}")
+            K.reset_launches()
+            all_scorers = ctx.scorers() + server_ctx.scorers()
+            calls0 = sum(s_.calls for s_ in all_scorers)
+            t0 = time.perf_counter()
+            verify_plans(plans, queries, tie_atol=TIE_ATOL)
+            verify_s = time.perf_counter() - t0
+            launches = K.launches
+            calls = sum(s_.calls for s_ in all_scorers) - calls0
+            check(launches > 0 and launches == 2 * calls,
+                  f"service: the plans made {calls} pallas scorer calls and {launches} "
+                  f"conv launches")
+            log(f"service: local == remote == remote_pipeline on {len(queries)} unseen "
+                f"questions (verify_plans, tie_atol={TIE_ATOL}) in {verify_s:.3f} s; "
+                f"conv_launches={launches} in {calls} pallas scorer calls")
+            timed = {}
+            for p in plans:
+                t = time.perf_counter()
+                p.run_many(queries)
+                timed[p.target] = len(queries) / (time.perf_counter() - t)
+            log("service: the same questions again, q/s: "
+                + " ".join(f"{k}={v:.3f}" for k, v in timed.items()))
+
+            # a deadline already past sheds before any work
+            with SV.Client(srv.address) as cl:
+                try:
+                    cl.get_score(*reqs[0], deadline_s=0.0)
+                    shed = None
+                except wire.ShedError as e:
+                    shed = str(e)
+                check(shed is not None and "expired" in shed,
+                      f"service: a past deadline was not shed ({shed!r})")
+                check(srv.stats()["shed_expired"] == 1.0,
+                      "service: the admission controller counted no expired shed")
+            log(f"service: a frame with a past deadline came back as ShedError ({shed})")
+
+            # drain: in-flight work finishes, new work sheds, inflight reaches 0
+            done = {}
+
+            def ranking():
+                with SV.Client(psrv.address) as cl_:
+                    done["rankings"] = cl_.rank_batch(queries)
+
+            th = threading.Thread(target=ranking)
+            th.start()
+            with SV.Client(psrv.address) as cl:
+                t_end = time.perf_counter() + SERVICE_WAIT_S
+                while psrv.state.inflight == 0 and th.is_alive() \
+                        and time.perf_counter() < t_end:
+                    time.sleep(0.0005)
+                inflight = cl.drain()["inflight"]
+                try:
+                    cl.rank(queries[0])
+                    drained_shed = None
+                except wire.ShedError as e:
+                    drained_shed = str(e)
+                check(drained_shed is not None and "draining" in drained_shed,
+                      f"service: a draining server took new work ({drained_shed!r})")
+                while cl.health()["inflight"] > 0 and time.perf_counter() < t_end:
+                    time.sleep(0.001)
+                health = cl.health()
+            th.join(timeout=SERVICE_WAIT_S)
+            check(health["inflight"] == 0.0 and health["draining"] == 1.0,
+                  f"service: drain left {health['inflight']} requests in flight")
+            check(not th.is_alive() and len(done.get("rankings", [])) == len(queries),
+                  "service: the in-flight ranking did not finish during the drain")
+            log(f"service: drain acked with {inflight:.0f} in flight, shed new work "
+                f"({drained_shed}), health inflight reached 0; the in-flight batch of "
+                f"{len(queries)} finished")
+        finally:
+            for p in plans:
+                p.close()
+    return rows
 
 
 # ------------------------------------------------------------- attn-kernel --
@@ -1500,9 +1892,14 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     pipe = phase_pipeline(torch, cfg, args.seed)
     phases["pipeline"] = time.perf_counter() - t
+    world = pipe.pop("world")
     t = time.perf_counter()
-    phase_backends(torch, cfg, pipe.pop("world"))
+    table1 = phase_backends(torch, cfg, world)
     phases["backends"] = time.perf_counter() - t
+    t = time.perf_counter()
+    service = phase_service(torch, cfg, world, table1)
+    phases["service"] = time.perf_counter() - t
+    del table1, world
     lm_cfg = get_config("qwen3-0.6b")
     with torch.inference_mode():
         t = time.perf_counter()
@@ -1541,6 +1938,7 @@ def main(argv=None) -> int:
         "plain_ms": t32["plain"], "bound_ms": t32["bound_ms"],
         "bound_by": t32["bound_by"], "library_ms": t32["library"],
         "device_ms": t32["device_ms"], "bound_ms_3xtf32": t32["bound_ms_3xtf32"],
+        "launches_service": service["pallas"]["launches"],
         "design": kern["routes"]["float32"]["design"],
         "dtype": "float32", "shape": "B=256 S=64 d=50 w=5 F=100",
     }, {

@@ -28,6 +28,9 @@ from __future__ import annotations
 import dataclasses
 import time
 import types
+# Lock by name, not threading.Lock(): the runtime lock sanitizer's static
+# identity map (analysis/sanitizer.py) is of the JAX package's locks only.
+from threading import Lock
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -69,7 +72,8 @@ class Scorer:
     """Uniform scoring interface over any integration backend.
 
     ``calls`` counts the batches handed to the backend (after padding to a
-    bucket and chunking past the top bucket); ``programs`` is the
+    bucket and chunking past the top bucket), under a lock, as a server's
+    workers call one scorer from many threads; ``programs`` is the
     ``ProgramStats`` of a compiled backend, else None."""
 
     def __init__(self, fn: Callable, buckets: Sequence[int], name: str,
@@ -78,6 +82,7 @@ class Scorer:
         self._buckets = tuple(buckets)
         self.name = name
         self.calls = 0
+        self._counting = Lock()
         self.programs = programs
 
     def __call__(self, q_tok, a_tok, feats) -> np.ndarray:
@@ -94,7 +99,8 @@ class Scorer:
             a_tok = np.concatenate([a_tok, np.zeros((pad,) + a_tok.shape[1:], a_tok.dtype)])
             feats = np.concatenate([feats, np.zeros((pad,) + feats.shape[1:], feats.dtype)])
         tracer = telemetry.get_tracer()
-        self.calls += 1
+        with self._counting:
+            self.calls += 1
         # Only open a kernel-side span when this call is already inside a
         # request trace; untraced benchmark loops should not flood the ring
         # with roots. The copy of the scores to the host waits for the card,
@@ -179,16 +185,22 @@ def _jit(p: Dict, cfg: TextPairConfig, buckets: Sequence[int],
     "found no compiled frames"), so this check does not lean on it."""
     program = _compile(sm_cnn.score, stats, buckets)
     compiled = set()
+    first_calls = Lock()
 
     def run(q, a, f):
-        before = stats.compiles
-        out = program(p, q, a, f, cfg)
-        if q.shape[0] not in compiled:
-            if stats.compiles == before:
-                raise RuntimeError(f"jit: bucket {q.shape[0]} ran without a "
-                                   f"compiled program")
-            compiled.add(q.shape[0])
-        return out
+        if q.shape[0] in compiled:
+            return program(p, q, a, f, cfg)
+        # A bucket's first call, one at a time: another thread's compile
+        # would otherwise move the count this call reads.
+        with first_calls:
+            before = stats.compiles
+            out = program(p, q, a, f, cfg)
+            if q.shape[0] not in compiled:
+                if stats.compiles == before:
+                    raise RuntimeError(f"jit: bucket {q.shape[0]} ran without a "
+                                       f"compiled program")
+                compiled.add(q.shape[0])
+            return out
     return _on_device(run, dev)
 
 
@@ -221,8 +233,11 @@ def _aot(p: Dict, cfg: TextPairConfig, buckets: Sequence[int],
     """The weights frozen as constants of one program a bucket, every bucket
     compiled here, ahead of any call. On the card each bucket's call copies
     the rows into its graph's static inputs, replays the graph captured
-    here and copies the scores out; on the CPU, where there are no graphs,
-    the same programs run directly. A build that compiled fewer programs
+    here and copies the scores out, holding the scorer's lock throughout:
+    a bucket's graph has one set of static inputs and one output, which
+    concurrent callers (a ``ThreadPoolServer``'s workers) would otherwise
+    overwrite under each other. On the CPU, where there are no graphs, the
+    same programs run directly. A build that compiled fewer programs
     than buckets (dynamo disabled), or a program that still takes the
     weights as inputs (freezing did not fold them), raises."""
     from torch._inductor import config as inductor_config
@@ -245,9 +260,11 @@ def _aot(p: Dict, cfg: TextPairConfig, buckets: Sequence[int],
     if dev.type != "cuda":
         return _on_device(program, dev)
 
+    graphs = Lock()
+
     def replay(q, a, f) -> np.ndarray:
         (qs, as_, fs), graph, out = slots[q.shape[0]]
-        with torch.inference_mode():
+        with graphs, torch.inference_mode():
             qs.copy_(torch.from_numpy(np.ascontiguousarray(q, np.int32)))
             as_.copy_(torch.from_numpy(np.ascontiguousarray(a, np.int32)))
             fs.copy_(torch.from_numpy(np.ascontiguousarray(f, np.float32)))

@@ -1,16 +1,33 @@
 """Planner: lower one declarative ``ops.Pipeline`` to an execution plan.
 
 The algebra (``repro_torch.core.ops``) describes *what* a ranking pipeline
-computes; this module decides *how*. One pipeline lowers to:
+computes; this module decides *how*. One pipeline lowers to any of four
+targets:
 
   local    sequential per-query cascade — ``MultiStageRanker`` over the
            ``Stage`` impls (the paper's in-process feedforward integration).
   batched  cross-query coalesced execution — ``BatchedMultiStageRanker``'s
            one-featurization-pass / bucketed-scorer path for ``run_many``
            (one BM25 call and one scorer stream per query batch).
+  remote   rerank stages dispatch their (query, sentence) pairs through an
+           RPC boundary — a ``core.service.Client`` (with a shed-retry
+           budget), or any in-process handler with ``get_scores`` (e.g. a
+           ``serving.engine.ServingEngine``). Retrieval and cutoffs stay
+           local; ``run_many`` coalesces all queries' pairs into chunked
+           batch RPCs (the paper's service integration).
+  remote_pipeline
+           the WHOLE cascade runs server-side behind wire v3 MSG_RANK /
+           MSG_RANK_BATCH (a ``serving.engine.PipelineEngine`` handler):
+           the client sends query strings — one RPC per query batch — and
+           gets ranked (doc_id, sent_id, score) lists back, rebuilding
+           candidate text from the context's bound documents. No candidate
+           pairs cross the RPC boundary.
 
-The ``remote`` and ``remote_pipeline`` targets keep their names and raise
-``PlanError`` until the serving stack is ported.
+Remote endpoints may be given as a LIST of endpoints, which enables hedged
+dispatch (``serving.hedge.HedgedTransport``): slow requests race a second
+replica after a p95-based hedge delay (``ctx.hedge_ms`` forces a fixed
+delay) and the first answer wins. The wire frames are the JAX package's,
+so a remote endpoint may be a server of either package.
 
 Plan-level optimizations applied at lowering time:
 
@@ -28,10 +45,10 @@ Plan-level optimizations applied at lowering time:
     built from the same context — so equivalence checks compare scorers,
     not featurization rounding).
 
-Both plans produce identical rankings (``verify_plans`` asserts it,
+All targets produce identical rankings (``verify_plans`` asserts it,
 tolerating order swaps only between float-level score ties). BM25 and the
 scorers run on ``ctx.device``: the CUDA card unless the context is built
-with ``device="cpu"``.
+with ``device="cpu"``; a remote target scores wherever its server does.
 """
 from __future__ import annotations
 
@@ -48,7 +65,6 @@ from repro_torch.core.batch_pipeline import BatchedMultiStageRanker
 from repro_torch.data.featurize import FeaturizationCache
 
 TARGETS = ("local", "batched", "remote", "remote_pipeline")
-PORTED_TARGETS = ("local", "batched")
 
 #: Bucket ladder bounds: entries grow 1 -> 8 -> 64 -> x4 up to this cap.
 MAX_BUCKET = 4096
@@ -73,12 +89,46 @@ def bucket_ladder(cap: Optional[int]) -> Tuple[int, ...]:
     return tuple(ladder)
 
 
+class _HandlerTransport:
+    """Adapt any ``get_scores(pairs)`` handler (QuestionAnsweringHandler,
+    ServingEngine) to the client's ``get_score_batch``."""
+
+    #: the plan threads request deadlines through this adapter; handlers
+    #: that opt in (ServingEngine) drop expired work at their batcher
+    #: dequeue exactly as they do behind a socket server.
+    supports_deadline = True
+
+    def __init__(self, handler):
+        self._handler = handler
+
+    def get_score_batch(self, pairs, deadline_abs: Optional[float] = None):
+        if deadline_abs is not None and getattr(
+                self._handler, "supports_deadline", False):
+            return self._handler.get_scores(pairs,
+                                            deadline_abs=deadline_abs)
+        return self._handler.get_scores(pairs)
+
+
 @dataclasses.dataclass
 class PlanContext:
     """Everything a description needs to become executable: the corpus-side
     bindings (tokenizer, idf, documents, indexes), the model-side bindings
     (cfg + params for building backend scorers by name), the shared
-    featurization cache, and the device BM25 and the scorers run on.
+    featurization cache, the device BM25 and the scorers run on, and the
+    remote endpoints for the remote targets.
+
+    ``remote`` may be a ``(host, port)`` address (a ``service.Client`` with
+    a shed-retry budget is created lazily), an object with
+    ``get_score_batch`` or ``get_scores``, a LIST of either (hedged
+    dispatch: two endpoints raced through ``serving.hedge.HedgedTransport``
+    with a p95-based — or fixed ``hedge_ms`` — hedge delay), or a dict
+    mapping scorer specs to any of those (key "default" is the fallback) so
+    fused remote stages can hit different endpoints per backend. The
+    ``remote_pipeline`` target resolves the same binding but requires
+    ranking-capable endpoints (``rank_batch``: a ``service.Client`` address
+    or a ``serving.engine.PipelineEngine``). Anything exposing a
+    ranking-capable ``.router`` (the JAX package's serving fabric) binds
+    through that router.
 
     ``params`` is the JAX parameter tree as numpy arrays (or the port's
     tensors), or comes from ``registry`` at ``model_version``. ``device``
@@ -99,6 +149,24 @@ class PlanContext:
     batch_hint: int = 32
     buckets: Optional[Tuple[int, ...]] = None
     device: Any = DEFAULT_DEVICE
+    remote: Any = None
+    remote_retries: int = 2
+    remote_backoff_s: float = 0.005
+    #: Fixed hedge delay in milliseconds for list-of-endpoints remotes;
+    #: ``None`` lets the HedgedTransport adapt (p95 of observed latency).
+    hedge_ms: Optional[float] = None
+    #: Max queries per ranking RPC (remote_pipeline target). ``None`` sends
+    #: the whole query batch as ONE RPC. Set a chunk when driving huge
+    #: batches at a tightly-bounded server: the server sizes a ranking
+    #: request at len(queries) x rows_per_query, and a single RPC past its
+    #: bound is a permanent too_large error.
+    rank_chunk: Optional[int] = None
+    #: Max pairs per remote scoring RPC. Coalesced run_many calls are
+    #: chunked at this size so one query batch never exceeds a server's
+    #: admission bound — an over-bound batch would be a permanent too_large
+    #: rejection, while chunks at worst shed retriably under load (and the
+    #: plan's Client carries a shed-retry budget).
+    remote_chunk: int = 256
     #: Model registry binding (``core.registry.ModelRegistry``). With a
     #: ``model_version`` set, construction resolves the version and loads
     #: its weights INSTEAD of serving ``params`` as passed — the version id
@@ -123,11 +191,15 @@ class PlanContext:
             self.params = self.registry.load_params(self.model_version,
                                                     template=self.params)
         self._scorers: Dict[Tuple, Any] = {}
+        self._transports: Dict[Any, Any] = {}
+        self._owned_clients: List[Any] = []
 
     def bind_version(self, version: str) -> "PlanContext":
         """A NEW context serving ``version`` ("latest", an id, or a unique
-        prefix): same corpus/cache bindings, freshly resolved params and an
-        empty scorer memo."""
+        prefix): same corpus/cache/remote bindings, freshly resolved params
+        and an empty scorer memo — the hot-swap building block
+        (``serving.engine.PipelineEngine.swap_version`` plans against the
+        rebound context, then swaps plans atomically)."""
         if self.registry is None:
             raise PlanError("bind_version needs ctx.registry bound")
         return dataclasses.replace(self, model_version=version)
@@ -172,6 +244,129 @@ class PlanContext:
         """The backend scorers this context has built so far."""
         return list(self._scorers.values())
 
+    @staticmethod
+    def _is_address(remote) -> bool:
+        """A ``(host, port)`` pair — as opposed to a list of endpoints."""
+        return (isinstance(remote, tuple) and len(remote) == 2
+                and isinstance(remote[0], str)
+                and isinstance(remote[1], int))
+
+    def _resolve_remote(self, spec):
+        remote = self.remote
+        if isinstance(remote, dict):
+            key = spec if isinstance(spec, str) else "default"
+            remote = remote.get(key, remote.get("default"))
+        if remote is None:
+            raise PlanError(f"remote target needs ctx.remote bound "
+                            f"(no endpoint for {spec!r})")
+        return remote
+
+    def _endpoint_key(self, remote):
+        # Addresses key by value (two specs pointing at the same server
+        # share one connection), handler objects by identity.
+        if self._is_address(remote):
+            return ("addr", remote)
+        if isinstance(remote, (list, tuple)):
+            return ("hedged", tuple(self._endpoint_key(r) for r in remote))
+        return ("obj", id(remote))
+
+    def _single_transport(self, remote, ranking: bool):
+        router = getattr(remote, "router", None)
+        if router is not None and hasattr(router, "rank_batch"):
+            # A serving fabric: its router IS the transport (health-routed
+            # and hedged across the worker processes). The fabric owns the
+            # router's lifecycle — it is NOT added to _owned_clients.
+            return router
+        if self._is_address(remote):
+            from repro_torch.core.service import Client
+            client = Client(remote, retry_sheds=self.remote_retries,
+                            backoff_s=self.remote_backoff_s)
+            self._owned_clients.append(client)
+            return client
+        if ranking:
+            if hasattr(remote, "rank_batch"):
+                return remote
+            raise PlanError(f"remote_pipeline endpoint {remote!r} cannot "
+                            f"serve rankings (needs rank_batch — a server "
+                            f"address or a PipelineEngine)")
+        if hasattr(remote, "get_score_batch"):
+            return remote
+        if hasattr(remote, "get_scores"):
+            return _HandlerTransport(remote)
+        raise PlanError(f"unusable remote endpoint {remote!r}")
+
+    def _transport(self, remote, ranking: bool):
+        cache_key = (self._endpoint_key(remote), ranking)
+        if cache_key not in self._transports:
+            if (isinstance(remote, (list, tuple))
+                    and not self._is_address(remote)):
+                from repro_torch.serving.hedge import HedgedTransport
+                hedge_s = (self.hedge_ms / 1e3 if self.hedge_ms is not None
+                           else None)
+                self._transports[cache_key] = HedgedTransport(
+                    [self._single_transport(r, ranking) for r in remote],
+                    hedge_s=hedge_s)
+            else:
+                self._transports[cache_key] = self._single_transport(
+                    remote, ranking)
+        return self._transports[cache_key]
+
+    def transport_for(self, spec):
+        """The remote scoring endpoint for a rerank spec (see class doc)."""
+        return self._transport(self._resolve_remote(spec), ranking=False)
+
+    def ranking_transport(self):
+        """The whole-pipeline ranking endpoint (``remote_pipeline`` target):
+        anything with ``rank_batch(queries) -> rankings`` — a v3
+        ``service.Client`` (built lazily from an address), a
+        ``PipelineEngine``, or a hedged list of either."""
+        return self._transport(self._resolve_remote("default"),
+                               ranking=True)
+
+    def close(self) -> None:
+        """Close the ``service.Client`` connections this context opened
+        (endpoints passed in as live objects are the caller's to manage)."""
+        for client in self._owned_clients:
+            try:
+                client.close()
+            except OSError:
+                pass
+        self._owned_clients.clear()
+        self._transports.clear()
+
+    def __enter__(self) -> "PlanContext":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _deadline_kwargs(transport, deadline_abs: Optional[float]
+                     ) -> Dict[str, float]:
+    """The deadline keyword a transport understands, if any: transports
+    advertising ``supports_deadline`` (clients, engines, hedged wrappers)
+    take the absolute deadline; everything else gets nothing rather than an
+    unexpected-keyword error."""
+    if deadline_abs is not None and getattr(transport,
+                                            "supports_deadline", False):
+        return {"deadline_abs": deadline_abs}
+    return {}
+
+
+def _chunked_remote_scores(transport, pairs: List[Tuple[str, str]],
+                           max_rpc_pairs: int,
+                           deadline_abs: Optional[float] = None
+                           ) -> np.ndarray:
+    """Score pairs over a transport in RPC-sized chunks (see
+    ``PlanContext.remote_chunk``). The request deadline rides along on
+    every chunk so a late chunk sheds server-side instead of queueing."""
+    kw = _deadline_kwargs(transport, deadline_abs)
+    out: List[float] = []
+    for i in range(0, len(pairs), max_rpc_pairs):
+        out.extend(transport.get_score_batch(pairs[i:i + max_rpc_pairs],
+                                             **kw))
+    return np.asarray(out, np.float64)
+
 
 def _rank_by_scores(candidates, scores,
                     k: Optional[int]) -> List[PL.Candidate]:
@@ -182,23 +377,87 @@ def _rank_by_scores(candidates, scores,
     return ranked[: k]
 
 
+class RemoteRerankStage(PL.Stage):
+    """Rerank through an RPC boundary: ship (query, sentence) pairs to the
+    transport, rank by the returned scores. ``run_batch`` coalesces every
+    query's pairs into chunked batch calls — the remote analogue of the
+    batched engine's coalesced scorer stream."""
+
+    def __init__(self, transport, k: Optional[int] = None,
+                 name: str = "rerank-remote", max_rpc_pairs: int = 256):
+        self.name = name
+        self.transport = transport
+        self.k = k
+        self.max_rpc_pairs = max_rpc_pairs
+
+    def _score(self, pairs: List[Tuple[str, str]],
+               deadline_abs: Optional[float] = None) -> np.ndarray:
+        return _chunked_remote_scores(self.transport, pairs,
+                                      self.max_rpc_pairs,
+                                      deadline_abs=deadline_abs)
+
+    def run(self, query, candidates,
+            deadline_abs: Optional[float] = None):
+        if not candidates:
+            return []
+        return _rank_by_scores(
+            candidates,
+            self._score([(query, c.text) for c in candidates],
+                        deadline_abs=deadline_abs),
+            self.k)
+
+    def run_batch(self, queries, states,
+                  deadline_abs: Optional[float] = None):
+        active = [i for i, c in enumerate(states or []) if c]
+        pairs: List[Tuple[str, str]] = []
+        for i in active:
+            pairs.extend((queries[i], c.text) for c in states[i])
+        scores = (self._score(pairs, deadline_abs=deadline_abs)
+                  if pairs else np.zeros((0,)))
+        outs: List[List[PL.Candidate]] = [[] for _ in queries]
+        offset = 0
+        for i in active:
+            n = len(states[i])
+            outs[i] = _rank_by_scores(states[i], scores[offset:offset + n],
+                                      self.k)
+            offset += n
+        return outs
+
+
 class _LocalChild:
     """Fusion child scoring through an in-process backend Scorer."""
+
+    needs_arrays = True
 
     def __init__(self, scorer):
         self.scorer = scorer
         self.name = scorer.name
 
-    def score(self, q_tok, a_tok, feats) -> np.ndarray:
+    def score(self, pairs, q_tok, a_tok, feats) -> np.ndarray:
         return np.asarray(self.scorer(q_tok, a_tok, feats))
+
+
+class _RemoteChild:
+    """Fusion child scoring through a remote transport."""
+
+    needs_arrays = False
+
+    def __init__(self, transport, name: str, max_rpc_pairs: int = 256):
+        self.transport = transport
+        self.name = name
+        self.max_rpc_pairs = max_rpc_pairs
+
+    def score(self, pairs, q_tok, a_tok, feats) -> np.ndarray:
+        return _chunked_remote_scores(self.transport, pairs,
+                                      self.max_rpc_pairs)
 
 
 class FuseStage(PL.Stage):
     """Linear score interpolation (``ops.Fuse``): every child scores the
     same candidates; output score is ``sum(w_i * s_i)``, ranked desc, cut to
     ``k``. Featurization happens once per stage call through the plan's
-    shared cache regardless of how many children there are; ``run_batch``
-    coalesces across the query batch."""
+    shared cache regardless of how many local children there are;
+    ``run_batch`` coalesces across the query batch."""
 
     def __init__(self, children, weights: Sequence[float],
                  cache: FeaturizationCache, k: Optional[int] = None,
@@ -213,12 +472,15 @@ class FuseStage(PL.Stage):
     def _fused(self, pairs: List[Tuple[str, str]],
                q_rows: List[np.ndarray], a_rows: List[np.ndarray]
                ) -> np.ndarray:
-        q_tok, a_tok = np.stack(q_rows), np.stack(a_rows)
-        feats = self.cache.pair_feats_many(pairs)
+        if any(c.needs_arrays for c in self.children):
+            q_tok, a_tok = np.stack(q_rows), np.stack(a_rows)
+            feats = self.cache.pair_feats_many(pairs)
+        else:
+            q_tok = a_tok = feats = None
         total = np.zeros((len(pairs),), np.float64)
         for child, w in zip(self.children, self.weights):
-            total += w * np.asarray(child.score(q_tok, a_tok, feats),
-                                    np.float64)
+            total += w * np.asarray(
+                child.score(pairs, q_tok, a_tok, feats), np.float64)
         return total
 
     def run(self, query, candidates):
@@ -260,7 +522,8 @@ def _min_bound(bound: Optional[int], k: Optional[int]) -> Optional[int]:
 
 def _retrieve_bound(op: "ops.Retrieve", ctx: PlanContext) -> Optional[int]:
     """Candidate rows one query's Retrieve can produce: h docs x the widest
-    document's sentence count (None when no documents are bound)."""
+    document's sentence count (None when no documents are bound). The single
+    source for both plan lowering and admission estimates."""
     max_sents = max((len(d) for d in ctx.documents), default=0)
     return op.h * max_sents if max_sents else None
 
@@ -277,23 +540,40 @@ def _scorer_cap(bound: Optional[int], target: str,
     return bound
 
 
-def _rerank_name(spec, k: Optional[int]) -> str:
+def candidate_bound(pipeline: ops.Op, ctx: PlanContext) -> Optional[int]:
+    """Upper bound on candidate rows ONE query pushes into the widest
+    rerank/fuse stage of ``pipeline``: retrieve depth x max sentences per
+    bound document, clipped by upstream cutoffs/k. This is the admission
+    row estimate a ``PipelineEngine`` reports per ranking query
+    (``rows_per_query``). ``None`` when no rerank work exists or no
+    documents are bound."""
+    bound: Optional[int] = None
+    peak: Optional[int] = None
+    for op in ops.normalize(pipeline).steps:
+        if isinstance(op, ops.Retrieve):
+            bound = _retrieve_bound(op, ctx)
+        elif isinstance(op, ops.Cutoff):
+            bound = _min_bound(bound, op.k)
+        elif isinstance(op, (ops.Rerank, ops.Fuse)):
+            if bound is not None:
+                peak = bound if peak is None else max(peak, bound)
+            bound = _min_bound(bound, op.k)
+    return peak
+
+
+def _rerank_name(spec, k: Optional[int], remote: bool) -> str:
     tag = spec if isinstance(spec, str) else getattr(spec, "name", "scorer")
-    return f"rerank-{tag}" + (f"-k{k}" if k is not None else "")
-
-
-def _check_target(target: str) -> None:
-    if target not in TARGETS:
-        raise PlanError(f"unknown target {target!r}; one of {TARGETS}")
-    if target not in PORTED_TARGETS:
-        raise PlanError(f"target {target!r} is not ported yet (ported: "
-                        f"{PORTED_TARGETS}); it arrives with the serving "
-                        f"slice of the port")
+    name = f"rerank-{tag}" + ("@remote" if remote else "")
+    return name + (f"-k{k}" if k is not None else "")
 
 
 def lower(pipeline: ops.Op, target: str, ctx: PlanContext) -> List[PL.Stage]:
     """Normalize + lower a pipeline description to a Stage cascade."""
-    _check_target(target)
+    if target not in TARGETS:
+        raise PlanError(f"unknown target {target!r}; one of {TARGETS}")
+    if target == "remote_pipeline":
+        raise PlanError("remote_pipeline has no local stage lowering — the "
+                        "server runs the cascade; build it with plan()")
     steps = ops.normalize(pipeline).steps
     if not steps:
         raise PlanError("empty pipeline")
@@ -317,10 +597,17 @@ def lower(pipeline: ops.Op, target: str, ctx: PlanContext) -> List[PL.Stage]:
         elif isinstance(op, ops.DynamicCutoff):
             stages.append(PL.CutoffStage(op.margin, op.min_keep))
         elif isinstance(op, ops.Rerank):
-            scorer = ctx.scorer_for(op.scorer, _scorer_cap(bound, target, ctx))
-            stages.append(PL.RerankStage(
-                scorer, ctx.tokenizer, ctx.idf, ctx.max_len, k=op.k,
-                name=_rerank_name(op.scorer, op.k)))
+            if target == "remote":
+                stages.append(RemoteRerankStage(
+                    ctx.transport_for(op.scorer), k=op.k,
+                    name=_rerank_name(op.scorer, op.k, remote=True),
+                    max_rpc_pairs=ctx.remote_chunk))
+            else:
+                scorer = ctx.scorer_for(op.scorer,
+                                        _scorer_cap(bound, target, ctx))
+                stages.append(PL.RerankStage(
+                    scorer, ctx.tokenizer, ctx.idf, ctx.max_len, k=op.k,
+                    name=_rerank_name(op.scorer, op.k, remote=False)))
             bound = _min_bound(bound, op.k)
         elif isinstance(op, ops.Fuse):
             cap = _scorer_cap(bound, target, ctx)
@@ -329,7 +616,14 @@ def lower(pipeline: ops.Op, target: str, ctx: PlanContext) -> List[PL.Stage]:
                 if not isinstance(child, ops.Rerank):
                     raise PlanError("nested Fuse lowering is not supported "
                                     "yet; flatten the fusion")
-                children.append(_LocalChild(ctx.scorer_for(child.scorer, cap)))
+                if target == "remote":
+                    children.append(_RemoteChild(
+                        ctx.transport_for(child.scorer),
+                        _rerank_name(child.scorer, None, remote=True),
+                        max_rpc_pairs=ctx.remote_chunk))
+                else:
+                    children.append(_LocalChild(
+                        ctx.scorer_for(child.scorer, cap)))
             stages.append(FuseStage(children, op.weights, ctx.cache,
                                     k=op.k))
             bound = _min_bound(bound, op.k)
@@ -344,7 +638,16 @@ class ExecutionPlan:
     local    run/run_many are sequential ``MultiStageRanker`` passes.
     batched  both route through ``BatchedMultiStageRanker`` (run_many is
              the coalesced cross-query schedule).
-    Both return ``(candidates, trace)`` per query.
+    remote   run is a sequential pass whose rerank stages RPC per query;
+             run_many coalesces all queries' pairs per rerank stage.
+    remote_pipeline
+             the cascade runs server-side (wire v3 MSG_RANK_BATCH): run /
+             run_many send query strings — ONE RPC per query batch — and
+             rebuild candidates from the returned (doc_id, sent_id, score)
+             rankings using the context's bound documents.
+    All return ``(candidates, trace)`` per query (the remote_pipeline trace
+    is a single stage: the server does not ship its per-stage accounting
+    back).
     """
 
     def __init__(self, pipeline: ops.Op, target: str, stages: List[PL.Stage],
@@ -353,8 +656,52 @@ class ExecutionPlan:
         self.target = target
         self.stages = stages
         self.ctx = ctx
-        self._seq = PL.MultiStageRanker(stages)
-        self._bat = BatchedMultiStageRanker(stages, shared_cache=ctx.cache)
+        if target == "remote_pipeline":
+            self._ranker = ctx.ranking_transport()
+            self._seq = self._bat = None
+        else:
+            self._ranker = None
+            self._seq = PL.MultiStageRanker(stages)
+            self._bat = BatchedMultiStageRanker(stages,
+                                                shared_cache=ctx.cache)
+
+    def _sentence_text(self, doc_id: int, sent_id: int) -> str:
+        docs = self.ctx.documents
+        if 0 <= doc_id < len(docs) and 0 <= sent_id < len(docs[doc_id]):
+            return docs[doc_id][sent_id]
+        return ""    # ranking against a corpus this context doesn't bind
+
+    def _run_remote_pipeline(self, queries: Sequence[str],
+                             deadline_abs: Optional[float] = None):
+        from repro_torch.serving import telemetry
+        queries = list(queries)
+        chunk = self.ctx.rank_chunk or len(queries) or 1
+        kw = _deadline_kwargs(self._ranker, deadline_abs)
+        t0 = time.perf_counter()
+        rankings: List = []
+        # One span per ranking RPC chunk: the transport underneath (Client
+        # or HedgedTransport) hangs its own client/hedge spans off this, and
+        # a v5 server continues the trace on the far side of the wire.
+        with telemetry.get_tracer().span("plan.remote_pipeline",
+                                         queries=len(queries)):
+            for i in range(0, len(queries), chunk):
+                rankings.extend(
+                    self._ranker.rank_batch(queries[i:i + chunk], **kw))
+        if len(rankings) != len(queries):
+            raise ValueError(f"ranking reply held {len(rankings)} rankings "
+                             f"for {len(queries)} queries")
+        # Amortize the RPC wall time across the batch, matching the other
+        # targets' contract that per-query trace latencies sum to ~wall.
+        dt = (time.perf_counter() - t0) / max(len(queries), 1)
+        out = []
+        for ranking in rankings:
+            cands = [PL.Candidate(int(d), int(s),
+                                  self._sentence_text(int(d), int(s)),
+                                  float(score))
+                     for d, s, score in ranking]
+            out.append((cands, [PL.StageResult("pipeline@remote", cands,
+                                               dt)]))
+        return out
 
     def _shed_if_expired(self, deadline_abs: Optional[float]) -> None:
         """Drop work whose deadline already passed: the cascade below
@@ -370,6 +717,9 @@ class ExecutionPlan:
 
     def run(self, query: str, deadline_abs: Optional[float] = None):
         self._shed_if_expired(deadline_abs)
+        if self.target == "remote_pipeline":
+            return self._run_remote_pipeline(
+                [query], deadline_abs=deadline_abs)[0]
         if self.target == "batched":
             return self._bat.run(query)
         return self._seq.run(query)
@@ -377,22 +727,46 @@ class ExecutionPlan:
     def run_many(self, queries: Sequence[str],
                  deadline_abs: Optional[float] = None):
         self._shed_if_expired(deadline_abs)
+        if self.target == "remote_pipeline":
+            return self._run_remote_pipeline(queries,
+                                             deadline_abs=deadline_abs)
         if self.target == "local":
             return [self._seq.run(q) for q in queries]
         return self._bat.run_batch(queries)
 
     def describe(self) -> str:
+        if self.target == "remote_pipeline":
+            hedged = any(c.__name__ == "HedgedTransport"
+                         for c in type(self._ranker).__mro__)
+            return (f"{self.target}: rank-rpc[{self.pipeline!r}]"
+                    + ("[hedged]" if hedged else ""))
         parts = []
         for s in self.stages:
             extra = ""
             scorer = getattr(s, "scorer", None)
             if scorer is not None and hasattr(scorer, "_buckets"):
                 extra = f"[buckets={scorer._buckets}]"
+            elif isinstance(s, RemoteRerankStage):
+                extra = "[rpc]"
             parts.append(s.name + extra)
         return f"{self.target}@{self.ctx.device}: " + " -> ".join(parts)
 
     def __repr__(self) -> str:
         return f"<ExecutionPlan {self.describe()}>"
+
+    def cache_stats(self) -> Dict[str, float]:
+        return self.ctx.cache.stats()
+
+    def close(self) -> None:
+        """Release the remote connections the plan's context opened. Plans
+        sharing one context share its transports — close once, at the end."""
+        self.ctx.close()
+
+    def __enter__(self) -> "ExecutionPlan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def plan(pipeline: ops.Op, target: str = "local",
@@ -403,11 +777,16 @@ def plan(pipeline: ops.Op, target: str = "local",
     ``PlanContext`` fields). The same pipeline value can be planned for
     every target — the description never changes, only the lowering.
     """
-    _check_target(target)
     if ctx is None:
         ctx = PlanContext(**ctx_kw)
     elif ctx_kw:
         ctx = dataclasses.replace(ctx, **ctx_kw)
+    if target == "remote_pipeline":
+        # The server lowers and runs the cascade; locally there is nothing
+        # to lower — only the ranking endpoint to bind. Still validate the
+        # description so a malformed pipeline fails at plan time here too.
+        ops.normalize(pipeline)
+        return ExecutionPlan(pipeline, target, [], ctx)
     return ExecutionPlan(pipeline, target, lower(pipeline, target, ctx), ctx)
 
 

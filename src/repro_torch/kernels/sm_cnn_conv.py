@@ -29,7 +29,8 @@ shape whose staged operands do not fit a block's shared memory raises
 takes S up to 180, the bfloat16 kernel S up to 1,016).
 
 ``launches`` counts the kernel's launches, so a run can show that its path
-went through the kernel; ``reset_launches`` sets it to 0. ``route_info``
+went through the kernel (under a lock: a server's workers call the
+wrapper from many threads at once); ``reset_launches`` sets it to 0. ``route_info``
 reports what a dtype's kernel holds on the card (design, registers, spills,
 shared memory, resident blocks).
 """
@@ -37,6 +38,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+# Lock by name, not threading.Lock(): the runtime lock sanitizer's static
+# identity map (analysis/sanitizer.py) is of the JAX package's locks only.
+from threading import Lock
 
 import torch
 import torch.nn.functional as F
@@ -54,11 +58,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 STAGES = {0: "CUDA-core FMA", 1: "3xTF32 mma.sync + cp.async"}
 
 launches = 0
+_counting = Lock()
 
 
 def reset_launches() -> None:
     global launches
-    launches = 0
+    with _counting:
+        launches = 0
 
 
 def conv_tanh_maxpool_plain(x_emb: torch.Tensor, filters: torch.Tensor,
@@ -186,5 +192,6 @@ def conv_tanh_maxpool(x_emb: torch.Tensor, filters: torch.Tensor,
     else:   # the kernel launches on the runtime's current device
         with torch.cuda.device(index):
             out = _launch(x_emb, filters, bias, width)
-    launches += 1
+    with _counting:
+        launches += 1
     return out

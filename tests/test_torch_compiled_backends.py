@@ -16,6 +16,8 @@ they also run on a machine with the port's dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_compiled_backends.py
 """
+import socket
+import threading
 import types
 
 import numpy as np
@@ -27,6 +29,7 @@ from repro_torch.core import backends as BK
 from repro_torch.models import sm_cnn
 
 N = 8
+WAIT_S = 120.0   # every join and socket read here: a compile takes seconds
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -119,6 +122,33 @@ def test_jit_compiles_a_bucket_once(setup, scorers):
     assert jit.programs.compiles == compiles == 1
 
 
+def test_jit_first_calls_from_many_threads_compile_once(setup):
+    """Threads that make a bucket's first call at once (a server's workers)
+    compile it once between them, and none takes another's compile for a
+    call that ran without a program."""
+    cfg, tree, _, q, a, f, ref = setup
+    jit = BK.make_scorer("jit", tree, cfg, buckets=(N,), device="cpu")
+    start = threading.Barrier(4, timeout=WAIT_S)
+    got, errors = {}, []
+
+    def call(i):
+        try:
+            start.wait()
+            got[i] = jit(q, a, f)
+        except Exception as e:   # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert jit.programs.compiles == 1 and len(got) == 4
+    for out in got.values():
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
 def test_recompile_limit_hit_raises_instead_of_running_eager(setup, scorers):
     """Bucket 1 needs a second program; with the limit lowered to one,
     dynamo would run the plain model, and fullgraph=True makes it raise."""
@@ -206,3 +236,45 @@ def test_cuda_aot_replays_one_graph_a_call(cuda_device):
     for n in (64, 8, 3, 64):
         np.testing.assert_allclose(aot(q[:n], a[:n], f[:n]), want[:n], rtol=1e-4, atol=1e-5)
     assert aot.programs.replays == 4 and aot.programs.compiles == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["aot", "jit"])
+def test_cuda_threadpool_clients_each_get_their_own_scores(cuda_device, backend):
+    """Eight clients at once, each with pairs of its own, through a
+    ThreadPoolServer of eight workers over one scorer on the card: every
+    reply is its own pair's score in process (``aot`` replays one graph a
+    bucket, whose static inputs and output concurrent calls share)."""
+    from repro_torch.core import service as SV
+    from repro_torch.data import qa as QA
+    from repro_torch.data.tokenizer import HashingTokenizer
+
+    cfg = get_config("sm-cnn")
+    tree, *_ = _inputs(cfg)
+    corpus = QA.generate_corpus(n_docs=40, n_questions=40, seed=11)
+    tok = HashingTokenizer(cfg.vocab_size)
+    scorer = BK.make_scorer(backend, tree, cfg, buckets=(1, 8), device=cuda_device)
+    handler = SV.QuestionAnsweringHandler(scorer, tok, corpus.idf, cfg.max_len)
+    pairs = [(corpus.questions[qi], corpus.documents[di][si])
+             for qi, di, si, _ in corpus.pairs[:8 * 40]]
+    want = np.asarray([handler.get_scores([p])[0] for p in pairs])
+    assert len(pairs) == 8 * 40 and np.ptp(want) > 1e-2
+    got = {}
+    old = socket.getdefaulttimeout()
+    socket.setdefaulttimeout(WAIT_S)
+    try:
+        with SV.ThreadPoolServer(handler, num_workers=8).start_background() as srv:
+            def client(c):
+                with SV.Client(srv.address) as cl:
+                    got[c] = [cl.get_score(q, a) for q, a in pairs[c::8]]
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=WAIT_S)
+    finally:
+        socket.setdefaulttimeout(old)
+    assert not any(t.is_alive() for t in threads) and len(got) == 8
+    for c in range(8):
+        np.testing.assert_allclose(got[c], want[c::8], rtol=1e-4, atol=1e-5)

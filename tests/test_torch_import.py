@@ -43,7 +43,10 @@ def test_slice_modules_are_all_there():
               "repro_torch.configs.dlrm_mlperf", "repro_torch.data.recsys",
               "repro_torch.models.recsys", "repro_torch.kernels.embedding_bag",
               "repro_torch.core.numpy_eval", "repro_torch.core.compiled_artifact",
-              "repro_torch.core.registry"):
+              "repro_torch.core.registry", "repro_torch.core.service",
+              "repro_torch.serving.stats", "repro_torch.serving.admission",
+              "repro_torch.serving.batcher", "repro_torch.serving.engine",
+              "repro_torch.serving.hedge"):
         assert m in mods, m
 
 
@@ -88,6 +91,16 @@ def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
 def test_the_dlrm_path_alone_loads_no_jax_and_no_repro(module):
     """Each entry module of the DLRM serving path, imported alone in a
     fresh process."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.service",
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.serving.hedge"])
+def test_the_service_alone_loads_no_jax_and_no_repro(module):
+    """The service's entry modules, each imported alone in a fresh process;
+    between them they import every module of the service (``wire``,
+    ``stats``, ``admission``, ``batcher``)."""
     assert _alone(module) == []
 
 

@@ -136,13 +136,14 @@ def test_scorer_buckets_chunks_and_metrics_match_jax(worlds):
 
 
 def test_unported_targets_and_backends_raise(worlds):
-    """The remote targets wait for the serving slice; every backend of the
-    JAX package is ported, and an unknown one raises."""
+    """Every target and every backend of the JAX package is ported (the
+    remote targets are held by tests/test_torch_remote_plan.py); an unknown
+    target or backend raises."""
     ctx, _, _ = worlds
     pipe = ops.Retrieve(h=5) >> ops.Rerank("eager") % 4
-    for target in ("remote", "remote_pipeline"):
-        with pytest.raises(P.PlanError, match="not ported"):
-            P.plan(pipe, target, ctx)
+    assert P.TARGETS == jax_plan.TARGETS
+    with pytest.raises(P.PlanError, match="unknown target"):
+        P.plan(pipe, "grpc", ctx)
     assert backends.BACKENDS == jax_backends.BACKENDS
     with pytest.raises(ValueError, match="unknown backend"):
         backends.make_scorer("onnx", ctx.params, ctx.cfg, device="cpu")
