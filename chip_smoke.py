@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             kernels/csrc, one nvcc per source, all started together
             (ptxas register and spill report printed)
   kernel    the conv kernel against its plain PyTorch version on the card
-            at every shape the main path gives it (and a ragged and a small
+            at every shape the main path gives it, the launcher world's
+            scorer buckets among them (and a ragged and a small
             one, and shapes that cross the float32 kernel's tile edges), in
             float32 and bfloat16; with NaN and +-inf in the inputs at B=256
             (NaN positions equal, +-inf giving +-1); each route's design
@@ -62,6 +63,31 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             and remote_pipeline (a ThreadPoolServer over a PipelineEngine)
             ranking 64 questions alike (verify_plans); a past deadline shed
             as ShedError; a drain reaching 0 in flight
+  launch    the serving launcher's stack (repro_torch.launch, training,
+            serving.cluster/rollout/fabric) on the card: full-width sm-cnn
+            trained 60 steps of batch 64 (Trainer + adamw) on the pipeline
+            phase's corpus, the loss falling, the trained weights served by
+            pallas == eager (rtol 1e-4, atol 1e-5), a checkpoint written
+            from the card restored on the CPU bit-equal and published to a
+            registry, build_world()'s seconds; ReplicaPools of 2 pallas and
+            2 aot replicas behind a ThreadPoolServer under 8 client threads
+            with pairs of their own, every reply against its pair's eager
+            score in process, the conv launched 2 times a pallas scorer
+            call (counter set to 0 before, read after), q/s and p50/p99
+            beside the service phase's one-scorer rows; ShadowEngine and
+            ABEngine between the seed and the trained registry versions,
+            every reply the ranking of the version its arm names, and
+            RolloutController.hot_swap through MSG_SWAP on a live server
+            (a NaN version rolled back, the trained one landed); python -m
+            repro_torch.launch.serve --describe --device cuda, then a
+            --serve-pipeline --server threadpool --backend pallas server
+            ranked through Client.rank_batch and drained with --drain; the
+            launcher's world published to a registry and served by one
+            in-process ThreadPoolServer, then by Fabric(n_workers=1) and
+            Fabric(n_workers=4) (pallas on the card), each worker's and
+            every router reply's rankings == the in-process pallas plan on
+            that version, q/s and p50/p99 under 8 client threads, start-up
+            seconds
   attn-kernel  the causal GQA attention kernel against its plain version
             at qwen3-0.6b's H=16, Hkv=8, d=128 for (B, S) from (1, 1) to
             (1, 4096), float32 and bfloat16 (randn inputs), by max absolute
@@ -224,6 +250,22 @@ SERVICE_PLAN_Q = 64
 #: every wait of the service phase on a thread, a reply or a drain
 SERVICE_WAIT_S = 60.0
 
+#: launch: full-width training steps and batch; the ReplicaPools' backends
+#: and replicas; client threads; rollout questions; fabric sizes and each
+#: client thread's rank_batch RPCs of one question; every spawn and wait
+LAUNCH_TRAIN_STEPS, LAUNCH_BATCH = 60, 64
+POOL_BACKENDS, POOL_REPLICAS = ("pallas", "aot"), 2
+LAUNCH_CLIENTS = 8
+ROLLOUT_Q = 32
+FABRIC_WORKERS, FABRIC_RPCS = (1, 4), 32
+#: a worker's rank_batch of the whole world's questions goes in chunks of
+#: this many (the launcher's admission bound takes 32 queries an RPC)
+FABRIC_CHUNK = 16
+LAUNCH_WAIT_S = 180.0
+#: the launcher's world (reduced sm-cnn, S=16 d=8 F=12): its scorer buckets
+#: but 8, which the kernel phase's small shape already is
+LAUNCH_WORLD_SHAPES = ((1, 16, 8, 5, 12), (64, 16, 8, 5, 12), (256, 16, 8, 5, 12))
+
 #: rec-check: serve batches and retrieval candidates
 REC_CHECK_BATCHES, REC_CHECK_CANDIDATES = (512, 4096), 65536
 
@@ -368,7 +410,7 @@ def phase_kernel(torch, cfg) -> dict:
 
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     shapes = ([(b, s, d, w, f) for b in KERNEL_BATCHES] + [(8, 16, 8, 5, 12)]
-              + list(KERNEL_EDGE_SHAPES))
+              + list(LAUNCH_WORLD_SHAPES) + list(KERNEL_EDGE_SHAPES))
     for shape in shapes:
         for dtype in ("float32", "bfloat16"):
             x, filt, bias = inputs(*shape, dtype)
@@ -1187,6 +1229,532 @@ def phase_service(torch, cfg, world, scorers: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ launch --
+
+def _rank_ids(rankings):
+    return [[(d, s) for d, s, _ in r] for r in rankings]
+
+
+def _same_rankings(got, want, what: str) -> float:
+    """Rankings of (doc, sent, score) lists: the same ids, scores within
+    rtol 1e-4 / atol 1e-5. Returns the largest score difference."""
+    check(len(got) == len(want), f"{what}: {len(got)} rankings for {len(want)} queries")
+    err = 0.0
+    for g, w in zip(got, want):
+        check([(d, s) for d, s, _ in g] == [(d, s) for d, s, _ in w],
+              f"{what}: ranking {[(d, s) for d, s, _ in g]} differs from "
+              f"{[(d, s) for d, s, _ in w]}")
+        for (_, _, a), (_, _, b) in zip(g, w):
+            check(abs(a - b) <= 1e-5 + 1e-4 * abs(b), f"{what}: score {a} against {b}")
+            err = max(err, abs(a - b))
+    return err
+
+
+def _clients(n_threads: int, work, what: str) -> dict:
+    """``n_threads`` threads each running ``work(c) -> [(latency_s, ...)]``;
+    returns per-thread results, the wall time and the latencies."""
+    results = {}
+
+    def run(c):
+        results[c] = work(c)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=LAUNCH_WAIT_S)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads) and len(results) == n_threads,
+          f"launch: a {what} client did not finish")
+    lat = [x[0] for v in results.values() for x in v]
+    return {"results": results, "wall": wall, "n": len(lat),
+            "qps": len(lat) / wall, "p50_ms": _percentile(lat, 0.5) * 1e3,
+            "p99_ms": _percentile(lat, 0.99) * 1e3}
+
+
+class _ServedTarget:
+    """A live server as a ``RolloutController`` target: ``swap_version`` is
+    MSG_SWAP, ``model_version`` MSG_VERSION, the canaries ``rank_batch``."""
+
+    def __init__(self, client):
+        self.client = client
+
+    @property
+    def model_version(self):
+        return self.client.version()[0]
+
+    def swap_version(self, version):
+        return self.client.swap(version)[0]
+
+    def rank_batch(self, queries):
+        return self.client.rank_batch(queries)
+
+
+def _launch_train(torch, cfg, world, tmp: Path) -> dict:
+    """(a) Full-width sm-cnn trained on the card, its weights served by
+    pallas against eager, a checkpoint restored on the CPU and published."""
+    import functools
+
+    from repro_torch.core import backends
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.data import qa
+    from repro_torch.kernels import sm_cnn_conv as K
+    from repro_torch.launch.world import build_world
+    from repro_torch.models import sm_cnn
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import Trainer
+
+    tree, corpus, tok, _ = world
+
+    def stream():
+        ep = 0
+        while True:
+            yield from qa.pair_batches(corpus, tok, cfg.max_len, LAUNCH_BATCH, seed=ep)
+            ep += 1
+
+    tr = Trainer(functools.partial(sm_cnn.loss_fn, cfg=cfg), adamw(3e-3),
+                 sm_cnn.params_from_numpy(tree, "cuda"))
+    t0 = time.perf_counter()
+    tr.run(stream(), max_steps=LAUNCH_TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in tr.history]
+    step_ms = [h["step_time_s"] * 1e3 for h in tr.history]
+    check(all(math.isfinite(x) for x in losses), "launch: a training loss is not finite")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(last < first, f"launch: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check(all(t.device.type == "cuda" for t in tree_leaves(tr.params)),
+          "launch: trained params left the card")
+    log(f"launch: trained full-width {cfg.name} on the card: {LAUNCH_TRAIN_STEPS} "
+        f"steps of batch {LAUNCH_BATCH} (Trainer + adamw(3e-3), eager autograd) in "
+        f"{train_s:.3f} s; step_ms first={step_ms[0]:.3f} "
+        f"median(2..{LAUNCH_TRAIN_STEPS})={statistics.median(step_ms[1:]):.4f} "
+        f"p99={_percentile(step_ms[1:], 0.99):.4f}; loss mean of first 5 {first:.5f} "
+        f"-> last 5 {last:.5f} (acc {tr.history[-1]['acc']:.4f})")
+
+    # the trained weights served by the conv kernel against eager on the card
+    rows = qa.make_batch(corpus, tok, cfg.max_len, corpus.pairs[:256])
+    K.reset_launches()
+    got = backends.make_scorer("pallas", tr.params, cfg, buckets=(256,),
+                               device="cuda")(rows["q_tok"], rows["a_tok"], rows["feats"])
+    launches = K.launches
+    want = backends.make_scorer("eager", tr.params, cfg, buckets=(256,),
+                                device="cuda")(rows["q_tok"], rows["a_tok"], rows["feats"])
+    err = float(abs(got - want).max())
+    check(bool((abs(got - want) <= 1e-5 + 1e-4 * abs(want)).all()) and launches == 2,
+          f"launch: trained weights: pallas against eager {err:.3e}, {launches} launches")
+    log(f"launch: trained weights served by pallas == eager on the card on 256 rows "
+        f"(max_abs_err={err:.3e}, rtol 1e-4 atol 1e-5; {launches} conv launches)")
+
+    # a checkpoint written from the card restores on the CPU bit-equal
+    mgr = CheckpointManager(str(tmp / "ckpt"))
+    mgr.save(tr.step, tr.params, tr.opt_state)
+    cpu = lambda t: torch.zeros_like(t, device="cpu")  # noqa: E731
+    params, opt, step = mgr.restore(tree_map(cpu, tr.params), tree_map(cpu, tr.opt_state))
+    same = all(torch.equal(a, b.cpu()) for a, b in
+               zip(tree_leaves(params) + tree_leaves(opt),
+                   tree_leaves(tr.params) + tree_leaves(tr.opt_state)))
+    check(same and step == LAUNCH_TRAIN_STEPS,
+          "launch: the checkpoint did not restore on the CPU bit-equal")
+    reg = ModelRegistry(str(tmp / "registry"))
+    v_trained = mgr.publish_to_registry(reg).version_id
+    v_seed = reg.publish(tree, model=cfg.name).version_id
+    check(v_trained == reg.publish(params, model=cfg.name).version_id != v_seed,
+          "launch: publish_checkpoint's id is not the id of the same weights")
+    log(f"launch: checkpoint of step {step} written from the card restored on the "
+        f"CPU bit-equal (params + adamw state, {len(tree_leaves(opt))} tensors); "
+        f"published to a registry as {v_trained} (seed weights {v_seed})")
+
+    t0 = time.perf_counter()
+    lw = build_world(device="cuda")
+    torch.cuda.synchronize()
+    world_s = time.perf_counter() - t0
+    log(f"launch: build_world() (the launcher's world, {lw[0].name}, 60 steps) on the "
+        f"card in {world_s:.3f} s")
+    return {"params": tr.params, "registry": reg, "v_seed": v_seed,
+            "v_trained": v_trained, "step_ms": statistics.median(step_ms[1:]),
+            "first_step_ms": step_ms[0], "train_s": train_s, "world_s": world_s,
+            "loss": (first, last), "launcher_world": lw}
+
+
+def _launch_pool(torch, cfg, world, params, service: dict) -> dict:
+    """(b) ReplicaPools of 2 pallas and 2 aot replicas behind a
+    ThreadPoolServer under 8 client threads with pairs of their own."""
+    import numpy as np
+
+    from repro_torch.core import backends
+    from repro_torch.core import service as SV
+    from repro_torch.kernels import sm_cnn_conv as K
+    from repro_torch.serving.cluster import ReplicaPool
+
+    _, corpus, tok, _ = world
+    pairs = [(corpus.questions[qi], corpus.documents[di][si])
+             for qi, di, si, _ in corpus.pairs[:LAUNCH_CLIENTS * CONCURRENT_RPCS]]
+    ref = SV.QuestionAnsweringHandler(
+        backends.make_scorer("eager", params, cfg, buckets=BACKEND_BUCKETS, device="cuda"),
+        tok, corpus.idf, cfg.max_len)
+    want = np.concatenate([ref.get_scores(pairs[i:i + 256])
+                           for i in range(0, len(pairs), 256)])
+    rows = {}
+    for name in POOL_BACKENDS:
+        t0 = time.perf_counter()
+        pool = ReplicaPool.build(name, params, cfg, tok, corpus.idf,
+                                 n_replicas=POOL_REPLICAS, buckets=BACKEND_BUCKETS,
+                                 device="cuda")
+        build_s = time.perf_counter() - t0
+        with pool, SV.ThreadPoolServer(pool, num_workers=LAUNCH_CLIENTS
+                                       ).start_background() as srv:
+            with SV.Client(srv.address) as cl:
+                for q, a in pairs[:SERVICE_WARM]:
+                    cl.get_score(q, a)
+            torch.cuda.synchronize()
+
+            def work(c):
+                out = []
+                with SV.Client(srv.address) as cl_:
+                    for i in range(c, len(pairs), LAUNCH_CLIENTS):
+                        t = time.perf_counter()
+                        score = cl_.get_score(*pairs[i])
+                        out.append((time.perf_counter() - t, i, score))
+                return out
+
+            # ---- the launch path, counted ----
+            K.reset_launches()
+            calls0 = sum(r.batcher.scorer.calls for r in pool.replicas)
+            run = _clients(LAUNCH_CLIENTS, work, f"{name} pool")
+            launches = K.launches
+            calls = sum(r.batcher.scorer.calls for r in pool.replicas) - calls0
+            # ---- end of the counted run ----
+            stats = pool.stats()
+        err = 0.0
+        for out in run["results"].values():
+            for _, i, score in out:
+                check(abs(score - want[i]) <= 1e-5 + 1e-4 * abs(want[i]),
+                      f"launch: {name} pool answered pair {i} with {score}, its score "
+                      f"in process is {want[i]}")
+                err = max(err, abs(score - want[i]))
+        check(run["n"] == len(pairs), f"launch: {name} pool answered {run['n']} RPCs")
+        check(calls > 0 and launches == (2 * calls if name == "pallas" else 0),
+              f"launch: {name} pool: {launches} conv launches in {calls} scorer calls")
+        per_rep = [int(stats[f"replica{i}_requests"]) for i in range(POOL_REPLICAS)]
+        single = service[name]["concurrent"]
+        rows[name] = dict(qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
+                          launches=launches, calls=calls, build_s=build_s,
+                          mean_batch=run["n"] / calls)
+        log(f"launch: pool {name} x{POOL_REPLICAS} (built in {build_s:.3f} s) behind a "
+            f"ThreadPoolServer, {LAUNCH_CLIENTS} client threads x {CONCURRENT_RPCS} "
+            f"get_score RPCs of pairs of their own: q/s={run['qps']:.3f} "
+            f"p50_ms={run['p50_ms']:.4f} p99_ms={run['p99_ms']:.4f} (one {name} scorer "
+            f"behind a ThreadPoolServer, service phase: q/s={single['qps']:.3f} "
+            f"p50_ms={single['p50_ms']:.4f} p99_ms={single['p99_ms']:.4f}); requests a "
+            f"replica {per_rep}, {calls} scorer calls (mean batch "
+            f"{run['n'] / calls:.3f}), conv_launches={launches}; every reply its own "
+            f"pair's score (max_abs_err_vs_eager_in_process={err:.3e})")
+    return rows
+
+
+def _launch_rollout(torch, cfg, world, trained: dict) -> dict:
+    """(c) Shadow, A/B and a guardrailed hot swap over MSG_SWAP between two
+    registry versions of the full-width model, on the card."""
+    import numpy as np
+
+    from repro_torch.core import ops
+    from repro_torch.core import service as SV
+    from repro_torch.core.plan import PlanContext
+    from repro_torch.core.treepath import tree_map
+    from repro_torch.kernels import sm_cnn_conv as K
+    from repro_torch.serving import telemetry
+    from repro_torch.serving.engine import PipelineEngine
+    from repro_torch.serving.rollout import ABEngine, RolloutController, ShadowEngine
+
+    tree, corpus, tok, index = world
+    reg, va, vb = trained["registry"], trained["v_seed"], trained["v_trained"]
+    pipe = ops.Retrieve(h=20) >> ops.Rerank("pallas") % 10
+    queries = corpus.questions[:ROLLOUT_Q]
+
+    def engine(version):
+        ctx = PlanContext.from_world(cfg, None, corpus, tok, index, registry=reg,
+                                     model_version=version, device="cuda")
+        return PipelineEngine(pipe, ctx, target="batched")
+
+    solo = {v: engine(v).rank_batch(queries) for v in (va, vb)}
+    differ = sum(a != b for a, b in zip(_rank_ids(solo[va]), _rank_ids(solo[vb])))
+    check(differ > 0, "launch: the two versions rank every query alike")
+    telemetry.reset_all()
+    K.reset_launches()
+    # ---- the rollout path, counted ----
+    shadow = ShadowEngine(engine(va), engine(vb), fraction=1.0, max_pending=4)
+    out = shadow.rank_batch(queries)
+    check(shadow.drain(LAUNCH_WAIT_S), "launch: the shadow did not drain")
+    err = _same_rankings(out, solo[va], "shadow primary")
+    snap = telemetry.get_registry().snapshot()
+    mirrored = sum(v for k, v in snap.items() if k.startswith("shadow_queries") and vb in k)
+    changed = sum(v for k, v in snap.items()
+                  if k.startswith("shadow_top1_changed") and vb in k)
+    check(mirrored == len(queries) and not any(k.startswith("shadow_errors") for k in snap),
+          f"launch: the shadow mirrored {mirrored} of {len(queries)} queries")
+    log(f"launch: ShadowEngine(primary {va}, candidate {vb}, fraction 1.0) on "
+        f"{len(queries)} questions: the primary's rankings == {va} alone "
+        f"(max_abs_err={err:.3e}); {int(mirrored)} mirrored to {vb}, top-1 changed on "
+        f"{int(changed)}; the versions' rankings differ on {differ} questions")
+
+    ab = ABEngine(engine(va), engine(vb), split_pct=50.0)
+    arms = [ab.arm_of(q) for q in queries]
+    got = ab.rank_batch(queries)
+    for i, (r, arm) in enumerate(zip(got, arms)):
+        _same_rankings([r], [solo[vb if arm == "b" else va][i]], f"A/B arm {arm}")
+    check({"a", "b"} == set(arms), "launch: the A/B split used one arm")
+    snap = telemetry.get_registry().snapshot()
+    per_arm = {v: sum(x for k, x in snap.items() if k.startswith("ab_queries") and v in k)
+               for v in (va, vb)}
+    check(per_arm == {va: arms.count("a"), vb: arms.count("b")},
+          f"launch: ab_queries per version {per_arm}")
+    log(f"launch: ABEngine 50/50: {arms.count('a')} questions to {va}, "
+        f"{arms.count('b')} to {vb}; every reply == its arm's version alone")
+
+    vbad = reg.publish(tree_map(lambda x: np.full(np.shape(x), np.nan, np.float32), tree),
+                       model="broken").version_id
+    with SV.ThreadPoolServer(engine(va), num_workers=2).start_background() as srv, \
+            SV.Client(srv.address) as cl:
+        ctrl = RolloutController(_ServedTarget(cl), canary_queries=queries[:4],
+                                 canary_passes=1)
+        bad = ctrl.hot_swap(vbad)
+        check(bad.rolled_back and cl.version() == (va, "active"),
+              f"launch: a NaN candidate was not rolled back ({bad})")
+        good = ctrl.hot_swap(vb)
+        check(good.swapped and cl.version() == (vb, "active"),
+              f"launch: the trained version did not land ({good})")
+        served = cl.rank_batch(queries)
+    launches = K.launches
+    # ---- end of the counted run ----
+    err = _same_rankings(served, solo[vb], "after hot_swap")
+    check(launches > 0, "launch: the rollout launched the conv kernel no time")
+    log(f"launch: RolloutController.hot_swap through MSG_SWAP on a live ThreadPoolServer: "
+        f"NaN candidate {vbad} rolled back ({bad.reason}); {vb} swapped in "
+        f"{good.swap_ms:.3f} ms (canary p99 {good.baseline.p99_ms:.3f} -> "
+        f"{good.candidate.p99_ms:.3f} ms); the server's rankings == {vb} alone "
+        f"(max_abs_err={err:.3e}); conv_launches in the rollout runs={launches}")
+    return {"launches": launches, "swap_ms": good.swap_ms}
+
+
+def _read_ready(proc, timeout_s: float):
+    found = {}
+    tail = []
+
+    def read():
+        for line in proc.stdout:
+            tail.append(line.rstrip())
+            if line.startswith("FABRIC_READY "):
+                _, host, port = line.split()
+                found["address"] = (host, int(port))
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    check("address" in found, f"launch: the launcher never printed FABRIC_READY: {tail[-20:]}")
+    return found["address"]
+
+
+def _launch_cli() -> dict:
+    """(d) The launcher as users start it: --describe, then a pipeline
+    server, ranked through the port's Client, then --drain."""
+    from repro_torch.core import service as SV
+    from repro_torch.data import qa
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.serve"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd + ["--describe", "--device", "cuda"], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=LAUNCH_WAIT_S)
+    describe_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"launch: --describe failed: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 5 and lines[1].lstrip().startswith("local@cuda:")
+          and lines[4].lstrip().startswith("remote_pipeline:"),
+          f"launch: --describe printed {lines}")
+    for line in lines:
+        log(f"launch: describe | {line}")
+    log(f"launch: python -m repro_torch.launch.serve --describe --device cuda "
+        f"(backend aot) in {describe_s:.3f} s")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["--serve-pipeline", "--server", "threadpool",
+                                   "--backend", "pallas", "--device", "cuda", "--port", "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=str(ROOT))
+    try:
+        host, port = _read_ready(proc, LAUNCH_WAIT_S)
+        ready_s = time.perf_counter() - t0
+        questions = qa.generate_corpus(n_docs=80, n_questions=60, seed=0).questions
+        with SV.Client((host, port)) as cl:
+            rankings = cl.rank_batch(questions[:32])
+            version = cl.version()
+        check(len(rankings) == 32 and sum(bool(r) for r in rankings) > 16,
+              "launch: the launched server ranked too few questions")
+        for r in rankings:
+            check(all(math.isfinite(s) and 0.0 <= s <= 1.0 for _, _, s in r)
+                  and [s for _, _, s in r] == sorted((s for _, _, s in r), reverse=True),
+                  f"launch: a ranking is not in descending probabilities: {r}")
+        drain = subprocess.run(cmd + ["--drain", f"{host}:{port}"], env=env, cwd=str(ROOT),
+                               capture_output=True, text=True, timeout=LAUNCH_WAIT_S)
+        check(drain.returncode == 0 and "draining=1" in drain.stdout
+              and "inflight=0" in drain.stdout,
+              f"launch: --drain printed {drain.stdout!r} {drain.stderr[-500:]!r}")
+        log(f"launch: python -m repro_torch.launch.serve --serve-pipeline --server "
+            f"threadpool --backend pallas --device cuda: FABRIC_READY after "
+            f"{ready_s:.3f} s; rank_batch of 32 questions from the launcher's world: "
+            f"{sum(bool(r) for r in rankings)} ranked, descending probabilities; "
+            f"version {version}; --drain: {drain.stdout.strip()}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(LAUNCH_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(LAUNCH_WAIT_S)
+    return {"describe_s": describe_s, "ready_s": ready_s}
+
+
+def _launch_fabric(trained: dict, tmp: Path) -> dict:
+    """(e) The fabric: 1 and then 4 worker processes serving one registry
+    version of the launcher's world with pallas on the card, against one
+    in-process ThreadPoolServer over the same engine."""
+    from repro_torch.core import service as SV
+    from repro_torch.core.plan import PlanContext
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import PipelineEngine
+    from repro_torch.serving.fabric import Fabric
+
+    cfg, params, corpus, tok, index, _ = trained["launcher_world"]
+    reg_dir = str(tmp / "fabric_registry")
+    reg = ModelRegistry(reg_dir)
+    vid = reg.publish(params, model=cfg.name).version_id
+    ctx = PlanContext.from_world(cfg, params, corpus, tok, index, buckets=(1, 8, 64, 256),
+                                 registry=reg, model_version=vid, device="cuda")
+    engine = PipelineEngine(serve.canonical_pipeline("pallas"), ctx)
+    queries = corpus.questions
+    want = engine.rank_batch(queries)
+    want_of = dict(zip(queries, want))
+
+    def load(rank_batch_of):
+        def work(c):
+            out = []
+            for i in range(FABRIC_RPCS):
+                q = queries[(c * FABRIC_RPCS + i) % len(queries)]
+                t = time.perf_counter()
+                r = rank_batch_of(c)([q])
+                out.append((time.perf_counter() - t, q, r[0]))
+            return out
+        return work
+
+    def held(run, what):
+        err = 0.0
+        for out in run["results"].values():
+            for _, q, r in out:
+                err = max(err, _same_rankings([r], [want_of[q]], what))
+        return err
+
+    rows = {}
+    with SV.ThreadPoolServer(engine, num_workers=LAUNCH_CLIENTS).start_background() as srv:
+        clients = [SV.Client(srv.address) for _ in range(LAUNCH_CLIENTS)]
+        try:
+            for cl in clients:
+                cl.rank_batch(queries[:2])
+            run = _clients(LAUNCH_CLIENTS, load(lambda c: clients[c].rank_batch),
+                           "single-server")
+        finally:
+            for cl in clients:
+                cl.close()
+    err = held(run, "one ThreadPoolServer")
+    rows["server"] = run
+    log(f"launch: one process: ThreadPoolServer({LAUNCH_CLIENTS} workers) over "
+        f"PipelineEngine({serve.canonical_pipeline('pallas')!r}) on {vid}, "
+        f"{LAUNCH_CLIENTS} client threads (a Client each) x {FABRIC_RPCS} rank_batch "
+        f"RPCs of one question: q/s={run['qps']:.3f} p50_ms={run['p50_ms']:.4f} "
+        f"p99_ms={run['p99_ms']:.4f}; every ranking == in process "
+        f"(max_abs_err={err:.3e})")
+
+    for n in FABRIC_WORKERS:
+        # a worker serves one connection a thread: the router's two and as
+        # many clients as there are threads
+        fab = Fabric(n_workers=n, backend="pallas", train_steps=60, device="cuda",
+                     spawn_timeout_s=LAUNCH_WAIT_S, worker_threads=LAUNCH_CLIENTS + 2,
+                     extra_args=("--registry", reg_dir, "--model-version", vid))
+        t0 = time.perf_counter()
+        with fab:
+            up_s = time.perf_counter() - t0
+            for ep in fab.router._endpoints:
+                check(ep.version() == (vid, "active"), "launch: a worker serves another "
+                      "version")
+                got = [r for i in range(0, len(queries), FABRIC_CHUNK)
+                       for r in ep.client.rank_batch(queries[i:i + FABRIC_CHUNK])]
+                _same_rankings(got, want, f"fabric worker {ep.slot} of {n}")
+            run = _clients(LAUNCH_CLIENTS, load(lambda c: fab.router.rank_batch),
+                           f"fabric x{n}")
+            stats = fab.stats()
+            # the same load with no router: a Client a thread, the threads
+            # spread over the workers
+            direct = [SV.Client(fab.workers[c % n].address) for c in range(LAUNCH_CLIENTS)]
+            try:
+                run_d = _clients(LAUNCH_CLIENTS, load(lambda c: direct[c].rank_batch),
+                                 f"fabric x{n} direct")
+            finally:
+                for cl in direct:
+                    cl.close()
+            per_worker = {i: m.get("engine_rank_queries{model_version=" + vid + "}", 0.0)
+                          for i, m in fab.worker_metrics().items()}
+        err = max(held(run, f"fabric x{n}"), held(run_d, f"fabric x{n} direct"))
+        check(stats["alive_workers"] == n and stats["respawns"] == 0,
+              f"launch: fabric x{n}: {stats}")
+        rows[n] = dict(run, up_s=up_s, direct=run_d)
+        log(f"launch: Fabric(n_workers={n}, backend pallas, --registry, --model-version "
+            f"{vid}, --device cuda, --train-steps 60): up in {up_s:.3f} s (spawn to the "
+            f"last FABRIC_READY: torch import, CUDA context, kernel load, training); "
+            f"every worker's rankings of the world's {len(queries)} questions == the "
+            f"in-process pallas plan on {vid}; router under {LAUNCH_CLIENTS} client "
+            f"threads x {FABRIC_RPCS} rank_batch RPCs of one question: "
+            f"q/s={run['qps']:.3f} p50_ms={run['p50_ms']:.4f} p99_ms={run['p99_ms']:.4f} "
+            f"(hedged {int(stats['router_hedged'])}, hedge wins "
+            f"{int(stats['router_hedge_wins'])}); queries a worker {per_worker}; "
+            f"without the router, a Client a thread spread over the workers: "
+            f"q/s={run_d['qps']:.3f} p50_ms={run_d['p50_ms']:.4f} "
+            f"p99_ms={run_d['p99_ms']:.4f}; every reply == in process "
+            f"(max_abs_err={err:.3e})")
+    hi, lo = rows[FABRIC_WORKERS[-1]], rows[FABRIC_WORKERS[0]]
+    log(f"launch: fabric x{FABRIC_WORKERS[-1]} against x{FABRIC_WORKERS[0]}: q/s "
+        f"{hi['qps'] / lo['qps']:.3f}x through the router, "
+        f"{hi['direct']['qps'] / lo['direct']['qps']:.3f}x without it; against one "
+        f"in-process ThreadPoolServer: {hi['qps'] / rows['server']['qps']:.3f}x through "
+        f"the router, {hi['direct']['qps'] / rows['server']['qps']:.3f}x without it")
+    return rows
+
+
+def phase_launch(torch, cfg, world, service: dict) -> dict:
+    """The serving launcher's stack on the card: training, ReplicaPool,
+    rollout, the CLI as users start it, and the fabric of worker processes."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="launch_", dir=str(ROOT / "build")))
+    try:
+        trained = _launch_train(torch, cfg, world, tmp)
+        pool = _launch_pool(torch, cfg, world, trained["params"], service)
+        rollout = _launch_rollout(torch, cfg, world, trained)
+        cli = _launch_cli()
+        fabric = _launch_fabric(trained, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": pool["pallas"]["launches"] + rollout["launches"],
+            "pool": pool, "rollout": rollout, "cli": cli, "fabric": fabric,
+            "step_ms": trained["step_ms"], "world_s": trained["world_s"]}
+
+
 # ------------------------------------------------------------- attn-kernel --
 
 def attention_bound(b: int, s: int, h: int, hkv: int, d: int, dtype: str):
@@ -1899,6 +2467,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     service = phase_service(torch, cfg, world, table1)
     phases["service"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launch = phase_launch(torch, cfg, world, service)
+    phases["launch"] = time.perf_counter() - t
     del table1, world
     lm_cfg = get_config("qwen3-0.6b")
     with torch.inference_mode():
@@ -1939,6 +2510,7 @@ def main(argv=None) -> int:
         "bound_by": t32["bound_by"], "library_ms": t32["library"],
         "device_ms": t32["device_ms"], "bound_ms_3xtf32": t32["bound_ms_3xtf32"],
         "launches_service": service["pallas"]["launches"],
+        "launches_launch": launch["launches"],
         "design": kern["routes"]["float32"]["design"],
         "dtype": "float32", "shape": "B=256 S=64 d=50 w=5 F=100",
     }, {

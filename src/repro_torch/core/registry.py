@@ -106,12 +106,19 @@ class ModelRegistry:
 
     def publish_checkpoint(self, manager, step: Optional[int] = None
                            ) -> ModelVersion:
-        """Promote a training checkpoint into the registry: it needs the
-        port's ``training.checkpoint.CheckpointManager``, which arrives
-        with training (ROADMAP.md item 7)."""
-        raise NotImplementedError(
-            "publish_checkpoint needs training.checkpoint.CheckpointManager, "
-            "which is not ported yet (ROADMAP.md item 7, training)")
+        """Promote a ``training.checkpoint.CheckpointManager`` checkpoint
+        (its ``params.rpro``, optimizer state excluded) into the registry."""
+        if step is None:
+            step = manager.latest_step()
+        if step is None:
+            raise RegistryError(f"no checkpoints in {manager.directory}")
+        path = os.path.join(manager.directory, f"ckpt_{step:010d}",
+                            "params.rpro")
+        with open(path, "rb") as f:
+            blob = f.read()
+        flat, header = export_lib.loads(blob)
+        return self._publish_blob(blob, flat, model=header.get("model", ""),
+                                  meta=header.get("meta"), source_step=step)
 
     def _publish_blob(self, blob: bytes, flat: Dict[str, np.ndarray],
                       model: str, meta: Optional[Dict],

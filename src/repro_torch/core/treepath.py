@@ -19,3 +19,24 @@ def keystr(path) -> str:
         else:
             parts.append(str(entry).strip("[].'\""))
     return "/".join(parts)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts and lists, in the JAX package's
+    order (``jax.tree.leaves``: dict keys sorted, list items in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``), keeping the nesting: a new tree, nothing mutated."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, item, *(r[i] for r in rest))
+                for i, item in enumerate(tree)]
+    return fn(tree, *rest)

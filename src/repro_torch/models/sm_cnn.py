@@ -121,3 +121,15 @@ def forward(params: Dict, q_tok: torch.Tensor, a_tok: torch.Tensor,
 def score(params: Dict, q_tok, a_tok, feats, cfg: TextPairConfig) -> torch.Tensor:
     """P(relevant) — the paper's ``getScore`` (exp of log-softmax column 1)."""
     return torch.exp(forward(params, q_tok, a_tok, feats, cfg))[:, 1]
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: TextPairConfig):
+    """Mean NLL of the log-softmax at ``batch["label"]``, and accuracy:
+    ``(nll, {"nll": nll, "acc": acc})``. Training differentiates this plain
+    path (``conv_arm``'s ``amax`` splits its gradient evenly over tied
+    windows, as ``jnp.max``'s does), never the conv kernel."""
+    logp = forward(params, batch["q_tok"], batch["a_tok"], batch["feats"], cfg)
+    label = batch["label"].long()
+    nll = -torch.mean(torch.gather(logp, 1, label[:, None]))
+    acc = torch.mean((torch.argmax(logp, -1) == label).to(torch.float32))
+    return nll, {"nll": nll, "acc": acc}

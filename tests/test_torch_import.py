@@ -46,7 +46,12 @@ def test_slice_modules_are_all_there():
               "repro_torch.core.registry", "repro_torch.core.service",
               "repro_torch.serving.stats", "repro_torch.serving.admission",
               "repro_torch.serving.batcher", "repro_torch.serving.engine",
-              "repro_torch.serving.hedge"):
+              "repro_torch.serving.hedge", "repro_torch.training",
+              "repro_torch.training.optimizer", "repro_torch.training.fault_tolerance",
+              "repro_torch.training.checkpoint", "repro_torch.training.train_loop",
+              "repro_torch.launch", "repro_torch.launch.world",
+              "repro_torch.launch.serve", "repro_torch.serving.cluster",
+              "repro_torch.serving.rollout", "repro_torch.serving.fabric"):
         assert m in mods, m
 
 
@@ -101,6 +106,18 @@ def test_the_service_alone_loads_no_jax_and_no_repro(module):
     """The service's entry modules, each imported alone in a fresh process;
     between them they import every module of the service (``wire``,
     ``stats``, ``admission``, ``batcher``)."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.serve", "repro_torch.serving.fabric",
+    "repro_torch.training.train_loop",
+    "repro_torch.launch.serve, repro_torch.serving.fabric, "
+    "repro_torch.training.train_loop"])
+def test_the_launcher_alone_loads_no_jax_and_no_repro(module):
+    """The launcher, the fabric and the trainer, each imported alone in a
+    fresh process, and the three together (the fabric's workers run
+    ``python -m repro_torch.launch.serve``)."""
     assert _alone(module) == []
 
 

@@ -188,5 +188,17 @@ def test_each_package_loads_the_others_versions(jx, world, tmp_path, writer):
 
 
 def test_publish_checkpoint_waits_for_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ModelRegistry(str(tmp_path / "reg")).publish_checkpoint(manager=None)
+    """``publish_checkpoint`` waited for the port's training package; with
+    ``training.checkpoint`` here it promotes a checkpoint's params under the
+    id ``publish`` gives the same weights, and refuses an empty directory."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    manager = CheckpointManager(str(tmp_path / "ckpt"))
+    with pytest.raises(RegistryError, match="no checkpoints"):
+        reg.publish_checkpoint(manager)
+    params = sm_cnn.init_sm_cnn_numpy(reduced(get_config("sm-cnn")), seed=3)
+    manager.save(7, sm_cnn.params_from_numpy(params, device="cpu"))
+    mv = reg.publish_checkpoint(manager)
+    assert mv.manifest["source_step"] == 7
+    assert mv.version_id == ModelRegistry(str(tmp_path / "other")).publish(
+        params).version_id
