@@ -111,6 +111,30 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             after, and must show 28 launches per prefill and none in
             decode; prefill tokens/s, decode ms per step, busy shares and
             the attention kernel's share of a prefill's device time
+  attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
+            against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
+            float32 and bfloat16 (randn inputs and incoming gradient), for
+            (B, S) from (1, 1) to (1, 1024) and S around the 64-key tiles
+            (63 .. 191): dq, dk, dv by max absolute error (atol + rtol
+            |want|) and by the error's norm; the forward kernel's lse
+            against the plain lse; each backward kernel's registers,
+            spills, shared memory and blocks resident on an SM; times at
+            B=4 and B=8 x 2048 in bfloat16 of the kernel, the plain
+            backward and SDPA's backward (the yardstick, held against the
+            kernel), the bound, and the forward with its lse against
+            without
+  lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
+            layers, the loss and every gradient leaf through the kernels
+            ("flash") against plain autograd ("chunked"), every leaf
+            nonzero; then the full-width bfloat16 model from
+            launch.train.build(full=True) trained 20 steps of 4 x 2048
+            through Trainer + adamw; both attention counters set to 0 just
+            before and read just after: 28 forward and 28 backward launches
+            a step; the loss falls; step ms, tokens/s, peak memory, the
+            step's share of its bound, busy share and the attention's share
+            of a step's device time; then python -m
+            repro_torch.launch.train --arch qwen3-0.6b --full --steps 3
+            --batch 2 --seq-len 512 --device cuda exiting 0
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
             and bfloat16, with and without weights; ids outside the table
@@ -138,7 +162,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             memory, the busy share of one serve_bulk step
 
 The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
-under torch.inference_mode().
+under torch.inference_mode(); attn-bwd and lm-train differentiate, outside
+it.
 It prints one `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check raises and ends the run
 with a nonzero exit; without a card, or without the repository's sources
@@ -184,7 +209,7 @@ KERNEL_EDGE_SHAPES = ((4, 1, 50, 5, 100), (4, 13, 50, 5, 100), (4, 64, 50, 5, 8)
 TIMED_BATCHES = (256, 4096)
 TIE_ATOL = 1e-5
 #: every kernel of the port's paths (csrc/<name>.cu)
-KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag")
+KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag", "flash_attention_bwd")
 #: the attention kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, and (B, S) at qwen3-0.6b's H=16, Hkv=8, d=128, from
 #: one token through ragged lengths to the largest S whose plain version
@@ -214,6 +239,35 @@ LM_LONG = 32768
 #: lm-check in float32: prefill flash vs chunked at this (B, S), and decode
 #: at position S against forward over S+1 tokens
 CHECK_B, CHECK_S = 2, 130
+#: attn-bwd: the backward kernel against the plain backward at qwen3-0.6b's
+#: H=16, Hkv=8, d=128: (B, S) from one token to 1 x 1024, and S around the
+#: 64-key tiles at B=1. Tolerances: max abs error within atol + rtol |want|
+#: and the error's norm over the gradient's. float32 differs only in the
+#: order of float32 sums. bfloat16 rounds ds to bfloat16 for dq and dk as the
+#: reference does, and P for dv where the reference keeps float32 (the
+#: tensor cores take bf16): an output rounding (2^-8), ds values that round
+#: to the other neighbour, and 2^-9 of each dv term, inside 1e-2 of the norm
+BWD_SHAPES = ((1, 1), (2, 7), (1, 130), (2, 257), (1, 1024))
+BWD_DIAGONAL_S = (63, 64, 65, 127, 129, 191)
+BWD_TOLERANCE = {"float32": (1e-4, 1e-4, 2e-5), "bfloat16": (2e-2, 2e-2, 1e-2)}
+#: the forward's lse against the plain lse (float32 sums in another order;
+#: the bfloat16 route's exp2 and tensor-core sums)
+LSE_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-4}
+#: a gradient whose RMS is below this is rounding (at S=1 dq is 0)
+RMS_FLOOR = 1e-3
+#: timed, bfloat16: the training step's shape and the prefill's batch
+BWD_TIMED = ((4, 2048), (8, 2048))
+#: lm-train: float32 gradients through the kernels against "chunked" on
+#: qwen3-0.6b at full width cut to this many layers, at (B, S); then the
+#: full-width bfloat16 model trained through the launcher's build and
+#: Trainer at (B, S) for this many steps; the CLI's run
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 130
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 20, 1e-3
+TRAIN_CLI = ("--arch", "qwen3-0.6b", "--full", "--steps", "3", "--batch", "2",
+             "--seq-len", "512", "--device", "cuda")
+#: the float32 gradient check: each leaf's error norm over its gradient's,
+#: and the loss's relative error
+TRAIN_GRAD_REL = 1e-4
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -350,8 +404,9 @@ def _time_alternating(torch, fns: dict, iters: int = 200, rounds: int = 3) -> di
 
 
 def _profiled_device_ms(torch, fn, name: str, iters: int = 20):
-    """Mean device time of the kernels whose name holds ``name`` over
-    ``iters`` calls of ``fn``, from torch.profiler (None if it saw none)."""
+    """Device time a call of ``fn`` spends in the kernels whose name holds
+    ``name`` (all of them: the attention backward launches three), from
+    torch.profiler over ``iters`` calls (None if it saw none)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -359,7 +414,7 @@ def _profiled_device_ms(torch, fn, name: str, iters: int = 20):
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return sum(times) / 1e3 / len(times) if times else None
+    return sum(times) / 1e3 / iters if times else None
 
 
 def conv_bound(b: int, s: int, d: int, w: int, f: int, dtype: str):
@@ -2059,6 +2114,290 @@ def phase_lm(torch, cfg, seed: int) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------- attn-bwd --
+
+def attention_bwd_bound(b: int, s: int, h: int, hkv: int, d: int, dtype: str):
+    """Least time for the attention's gradient on the card: q, k, v, o, do
+    and lse read once, dq, dk, dv written once, at the memory rate, against
+    the four products of d terms it needs for each visible (query, key)
+    pair (dv, dp, dq, dk: twice the forward's) at the dtype's peak. The
+    recomputed S is not needed, so it is not counted."""
+    es = 4 if dtype == "float32" else 2
+    n_bytes = es * b * s * d * (4 * h + 4 * hkv) + 4 * b * h * s
+    flops = 8 * b * h * d * s * (s + 1) // 2
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
+        n_bytes, flops
+
+
+def _grad_agrees(torch, got, want, dtype: str, what: str) -> float:
+    """Holds a gradient against its reference: max abs error within
+    atol + rtol |want| and, where the gradient is above rounding, the
+    error's norm over the reference's; returns the max absolute error."""
+    rtol, atol, rel_tol = BWD_TOLERANCE[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    ok = bool((diff <= atol + rtol * w.abs()).all()) and math.isfinite(err)
+    w_norm = torch.linalg.vector_norm(w).item()
+    rel = torch.linalg.vector_norm(g - w).item() / w_norm if w_norm else 0.0
+    gated = w_norm > RMS_FLOOR * w.numel() ** 0.5
+    ok = ok and (not gated or rel <= rel_tol)
+    log(f"attn-bwd: {what} {dtype}: max_abs_err={err:.3e} (atol {atol} + rtol {rtol}) "
+        f"rel_norm_err={rel:.3e} tol={rel_tol}{'' if gated else ' (below rounding: not gated)'} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"attention backward: {what} {dtype} disagree: max_abs_err {err}, "
+              f"rel_norm_err {rel}")
+    return err
+
+
+def phase_attn_bwd(torch, cfg) -> dict:
+    """The attention's backward kernel against the plain backward on the
+    card at qwen3-0.6b's widths, and the forward's lse against the plain
+    lse; then the backward's times, the plain backward's, SDPA's backward
+    as a yardstick, the bound, and the forward with its lse against
+    without. Inputs are randn, the incoming gradient too."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+
+    def inputs(b, s, dtype):
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dt)
+                     for n in (h, hkv, hkv, h))
+
+    routes = {}
+    for dtype in ("float32", "bfloat16"):
+        routes[dtype] = FA.bwd_route_info(getattr(torch, dtype))
+        for name, info in routes[dtype].items():
+            log(f"attn-bwd: {dtype} {name} kernel ({info['design']}): {info['registers']} "
+                f"registers and {info['local_bytes']} local (spill) bytes a thread, shared "
+                f"memory {info['static_smem']} B static + {info['dynamic_smem']} B dynamic a "
+                f"block, {info['threads']} threads a block, {info['blocks_per_sm']} blocks "
+                f"resident on an SM")
+            check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1,
+                  f"attn-bwd: {dtype} {name} kernel spills or does not fit an SM")
+
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    lse_err = {"float32": 0.0, "bfloat16": 0.0}
+    checks = [(b, s, dtype) for b, s in BWD_SHAPES for dtype in ("float32", "bfloat16")]
+    checks += [(1, s, dtype) for s in BWD_DIAGONAL_S for dtype in ("float32", "bfloat16")]
+    for b, s, dtype in checks:
+        q, k, v, dout = inputs(b, s, dtype)
+        out, lse = FA._launch(q, k, v, with_lse=True)
+        want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+        e = (lse - want_lse).abs().max().item()
+        check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse B={b} S={s} {dtype}: "
+                                         f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
+        lse_err[dtype] = max(lse_err[dtype], e)
+        _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain B={b} S={s}")
+        got = FA._launch_bwd(q, k, v, out, lse, dout)
+        want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            max_err[dtype] = max(max_err[dtype], _grad_agrees(
+                torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s} H={h} Hkv={hkv} "
+                                    f"d={d}"))
+        del q, k, v, dout, out, lse, got, want
+    log(f"attn-bwd: forward lse vs plain lse: max_abs_err float32 {lse_err['float32']:.3e} "
+        f"(tol {LSE_TOLERANCE['float32']}), bfloat16 {lse_err['bfloat16']:.3e} "
+        f"(tol {LSE_TOLERANCE['bfloat16']}) ok")
+    torch.cuda.empty_cache()
+
+    timings = {}
+    for b, s in BWD_TIMED:
+        dtype = "bfloat16"
+        q, k, v, dout = inputs(b, s, dtype)
+        out, lse = FA._launch(q, k, v, with_lse=True)
+        # the forward with its lse at the training path's shape, before the
+        # backward comparison takes out and lse as given
+        want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+        e = (lse - want_lse).abs().max().item()
+        check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse B={b} S={s} {dtype}: "
+                                         f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
+        lse_err[dtype] = max(lse_err[dtype], e)
+        log(f"attn-bwd: forward lse vs plain lse B={b} S={s} {dtype}: max_abs_err {e:.3e} "
+            f"(tol {LSE_TOLERANCE[dtype]}) ok")
+        _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain B={b} S={s}")
+        del want_out, want_lse
+        # the yardstick: SDPA's backward in (B, H, S, d) layouts made once
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dout_t = dout.transpose(1, 2).contiguous()
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
+
+        fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
+               "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
+               "library": library}
+        got = fns["kernel"]()
+        err = max(_grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s}")
+                  for name, g, w in zip(("dq", "dk", "dv"), got,
+                                        fns["plain"]()))
+        max_err[dtype] = max(max_err[dtype], err)
+        lib = library()
+        lib_err = max(_grad_agrees(torch, a.transpose(1, 2), g, dtype,
+                                   f"{name} SDPA backward vs kernel B={b} S={s}")
+                      for name, a, g in zip(("dq", "dk", "dv"), lib, got))
+        del got, lib
+        t = _time_alternating(torch, fns, iters=3, rounds=3)
+        # the forward with and without its lse, in turns, as attn-kernel times it
+        t.update(_time_alternating(torch, {
+            "fwd_lse": lambda: FA._launch(q, k, v, with_lse=True),
+            "fwd": lambda: FA._launch(q, k, v)}, iters=20))
+        dev_ms = _profiled_device_ms(torch, fns["kernel"], "flash_bwd", iters=3)
+        bound_ms, bound_by, n_bytes, flops = attention_bwd_bound(b, s, h, hkv, d, dtype)
+        timings[(b, s)] = dict(t, bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms)
+        log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
+            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+            f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} (SDPA causal GQA "
+            f"backward, max_abs_err vs kernel {lib_err:.3e}) bound_ms={bound_ms:.5f} "
+            f"({bound_by}: {flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} "
+            f"TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
+            f"share_of_bound={bound_ms / t['kernel']:.4f} "
+            f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+        log(f"attn-bwd: forward B={b} S={s} {dtype} with lse {t['fwd_lse']:.5f} ms, "
+            f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f})")
+        del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
+        torch.cuda.empty_cache()
+    return {"max_err": max_err, "lse_err": lse_err, "timings": timings, "routes": routes}
+
+
+# ---------------------------------------------------------------- lm-train --
+
+def phase_lm_train(torch, cfg, seed: int) -> dict:
+    """qwen3-0.6b's training path on the card. (a) float32 at full width cut
+    to TRAIN_CHECK_LAYERS layers: the loss and the gradient of every leaf
+    through the kernels ("flash": the forward kernel with its lse, the
+    backward kernel) against plain torch autograd ("chunked"), every leaf's
+    gradient nonzero. (b) The full-width bfloat16 model from the training
+    launcher's ``build(..., full=True)`` trained TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S through ``Trainer`` + ``adamw`` (the launcher's
+    schedule); both attention counters are set to 0 just before and read
+    just after, and must show 28 forward and 28 backward launches a step;
+    the loss falls; step ms, tokens/s, peak memory, busy share and the
+    attention's share of a step's device time. (c) ``python -m
+    repro_torch.launch.train`` at full width on the card, exiting 0."""
+    import dataclasses
+    import functools
+
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    # (a) float32 gradients: kernels against plain autograd
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=TRAIN_CHECK_LAYERS)
+    params = tfm.init_lm(cfg32, torch.Generator("cuda").manual_seed(seed), "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(lm_data.token_batches(
+        cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S, seed=seed)).items()}
+    results = {}
+    for impl in ("flash", "chunked"):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        before = (FA.launches, FA.bwd_launches)
+        loss, _ = tfm.loss_fn(live, batch, dataclasses.replace(cfg32, attn_impl=impl))
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        results[impl] = (loss.item(), grads, (FA.launches - before[0],
+                                              FA.bwd_launches - before[1]))
+    check(results["flash"][2] == (TRAIN_CHECK_LAYERS, TRAIN_CHECK_LAYERS)
+          and results["chunked"][2] == (0, 0),
+          f"lm-train: float32 check launched {results['flash'][2]} (flash), "
+          f"{results['chunked'][2]} (chunked)")
+    loss_rel = abs(results["flash"][0] - results["chunked"][0]) / abs(results["chunked"][0])
+    worst, zero = 0.0, 0
+    for g, w in zip(results["flash"][1], results["chunked"][1]):
+        worst = max(worst, (torch.linalg.vector_norm(g - w)
+                            / torch.linalg.vector_norm(w)).item())
+        zero += int(not bool(g.abs().max() > 0))
+    n_leaves = len(results["flash"][1])
+    ok = loss_rel <= TRAIN_GRAD_REL and worst <= TRAIN_GRAD_REL and zero == 0
+    log(f"lm-train: float32 {cfg.name} at full width cut to {TRAIN_CHECK_LAYERS} layers, "
+        f"B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: loss flash (kernels) {results['flash'][0]:.6f} "
+        f"vs chunked (plain autograd) {results['chunked'][0]:.6f} (rel {loss_rel:.3e}); "
+        f"{n_leaves} gradient leaves, worst error norm over gradient norm {worst:.3e} "
+        f"(tol {TRAIN_GRAD_REL}), {zero} all-zero; launches fwd/bwd "
+        f"{results['flash'][2]} {'ok' if ok else 'FAIL'}")
+    check(ok, f"lm-train: float32 gradients through the kernels disagree with plain "
+              f"autograd: loss rel {loss_rel}, worst leaf {worst}, {zero} zero leaves")
+    del params, results, live, grads, loss
+    torch.cuda.empty_cache()
+
+    # (b) full width, bfloat16, through the launcher's build and Trainer
+    t0 = time.perf_counter()
+    tcfg, params, loss_fn, data = launch_train.build(cfg.name, True, TRAIN_B, TRAIN_S,
+                                                     "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tr = Trainer(loss_fn, adamw(warmup_cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)), params)
+    del params
+    torch.cuda.synchronize()
+    log(f"lm-train: {tcfg.name} {tcfg.dtype} params={n_params:,} from "
+        f"launch.train.build(full=True) on the card in {time.perf_counter() - t0:.3f} s; "
+        f"B={TRAIN_B} S={TRAIN_S} ({TRAIN_B * TRAIN_S} tokens a step), Trainer + "
+        f"adamw(warmup_cosine_schedule({TRAIN_LR}, 10, {TRAIN_STEPS}))")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted ----
+    FA.reset_launches()
+    FA.reset_bwd_launches()
+    t0 = time.perf_counter()
+    tr.run(data, max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = FA.launches, FA.bwd_launches
+    # ---- end of the counted run ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = [hh["loss"] for hh in tr.history]
+    step_ms = [hh["step_time_s"] * 1e3 for hh in tr.history]
+    check(all(math.isfinite(x) for x in losses), "lm-train: a loss is not finite")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    med = statistics.median(step_ms[1:])
+    log(f"lm-train: {TRAIN_STEPS} steps in {train_s:.3f} s; step_ms first={step_ms[0]:.3f} "
+        f"median(2..{TRAIN_STEPS})={med:.3f} min={min(step_ms[1:]):.3f} "
+        f"max={max(step_ms[1:]):.3f}; {TRAIN_B * TRAIN_S / med * 1e3:.1f} tokens/s; loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB")
+    log(f"lm-train: flash_attention launches={fwd}, flash_attention_bwd launches={bwd} "
+        f"over {TRAIN_STEPS} steps ({cfg.n_layers} layers)")
+    check(fwd > 0 and bwd > 0, "lm-train: the training path launched an attention kernel "
+                               "no time")
+    check(fwd == bwd == cfg.n_layers * TRAIN_STEPS,
+          f"lm-train: expected {cfg.n_layers} forward and backward launches a step, got "
+          f"{fwd} and {bwd} over {TRAIN_STEPS} steps")
+    check(last < first, f"lm-train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    step_bound_ops = (6 * n_params * TRAIN_B * TRAIN_S
+                      + 3 * cfg.n_layers * 4 * TRAIN_B * cfg.n_heads * cfg.d_head
+                      * TRAIN_S * (TRAIN_S + 1) // 2)
+    step_bound_ms = step_bound_ops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"lm-train: step bound {step_bound_ops:.4e} operations (6 N T + attention at 3x "
+        f"its forward) = {step_bound_ms:.3f} ms at 989 TFLOP/s; share of bound "
+        f"{step_bound_ms / med:.4f}")
+    busy = _busy_share(torch, lambda: tr.run(data, max_steps=tr.step + 1, log_every=0),
+                       "flash", top=8)
+    log(f"lm-train: one step B={TRAIN_B} S={TRAIN_S} {busy}")
+    del tr, data
+    torch.cuda.empty_cache()
+
+    # (c) the launcher itself, at full width on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI],
+                          env=env, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"lm-train: python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: exit "
+        f"{proc.returncode} in {cli_s:.3f} s: {' | '.join(lines[-3:])}")
+    check(proc.returncode == 0 and lines and lines[-1].startswith("final:")
+          and lines[0].startswith(f"arch={cfg.name} family=lm params={n_params:,}"),
+          f"lm-train: the launcher failed: {proc.stderr[-2000:]}")
+    return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
+            "loss": (first, last), "bound_ms": step_bound_ms}
+
+
 # -------------------------------------------------------------- bag-kernel --
 
 def bag_bound(ids, weighted: bool, d: int, dtype: str):
@@ -2482,6 +2821,14 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         lm = phase_lm(torch, lm_cfg, args.seed)
         phases["lm"] = time.perf_counter() - t
+    # training differentiates: outside inference_mode
+    t = time.perf_counter()
+    attn_bwd = phase_attn_bwd(torch, lm_cfg)
+    phases["attn-bwd"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_train = phase_lm_train(torch, lm_cfg, args.seed)
+    phases["lm-train"] = time.perf_counter() - t
+    with torch.inference_mode():
         rec_cfg = get_config("dlrm-mlperf")
         t = time.perf_counter()
         bag = phase_bag_kernel(torch, rec_cfg, args.seed)
@@ -2502,6 +2849,7 @@ def main(argv=None) -> int:
     t32 = kern["timings"][(256, "float32")]
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     tbg = bag["timings"]["serve_bulk"]
+    tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -2522,6 +2870,22 @@ def main(argv=None) -> int:
         "bound_by": tfa["bound_by"], "library_ms": tfa["library"],
         "device_ms": tfa["device_ms"], "design": attn["routes"]["bfloat16"]["design"],
         "dtype": "bfloat16", "shape": f"B={LM_BATCH} S={LM_SEQ} H={lm_cfg.n_heads} "
+                                      f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
+        "launches_train": lm_train["launches"],
+        "ms_with_lse_b4": tbw["fwd_lse"], "ms_without_lse_b4": tbw["fwd"],
+        "lse_max_abs_err": attn_bwd["lse_err"]["bfloat16"],
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
+        "replaces": flash_attention.BWD_REPLACES,
+        "gradient_of": flash_attention.REPLACES, "launches": lm_train["bwd_launches"],
+        "max_abs_err": attn_bwd["max_err"]["bfloat16"],
+        "max_abs_err_float32": attn_bwd["max_err"]["float32"], "ms": tbw["kernel"],
+        "plain_ms": tbw["plain"], "bound_ms": tbw["bound_ms"],
+        "bound_by": tbw["bound_by"], "library_ms": tbw["library"],
+        "device_ms": tbw["device_ms"],
+        "design": attn_bwd["routes"]["bfloat16"]["dkdv"]["design"],
+        "ms_b8": attn_bwd["timings"][(8, TRAIN_S)]["kernel"],
+        "dtype": "bfloat16", "shape": f"B={TRAIN_B} S={TRAIN_S} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,

@@ -18,6 +18,8 @@ _MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "sm-cnn": "repro_torch.configs.sm_cnn",
 }
+#: every architecture ported so far
+ARCHS = tuple(sorted(_MODULES))
 
 
 def get_config(arch: str):

@@ -31,7 +31,12 @@
 // last query position. Masked scores are -1e30, never -inf, and the output
 // is acc / max(l, 1e-30), written once in the input's type. Rows past S are
 // staged as zeros and never stored, so any S >= 1 works (no S % block
-// condition). Both run on the caller's stream, allocate nothing, and are
+// condition). Where the caller passes an lse buffer (training: the backward
+// in flash_attention_bwd.cu recomputes each tile's probabilities from it),
+// each row's natural log-sum-exp of its scaled scores, m + log(max(l,
+// 1e-30)) with m in scaled units, is written to lse (B, H, S) float32, once,
+// by the lane that holds the row's full sum; with lse null (serving) nothing
+// more is written. Both run on the caller's stream, allocate nothing, and are
 // compiled for d = 128 only (qwen3-0.6b's head width); the wrapper refuses
 // other widths.
 //
@@ -150,7 +155,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int Hkv, int G, int BQ, float scale) {
+                       float* __restrict__ lse, int S, int H, int Hkv, int G, int BQ,
+                       float scale) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // (ROWS, QS)
   float* ks = qs + ROWS * QS;                   // (BK, QS)
@@ -285,6 +291,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(half_warp_sum(l[i]), 1e-30f);
     const int r = ty + 16 * i;
     if (qpos[i] < S) {
+      if (lse != nullptr && tx == 0)            // m is in scaled units here
+        lse[((size_t)b * H + kvh * G + r % G) * S + qpos[i]] = m[i] + logf(denom);
       float* dst = ob + (size_t)qpos[i] * q_row + (r % G) * D;
       store4(dst + tx * 4, make_float4(acc[i][0] / denom, acc[i][1] / denom,
                                        acc[i][2] / denom, acc[i][3] / denom));
@@ -294,7 +302,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int S, int H, int Hkv, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
   const int BQ = ROWS / G;
@@ -305,7 +313,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, G, BQ, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Hkv, G, BQ, scale);
   return cudaGetLastError();
 }
 
@@ -567,8 +575,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   const __grid_constant__ CUtensorMap tm_k,
                                   const __grid_constant__ CUtensorMap tm_v,
-                                  __nv_bfloat16* __restrict__ o, int S, int H, int g_shift,
-                                  float scale_log2) {
+                                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                  int S, int H, int g_shift, float scale, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char ws_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(ws_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
@@ -670,8 +678,13 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // out: acc / l in bf16, through this warp's own 16 rows of the Q tile
   // (both 64-dim halves, in the same swizzled layout), then 16-byte stores
-  const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t4 == 0) {   // m is in raw score units here: the natural lse
+    const size_t lrow = ((size_t)b * H + (size_t)kvh * G) * S;   // is scale * m + log(l)
+    if (pos0 < S) lse[lrow + (size_t)(row0 & (G - 1)) * S + pos0] = fmaf(scale, m[0], logf(l0));
+    if (pos1 < S) lse[lrow + (size_t)((row0 + 8) & (G - 1)) * S + pos1] = fmaf(scale, m[1], logf(l1));
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int half = (n >> 3) * HALF_Q, ch = n & 7;
@@ -725,8 +738,8 @@ bool encode_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map, cons
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                        int S, int H, int Hkv, float scale, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int G = H / Hkv, g_shift = log2_of(G);
@@ -742,24 +755,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
   flash_attention_bf16_wgmma_kernel<<<grid, WS_THREADS, WS_SMEM_BYTES, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, g_shift, scale * LOG2E);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, g_shift, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype 0: float32 (CUDA cores), 1: bfloat16 (tensor cores). Returns
+// dtype 0: float32 (CUDA cores), 1: bfloat16 (tensor cores). lse is null,
+// or (B, H, S) float32 for each row's log-sum-exp. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without
 // launching, for a shape it does not take).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int Hkv, int d,
+                                   void* o, float* lse, int B, int S, int H, int Hkv, int d,
                                    float scale, void* stream) {
   if (d != D || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 ||
       B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch(q, k, v, o, B, S, H, Hkv, scale, st);
-  if (dtype == 1) return (int)launch_bf16(q, k, v, o, B, S, H, Hkv, scale, st);
+  if (dtype == 0) return (int)launch(q, k, v, o, lse, B, S, H, Hkv, scale, st);
+  if (dtype == 1) return (int)launch_bf16(q, k, v, o, lse, B, S, H, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

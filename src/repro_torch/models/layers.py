@@ -1,4 +1,5 @@
-"""Foundational layers: RMS norm, RoPE, GQA attention, SwiGLU, MLPs, inits.
+"""Foundational layers: RMS norm, RoPE, GQA attention, SwiGLU, MLPs, inits,
+the LM's cross-entropy.
 
 The LM subset of the JAX package's ``models/layers.py`` and its plain MLP
 stack (the recsys models'), as pure functions
@@ -222,3 +223,23 @@ def swiglu_params(generator: torch.Generator, d_model: int, d_ff: int, dtype) ->
 
 def swiglu_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in float32 with optional z-loss: the mean
+    over tokens of ``lse - logits[label]`` (+ ``z_loss * lse**2``), ``lse``
+    the log-sum-exp over the vocab.
+
+    The JAX package picks the label's logit with a sum over a vocab-wide
+    ``where`` (no gather), for vocab-sharded SPMD; on one card
+    ``torch.gather`` picks the same value (that sum adds zeros to it)
+    without a (B, S, V) index tensor, and ``torch.logsumexp`` subtracts the
+    row max as the JAX function does."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return torch.mean(loss)

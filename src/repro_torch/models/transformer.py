@@ -4,6 +4,9 @@ The port of the JAX package's ``models/transformer.py``, with its names,
 parameter tree and layouts:
 
   forward      tokens (B, S) -> (logits (B, S, V), moe_aux)
+  loss_fn      (loss, {"ce", "moe_aux"}): next-token cross-entropy with
+               z-loss 1e-4 (training)
+  make_train_step  f(params, opt_state, batch) -> (params, opt_state, metrics)
   prefill      full pass that also materializes the KV cache:
                (last-position logits (B, V), {k, v: (L, B, S, Hkv, Dh)})
   init_cache   a zero cache {k, v: (L, B, max_len, Hkv, Dh)}
@@ -17,16 +20,23 @@ plain version on CPU tensors); ``"chunked"`` runs ``layers.causal_attention``
 in plain torch. Decode attention is plain torch, as the JAX package leaves
 it to XLA.
 
+Training differentiates ``forward`` with autograd. Under ``"flash"`` the
+attention's gradient is the attention module's own backward
+(``FlashAttention``: the CUDA backward kernel on the card, the plain
+backward on the CPU), the port of ``flash_attention_jnp``'s custom VJP, so
+every parameter gets its gradient and no (S, S) scores are kept. The
+layers are not rematerialised (``cfg.remat`` is the JAX package's
+``jax.checkpoint``; here every layer's activations are kept), so a training
+step runs the attention forward once a layer and its backward once.
+
 Not ported yet, and refused with ``NotImplementedError``: MoE layers
 (``cfg.moe``, ROADMAP.md §1 item 10b) and the int8 KV cache
-(``cfg.kv_quant``, ROADMAP.md §1 item 10a). The training entry points
-(``loss_fn``, ``make_train_step``) come with the training slice (ROADMAP.md
-§1 item 10c). Nothing here disables autograd: serving callers run under
-``torch.inference_mode()``.
+(``cfg.kv_quant``, ROADMAP.md §1 item 10a). Nothing here disables autograd:
+serving callers run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -35,6 +45,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.core import export
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.training.train_loop import value_and_grad
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -158,6 +169,34 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     logits = x @ _head(params)
     return (_mask_padded_vocab(logits, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: LMConfig,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy (float32, z-loss 1e-4) plus ``aux_weight``
+    times the MoE auxiliary loss (0 for a dense model): ``(loss, {"ce",
+    "moe_aux"})``. ``batch`` holds ``tokens`` and ``labels`` (B, S)."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = L.cross_entropy(logits, batch["labels"], z_loss=1e-4)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "moe_aux": aux}
+
+
+def make_train_step(cfg: LMConfig, optimizer) -> Callable:
+    """Returns ``f(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``loss_fn``'s value and its gradient with respect to every
+    leaf of the parameter tree (``train_loop.value_and_grad``, the
+    ``Trainer``'s own, which raises if a leaf is not reached: every leaf of a
+    dense LM is), then the optimizer's update. The step differentiates
+    detached copies of the params and returns new trees, so it mutates none
+    of its inputs."""
+    def step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(
+            lambda p, b: loss_fn(p, b, cfg), params, batch)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+        return params, opt_state, metrics
+    return step
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig

@@ -34,6 +34,21 @@ def _to_device(batch: Dict, device: torch.device) -> Dict:
     return {k: move(v) for k, v in batch.items()}
 
 
+def value_and_grad(loss_fn: Callable, params: Any, batch: Dict):
+    """``loss_fn(params, batch) -> (loss, metrics)`` and the gradient tree of
+    ``loss`` with respect to every leaf of ``params``: ``(loss, metrics,
+    grads)``. It differentiates detached copies, so ``params`` is left as it
+    was. A leaf the loss does not reach raises (``torch.autograd.grad``
+    without ``allow_unused``) instead of training on a zero gradient: a
+    model whose gradient stops somewhere fails here, not by a loss that
+    still falls through its other leaves."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, metrics = loss_fn(live, batch)
+    wrt = tree_leaves(live)
+    grad_of = {id(p): g for p, g in zip(wrt, torch.autograd.grad(loss, wrt))}
+    return loss, metrics, tree_map(lambda p: grad_of[id(p)], live)
+
+
 class Trainer:
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  params: Any, ckpt_dir: Optional[str] = None,
@@ -55,13 +70,8 @@ class Trainer:
     def _step(self, params, opt_state, batch):
         leaves = tree_leaves(params)
         device = leaves[0].device if leaves else torch.device("cpu")
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, metrics = self._loss_fn(live, _to_device(batch, device))
-        wrt = tree_leaves(live)
-        grad_of = {id(p): torch.zeros_like(p) if g is None else g
-                   for p, g in zip(wrt, torch.autograd.grad(
-                       loss, wrt, allow_unused=True))}
-        grads = tree_map(lambda p: grad_of[id(p)], live)
+        loss, metrics, grads = value_and_grad(
+            self._loss_fn, params, _to_device(batch, device))
         new_params, new_state = self.optimizer.update(params, grads,
                                                       opt_state)
         metrics = dict(metrics, loss=loss)

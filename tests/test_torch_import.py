@@ -51,7 +51,8 @@ def test_slice_modules_are_all_there():
               "repro_torch.training.checkpoint", "repro_torch.training.train_loop",
               "repro_torch.launch", "repro_torch.launch.world",
               "repro_torch.launch.serve", "repro_torch.serving.cluster",
-              "repro_torch.serving.rollout", "repro_torch.serving.fabric"):
+              "repro_torch.serving.rollout", "repro_torch.serving.fabric",
+              "repro_torch.launch.train"):
         assert m in mods, m
 
 
@@ -113,7 +114,7 @@ def test_the_service_alone_loads_no_jax_and_no_repro(module):
     "repro_torch.launch.serve", "repro_torch.serving.fabric",
     "repro_torch.training.train_loop",
     "repro_torch.launch.serve, repro_torch.serving.fabric, "
-    "repro_torch.training.train_loop"])
+    "repro_torch.training.train_loop", "repro_torch.launch.train"])
 def test_the_launcher_alone_loads_no_jax_and_no_repro(module):
     """The launcher, the fabric and the trainer, each imported alone in a
     fresh process, and the three together (the fabric's workers run
