@@ -114,15 +114,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
             against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
             float32 and bfloat16 (randn inputs and incoming gradient), for
-            (B, S) from (1, 1) to (1, 1024) and S around the 64-key tiles
-            (63 .. 191): dq, dk, dv by max absolute error (atol + rtol
-            |want|) and by the error's norm; the forward kernel's lse
+            (B, S) from (1, 1) to (1, 1024) and S around the 64-key and
+            64-row tiles and the bfloat16 kernels' 128-key and 128-row
+            blocks (63 .. 257): dq, dk, dv by max absolute error (atol +
+            rtol |want|) and by the error's norm; the forward kernel's lse
             against the plain lse; each backward kernel's registers,
             spills, shared memory and blocks resident on an SM; times at
             B=4 and B=8 x 2048 in bfloat16 of the kernel, the plain
             backward and SDPA's backward (the yardstick, held against the
-            kernel), the bound, and the forward with its lse against
-            without
+            kernel), the bound, two calls bit-equal (no atomics), and the
+            forward with its lse against without, the plain forward with
+            its lse and SDPA's forward with grad on; the float32 backward
+            timed at 4 x 2048 with SDPA's float32 backward
   lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
             layers, the loss and every gradient leaf through the kernels
             ("flash") against plain autograd ("chunked"), every leaf
@@ -164,6 +167,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
 under torch.inference_mode(); attn-bwd and lm-train differentiate, outside
 it.
+A kernel's "ms" is the mean over calls between two CUDA events with the
+host issuing each call; its "device ms" is the same calls queued behind a
+spin kernel, so that they run back to back on the card. Busy shares and
+the attention backward's split by kernel come from torch.profiler, which
+late in the run loses kernel records: a busy share says how many it saw
+for how many launches, and a split counts only a session that saw all.
 It prints one `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {...}}`. Any failed check raises and ends the run
 with a nonzero exit; without a card, or without the repository's sources
@@ -208,6 +217,13 @@ KERNEL_EDGE_SHAPES = ((4, 1, 50, 5, 100), (4, 13, 50, 5, 100), (4, 64, 50, 5, 8)
                       (4, 69, 50, 5, 100), (2, 141, 50, 5, 100), (2, 180, 50, 5, 100))
 TIMED_BATCHES = (256, 4096)
 TIE_ATOL = 1e-5
+#: the host's kernel launch calls as torch.profiler names them
+LAUNCH_CALLS = frozenset(("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx"))
+#: tries of a back-to-back timing (_queued_ms), and profiler sessions of a
+#: split by kernel (_profiled_split_ms)
+QUEUE_ATTEMPTS = 6
+PROFILE_ATTEMPTS = 8
 #: every kernel of the port's paths (csrc/<name>.cu)
 KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag", "flash_attention_bwd")
 #: the attention kernel against its plain version: tests/test_kernels.py's
@@ -248,15 +264,19 @@ CHECK_B, CHECK_S = 2, 130
 #: tensor cores take bf16): an output rounding (2^-8), ds values that round
 #: to the other neighbour, and 2^-9 of each dv term, inside 1e-2 of the norm
 BWD_SHAPES = ((1, 1), (2, 7), (1, 130), (2, 257), (1, 1024))
-BWD_DIAGONAL_S = (63, 64, 65, 127, 129, 191)
+#: around the 64-key and 64-row tiles and the bfloat16 kernels' 128-key and
+#: 128-row blocks
+BWD_DIAGONAL_S = (63, 64, 65, 127, 128, 129, 191, 255, 256, 257)
 BWD_TOLERANCE = {"float32": (1e-4, 1e-4, 2e-5), "bfloat16": (2e-2, 2e-2, 1e-2)}
 #: the forward's lse against the plain lse (float32 sums in another order;
 #: the bfloat16 route's exp2 and tensor-core sums)
 LSE_TOLERANCE = {"float32": 2e-5, "bfloat16": 1e-4}
 #: a gradient whose RMS is below this is rounding (at S=1 dq is 0)
 RMS_FLOOR = 1e-3
-#: timed, bfloat16: the training step's shape and the prefill's batch
+#: timed, bfloat16: the training step's shape and the prefill's batch; the
+#: float32 route (the checks' only) at the training step's shape
 BWD_TIMED = ((4, 2048), (8, 2048))
+BWD_TIMED_F32 = (4, 2048)
 #: lm-train: float32 gradients through the kernels against "chunked" on
 #: qwen3-0.6b at full width cut to this many layers, at (B, S); then the
 #: full-width bfloat16 model trained through the launcher's build and
@@ -371,7 +391,8 @@ def phase_build() -> None:
     for name in KERNELS:
         log(f"build: {name} nvcc {build.BUILD_SECONDS[name]:.3f} s")
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "arning")):
+            if any(w in line for w in ("entry function", "registers", "spill", "arning",
+                                       "Performance Loss")):
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -403,18 +424,56 @@ def _time_alternating(torch, fns: dict, iters: int = 200, rounds: int = 3) -> di
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def _profiled_device_ms(torch, fn, name: str, iters: int = 20):
-    """Device time a call of ``fn`` spends in the kernels whose name holds
-    ``name`` (all of them: the attention backward launches three), from
-    torch.profiler over ``iters`` calls (None if it saw none)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def _queued_ms(torch, fn, iters: int) -> float:
+    """ms a call of ``fn`` takes on the card with no host gaps between
+    calls: a spin kernel holds the stream while the host queues ``iters``
+    calls between two events. The time counts only if the first event had
+    not been reached when the last call was queued, so the calls ran back
+    to back; otherwise the spin doubles, and the phase fails past
+    QUEUE_ATTEMPTS tries."""
+    cycles = 1 << 24   # ~9 ms at the H100's 1.98 GHz
+    for _ in range(QUEUE_ATTEMPTS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        ahead = not start.query()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return sum(times) / 1e3 / iters if times else None
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    check(False, f"the host queued {iters} calls slower than the card spun "
+                 f"{cycles // 2} cycles, {QUEUE_ATTEMPTS} times")
+
+
+def _profiled_split_ms(torch, fn, names, iters: int):
+    """Device ms a call of ``fn`` spends in each kernel whose name holds one
+    of ``names`` (each launched once a call), from torch.profiler over
+    ``iters`` calls, or None. A session counts only if it recorded every
+    launch, ``iters`` of each kernel: late in a long process the profiler
+    loses kernel records (aten's too; `_busy_share` reports it), and a
+    session that lost some would give too small a time. Up to
+    PROFILE_ATTEMPTS sessions."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {name: [] for name in names}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for name in names:
+                    if name in e.name:
+                        times[name].append(e.time_range.elapsed_us())
+        if all(len(t) == iters for t in times.values()):
+            return {name: sum(t) / 1e3 / iters for name, t in times.items()}
+    return None
 
 
 def conv_bound(b: int, s: int, d: int, w: int, f: int, dtype: str):
@@ -528,8 +587,7 @@ def phase_kernel(torch, cfg) -> dict:
                 "plain": lambda: K.conv_tanh_maxpool_plain(x, filt, bias, w),
                 "library": library,
             })
-            dev_ms = _profiled_device_ms(
-                torch, lambda: K.conv_tanh_maxpool(x, filt, bias, w), "conv_tanh_maxpool")
+            dev_ms = _queued_ms(torch, lambda: K.conv_tanh_maxpool(x, filt, bias, w), 20)
             bound_ms, bound_by, n_bytes, flops, tf32_ms = conv_bound(b, s, d, w, f, dtype)
             timings[(b, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
                                        device_ms=dev_ms, bound_ms_3xtf32=tf32_ms)
@@ -538,7 +596,7 @@ def phase_kernel(torch, cfg) -> dict:
                          f"at 495 TFLOP/s) share_of_3xtf32_bound="
                          f"{tf32_ms / t['kernel']:.3f}")
             log(f"kernel: B={b} {dtype} kernel_ms={t['kernel']:.5f} "
-                f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+                f"kernel_device_ms={dev_ms:.5f} "
                 f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
                 f"(F.conv1d+tanh+amax, max_abs_err vs plain {lib_err:.2e}) "
                 f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e9:.3f} GFLOP "
@@ -569,14 +627,20 @@ def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool", top: int = 5) -> 
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kernel_ms, kernel_n, by_name = [], 0.0, 0, {}
+    # kernel launches on the host against kernel records on the device (a
+    # graph launch runs several): fewer records means the profiler lost some
+    launched = recorded = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-            if kernel in e.name:
-                kernel_ms += e.time_range.elapsed_us() / 1e3
-                kernel_n += 1
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            launched += e.name in LAUNCH_CALLS
+            continue
+        recorded += not e.name.startswith(("Memcpy", "Memset"))
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if kernel in e.name:
+            kernel_ms += e.time_range.elapsed_us() / 1e3
+            kernel_n += 1
     if not spans:
         return f"busy share not measured (the profiler saw no device events in {wall_ms:.3f} ms)"
     busy, cur_s, cur_e = 0.0, None, None
@@ -589,11 +653,14 @@ def _busy_share(torch, run, kernel: str = "conv_tanh_maxpool", top: int = 5) -> 
             cur_e = max(cur_e, e_)
     busy = (busy + cur_e - cur_s) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    lost = (f"; the profiler LOST records: {recorded} kernel records for {launched} "
+            f"launches, so busy is a lower bound" if recorded < launched else
+            f"; {recorded} kernel records for {launched} launches")
     return (f"device busy {busy:.3f} ms over {len(spans)} device events "
             f"({kernel} {kernel_ms:.3f} ms, {kernel_n} launches, "
             f"{kernel_ms / busy:.4f} of the device time) in a "
             f"{wall_ms:.3f} ms profiled run: busy share {busy / wall_ms:.4f} "
-            f"(idle {1 - busy / wall_ms:.4f}); top device time: "
+            f"(idle {1 - busy / wall_ms:.4f}){lost}; top device time: "
             + "; ".join(f"{name[:72]} {ms:.3f} ms x{n}" for name, (ms, n) in ranked))
 
 
@@ -1920,13 +1987,13 @@ def phase_attn_kernel(torch, cfg) -> dict:
         del got
         iters = 20 if s <= PLAIN_MAX_S else 2
         t = _time_alternating(torch, fns, iters=iters)
-        dev_ms = _profiled_device_ms(torch, fns["kernel"], "flash_attention", iters=iters)
+        dev_ms = _queued_ms(torch, fns["kernel"], iters)
         bound_ms, bound_by, n_bytes, flops = attention_bound(b, s, h, hkv, d, dtype)
         timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
                                       device_ms=dev_ms)
         plain = f"{t['plain']:.5f}" if "plain" in t else "not run (scores too large)"
         log(f"attn-kernel: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
-            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+            f"kernel_device_ms={dev_ms:.5f} "
             f"plain_ms={plain} library_ms={t['library']:.5f} (SDPA causal GQA, "
             f"max_abs_err vs kernel {lib_err:.3e}) bound_ms={bound_ms:.5f} "
             f"({bound_by}: {flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} "
@@ -2156,8 +2223,11 @@ def phase_attn_bwd(torch, cfg) -> dict:
     """The attention's backward kernel against the plain backward on the
     card at qwen3-0.6b's widths, and the forward's lse against the plain
     lse; then the backward's times, the plain backward's, SDPA's backward
-    as a yardstick, the bound, and the forward with its lse against
-    without. Inputs are randn, the incoming gradient too."""
+    as a yardstick, the bound, two calls bit-equal (no atomics), and the
+    forward with its lse against without, against the plain forward with
+    its lse and against SDPA's forward where grad is on (it keeps its
+    logsumexp); the float32 route timed the same way at BWD_TIMED_F32.
+    Inputs are randn, the incoming gradient too."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
@@ -2242,27 +2312,77 @@ def phase_attn_bwd(torch, cfg) -> dict:
         lib_err = max(_grad_agrees(torch, a.transpose(1, 2), g, dtype,
                                    f"{name} SDPA backward vs kernel B={b} S={s}")
                       for name, a, g in zip(("dq", "dk", "dv"), lib, got))
-        del got, lib
+        again = fns["kernel"]()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"attn-bwd: two backward calls at B={b} S={s} differ")
+        log(f"attn-bwd: B={b} S={s} {dtype}: two backward calls bit-equal (dq, dk, dv)")
+        del got, lib, again
         t = _time_alternating(torch, fns, iters=3, rounds=3)
-        # the forward with and without its lse, in turns, as attn-kernel times it
+        # the forward with and without its lse, in turns, as attn-kernel
+        # times it, with the plain forward with lse and SDPA's forward with
+        # grad on (which keeps its logsumexp for the backward)
         t.update(_time_alternating(torch, {
             "fwd_lse": lambda: FA._launch(q, k, v, with_lse=True),
-            "fwd": lambda: FA._launch(q, k, v)}, iters=20))
-        dev_ms = _profiled_device_ms(torch, fns["kernel"], "flash_bwd", iters=3)
+            "fwd": lambda: FA._launch(q, k, v),
+            "fwd_lse_plain": lambda: FA.flash_attention_fwd_plain(q, k, v),
+            "fwd_lse_library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}, iters=20))
+        dev_ms = _queued_ms(torch, fns["kernel"], 10)
+        lib_dev_ms = _queued_ms(torch, library, 10)
+        # the three kernels of a call: the statistics pass, dk/dv, dq
+        split = _profiled_split_ms(
+            torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
         bound_ms, bound_by, n_bytes, flops = attention_bwd_bound(b, s, h, hkv, d, dtype)
-        timings[(b, s)] = dict(t, bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms)
+        timings[(b, s)] = dict(t, bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
+                               library_device_ms=lib_dev_ms, device_split=split)
         log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
-            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
-            f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} (SDPA causal GQA "
+            f"kernel_device_ms={dev_ms:.5f} "
+            f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
+            f"library_device_ms={lib_dev_ms:.5f} (SDPA causal GQA "
             f"backward, max_abs_err vs kernel {lib_err:.3e}) bound_ms={bound_ms:.5f} "
             f"({bound_by}: {flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} "
             f"TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
             f"share_of_bound={bound_ms / t['kernel']:.4f} "
             f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+        log(f"attn-bwd: B={b} S={s} {dtype} device ms by kernel (profiler): " + (
+            ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
+            if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
+                          f"kernel records)"))
         log(f"attn-bwd: forward B={b} S={s} {dtype} with lse {t['fwd_lse']:.5f} ms, "
-            f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f})")
+            f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f}); plain "
+            f"forward with lse {t['fwd_lse_plain']:.5f} ms; SDPA forward with grad on "
+            f"{t['fwd_lse_library']:.5f} ms")
         del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
         torch.cuda.empty_cache()
+
+    # the float32 route (CUDA cores), timed as above
+    b, s = BWD_TIMED_F32
+    dtype = "float32"
+    q, k, v, dout = inputs(b, s, dtype)
+    out, lse = FA._launch(q, k, v, with_lse=True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
+           "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
+           "library": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                                  retain_graph=True)}
+    got = fns["kernel"]()
+    max_err[dtype] = max(max_err[dtype], max(
+        _grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s}")
+        for name, g, w in zip(("dq", "dk", "dv"), got, fns["plain"]())))
+    del got
+    t = _time_alternating(torch, fns, iters=2, rounds=3)
+    bound_ms, bound_by, n_bytes, flops = attention_bwd_bound(b, s, h, hkv, d, dtype)
+    timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} plain_ms="
+        f"{t['plain']:.5f} library_ms={t['library']:.5f} (SDPA causal GQA backward, "
+        f"float32) bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e12:.4f} TFLOP at "
+        f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
+        f"share_of_bound={bound_ms / t['kernel']:.4f} "
+        f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+    del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
+    torch.cuda.empty_cache()
     return {"max_err": max_err, "lse_err": lse_err, "timings": timings, "routes": routes}
 
 
@@ -2577,7 +2697,7 @@ def phase_bag_kernel(torch, cfg, seed: int) -> dict:
               f"F.embedding_bag disagrees with the plain version at {name}: {lib_err}")
         iters = 200 if name == "serve_p99" else 20
         t = _time_alternating(torch, fns, iters=iters)
-        dev_ms = _profiled_device_ms(torch, fns["kernel"], "embedding_bag_kernel", iters=iters)
+        dev_ms = _queued_ms(torch, fns["kernel"], iters)
         bounds = [bag_bound(i, False, d, "bfloat16") for i in id_sets]
         bound_ms = statistics.mean(b[0] for b in bounds)
         n_bytes = statistics.mean(b[2] for b in bounds)
@@ -2587,7 +2707,7 @@ def phase_bag_kernel(torch, cfg, seed: int) -> dict:
         timings[name] = dict(t, bound_ms=bound_ms, bound_by=bounds[0][1], device_ms=dev_ms,
                              shape=f"B={b} L={l} d={d} V={v}")
         log(f"bag-kernel: {name} B={b} L={l} bfloat16 kernel_ms={t['kernel']:.5f} "
-            f"kernel_device_ms={'not measured' if dev_ms is None else f'{dev_ms:.5f}'} "
+            f"kernel_device_ms={dev_ms:.5f} "
             f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} (F.embedding_bag "
             f"mode=sum, max_abs_err vs plain {lib_err:.2e}) "
             + (f"gather_ms={t['gather']:.5f} (index_select of the rows) " if "gather" in t else "")
@@ -2850,6 +2970,7 @@ def main(argv=None) -> int:
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     tbg = bag["timings"]["serve_bulk"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
+    tb32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32")]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -2873,6 +2994,8 @@ def main(argv=None) -> int:
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
         "launches_train": lm_train["launches"],
         "ms_with_lse_b4": tbw["fwd_lse"], "ms_without_lse_b4": tbw["fwd"],
+        "plain_ms_with_lse_b4": tbw["fwd_lse_plain"],
+        "library_ms_with_lse_b4": tbw["fwd_lse_library"],
         "lse_max_abs_err": attn_bwd["lse_err"]["bfloat16"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
@@ -2882,9 +3005,11 @@ def main(argv=None) -> int:
         "max_abs_err_float32": attn_bwd["max_err"]["float32"], "ms": tbw["kernel"],
         "plain_ms": tbw["plain"], "bound_ms": tbw["bound_ms"],
         "bound_by": tbw["bound_by"], "library_ms": tbw["library"],
-        "device_ms": tbw["device_ms"],
+        "device_ms": tbw["device_ms"], "library_device_ms": tbw["library_device_ms"],
         "design": attn_bwd["routes"]["bfloat16"]["dkdv"]["design"],
         "ms_b8": attn_bwd["timings"][(8, TRAIN_S)]["kernel"],
+        "ms_float32": tb32["kernel"], "plain_ms_float32": tb32["plain"],
+        "library_ms_float32": tb32["library"], "bound_ms_float32": tb32["bound_ms"],
         "dtype": "bfloat16", "shape": f"B={TRAIN_B} S={TRAIN_S} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
     }, {

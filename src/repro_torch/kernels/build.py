@@ -7,13 +7,15 @@ one ``nvcc`` call builds it in seconds:
        -shared -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so
        csrc/<name>.cu
 
-The toolkit must be CUDA 12.5 or later: ``flash_attention.cu`` takes
-``cuTensorMapEncodeTiled`` from ``cudaGetDriverEntryPointByVersion`` and
-refuses to compile on an older one.
+The toolkit must be CUDA 12.5 or later: ``hopper.cuh``, which both
+attention sources include, takes ``cuTensorMapEncodeTiled`` from
+``cudaGetDriverEntryPointByVersion`` and refuses to compile on an older one.
 
 The library lands in ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built. It is loaded with ``ctypes``. Nothing here
+``.gitignore``), named by a hash of the source, every header of ``csrc/``
+(``*.cuh``, which any source may include) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the library already
+built. It is loaded with ``ctypes``. Nothing here
 runs when a module is imported: the CPU tests import every module on
 machines without ``nvcc``.
 
@@ -56,13 +58,22 @@ def nvcc() -> str:
     return found
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it stands is (or will be)
+    built: named by a hash of the source, every ``csrc/*.cuh`` (by name and
+    bytes; any source may include any header) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def compile_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built; returns the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same source,
+    headers and flags is already built; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = library_path(name)
     log = lib.with_suffix(".log")
     if lib.exists():   # keeps the time of a build made earlier in this process
         BUILD_SECONDS.setdefault(name, 0.0)
@@ -70,7 +81,7 @@ def compile_library(name: str) -> Path:
             BUILD_LOG[name] = log.read_text()
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".lib{name}-{digest}.{os.getpid()}.so"
+    tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)

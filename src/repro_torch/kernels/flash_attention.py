@@ -36,8 +36,10 @@ kernel's optional output; ``flash_attention_fwd_plain`` on the CPU), and its
 backward recomputes each tile's probabilities from it, on CUDA tensors in
 the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
 its own, so the serving forward's build is untouched: FlashAttention-2's
-dk/dv and dq kernels without atomics; bfloat16 on the tensor cores by
-``mma.sync``, float32 on the CUDA cores), on CPU tensors in
+dk/dv and dq kernels without atomics, so the gradients are the same from
+run to run; bfloat16 warp-specialised on the tensor cores, every product a
+``wgmma`` and every tile arriving by TMA into a 2-stage ring, as in the
+forward; float32 on the CUDA cores), on CPU tensors in
 ``flash_attention_bwd_plain``. Serving runs under ``torch.inference_mode()``
 and keeps the forward with no ``lse`` written.
 
@@ -77,7 +79,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: design stage of a route's kernel, as the C library reports it
 STAGES = {0: "CUDA-core FMA", 2: "wgmma + TMA"}
 #: design of the backward's kernels, as the C library reports it
-BWD_DESIGNS = {0: "CUDA-core FMA", 1: "mma.sync"}
+BWD_DESIGNS = {0: "CUDA-core FMA", 2: "wgmma + TMA"}
 #: the mask value: exp(-1e30 - m) is 0 without NaN, unlike -inf
 MASK = -1e30
 
@@ -240,10 +242,19 @@ def _kernel_fn():
 def _bwd_kernel_fn():
     fn = build.load_library("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_scratch_values(b: int, s: int, h: int, hkv: int) -> int:
+    """float32 values of scratch the backward kernels take: each row's
+    (lse log2 e, delta), a (batch row, KV head)'s S x G rows padded to 128
+    (``STAT_ROWS`` of ``csrc/flash_attention_bwd.cu``, which refuses a
+    smaller scratch); float32 uses the first B x H x S for delta."""
+    return 2 * b * hkv * (-(-s * (h // hkv) // 128) * 128)
 
 
 def route_info(dtype: torch.dtype) -> dict:
@@ -271,14 +282,14 @@ def bwd_route_info(dtype: torch.dtype) -> dict:
     """The backward's two kernels for ``dtype`` on the current card, as
     ``{"dkdv": {...}, "dq": {...}}``: registers and local (spill) bytes a
     thread, static and dynamic shared memory a block, blocks resident on an
-    SM, threads a block and the design (bfloat16: ``mma.sync`` on the tensor
-    cores; float32: CUDA-core FMAs)."""
+    SM, threads a block and the design (bfloat16: ``wgmma`` + TMA on the
+    tensor cores, 384 threads; float32: CUDA-core FMAs, 256 threads)."""
     fn = build.load_library("flash_attention_bwd").flash_attention_bwd_route_info
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
-            "blocks_per_sm", "threads", "mma")
+            "blocks_per_sm", "threads", "design")
     out = {}
     for which, name in enumerate(("dkdv", "dq")):
         info = (ctypes.c_int * 7)()
@@ -286,7 +297,7 @@ def bwd_route_info(dtype: torch.dtype) -> dict:
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd_route_info failed: CUDA error {err}")
         out[name] = dict(zip(keys, info))
-        out[name]["design"] = BWD_DESIGNS[out[name].pop("mma")]
+        out[name]["design"] = BWD_DESIGNS[out[name]["design"]]
     return out
 
 
@@ -359,14 +370,17 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
                          f"{q.device}")
     _check_kernel(q, k, v, out, dout, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)   # scratch
+    # float32 scratch for each row's delta (bfloat16: with its lse, in the
+    # kernels' row order)
+    scratch = torch.empty(_bwd_scratch_values(b, s, h, hkv), dtype=torch.float32,
+                          device=q.device)
     with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_kernel_fn()(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                                v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, d,
-                               1.0 / math.sqrt(d), stream)
+                               lse.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
+                               hkv, d, 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error "
                            f"{err} at B={b} S={s} H={h} Hkv={hkv} d={d} {q.dtype}")

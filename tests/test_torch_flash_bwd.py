@@ -12,10 +12,11 @@ giving those gradients on the CPU.
 The ``cuda``-marked tests hold the backward kernel of
 ``csrc/flash_attention_bwd.cu`` against the plain backward, and the forward
 kernel's lse against the plain lse, at d=128 for lengths around the 64-key
-tiles, 1 to 16 query heads a KV head, in float32 and bfloat16; they
-skip where no card is present. The JAX side is imported by a fixture, so
-the card-only tests also run on a machine with the port's dependencies
-alone:
+tiles and the bfloat16 kernels' 128-key and 128-row blocks, 1 to 16 query
+heads a KV head, in float32 and bfloat16, and two backward calls bit-equal
+(the kernels use no atomics); they skip where no card is present. The JAX
+side is imported by a fixture, so the card-only tests also run on a machine
+with the port's dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_bwd.py
 """
@@ -178,10 +179,21 @@ def test_flash_attention_without_grad_keeps_the_serving_path():
     torch.testing.assert_close(out, FA.flash_attention_plain(q.detach(), k.detach(), v.detach()))
 
 
+@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 16, 16), (2, 7, 16, 8), (1, 130, 16, 1),
+                                       (4, 2048, 16, 8), (1, 3, 128, 1)])
+def test_bwd_scratch_holds_every_row_statistic(b, s, h, hkv):
+    """The scratch the wrapper gives the backward kernels: two float32
+    values for each row, a (batch row, KV head)'s S x G rows padded to a
+    128-row block, which also holds float32's B x H x S deltas."""
+    n = FA._bwd_scratch_values(b, s, h, hkv)
+    rows = -(-s * (h // hkv) // 128) * 128
+    assert n == 2 * b * hkv * rows and n >= 2 * b * h * s and rows % 128 == 0
+
+
 # the backward kernel against the plain backward on the card: max abs error
 # within atol + rtol |want|, and the error's norm over the gradient's.
 # float32 (CUDA cores) differs only in the order of float32 sums. bfloat16
-# (mma.sync) rounds ds to bfloat16 for dq and dk as the reference does, and
+# (wgmma) rounds ds to bfloat16 for dq and dk as the reference does, and
 # P for dv where the reference keeps float32: an output rounding (2^-8 of
 # it), ds values that round to the other neighbour, 2^-9 of each dv term
 BWD_TOL = {"float32": (1e-4, 1e-4, 2e-5), "bfloat16": (2e-2, 2e-2, 1e-2)}
@@ -190,10 +202,28 @@ BWD_TOL = {"float32": (1e-4, 1e-4, 2e-5), "bfloat16": (2e-2, 2e-2, 1e-2)}
 LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
 #: a gradient whose RMS is below this is rounding, not signal
 RMS_FLOOR = 1e-3
-CUDA_BWD_LENGTHS = [1, 7, 63, 64, 65, 130, 257]
+#: lengths around the 64-key and 64-row tiles and the 128-key and 128-row
+#: blocks of the bfloat16 kernels
+CUDA_BWD_LENGTHS = [1, 7, 63, 64, 65, 127, 128, 129, 130, 255, 256, 257]
 
 
-def _assert_bwd_matches_plain(b, s, h, hkv, d, dtype, device):
+def _dv_with_bf16_p(q, k, lse, dout):
+    """dv as the bfloat16 kernel computes it: P = exp(s scale - lse) in
+    float32, rounded to bfloat16, times dO, summed in float32."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    sc = torch.einsum("bqkgd,bckd->bkgqc", q.reshape(b, s, hkv, g, d).float(),
+                      k.float()) / d ** 0.5
+    pos = torch.arange(s, device=q.device)
+    sc = torch.where(pos[None, :] <= pos[:, None], sc, FA.MASK)
+    p = torch.exp(sc - lse.reshape(b, hkv, g, s)[..., None]).bfloat16().float()
+    return torch.einsum("bkgqc,bqkgd->bckd", p, dout.reshape(b, s, hkv, g, d).float())
+
+
+def _kernel_grads(b, s, h, hkv, d, dtype, device):
+    """The inputs, the forward's lse and the gradients of one training
+    forward and backward through the kernels, and the plain backward's."""
     tdt = getattr(torch, dtype)
     q, k, v, dout = (torch.from_numpy(a).to(device, tdt)
                      for a in _grad_inputs(b, s, h, hkv, d))
@@ -207,17 +237,27 @@ def _assert_bwd_matches_plain(b, s, h, hkv, d, dtype, device):
     _, lse = FA._launch(q, k, v, with_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=LSE_TOL[dtype])
     want = FA.flash_attention_bwd_plain(q, k, v, out.detach(), lse, dout)
-    rtol, atol, rel_tol = BWD_TOL[dtype]
-    for name, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+    for g, w in zip((tq.grad, tk.grad, tv.grad), want):
         assert g.dtype == tdt and g.shape == w.shape
+    return (q, k, lse, dout), (tq.grad, tk.grad, tv.grad), want
+
+
+def _assert_norm_close(name, g, w, dtype):
+    # the norm gate where the gradient is above rounding: at S=1 dq is 0
+    # (one key: ds = p (dp - delta) = 0) and both sides hold rounding
+    want_norm = torch.linalg.vector_norm(w.float()).item()
+    if want_norm > RMS_FLOOR * w.numel() ** 0.5:
+        rel = torch.linalg.vector_norm(g.float() - w.float()).item() / want_norm
+        assert rel <= BWD_TOL[dtype][2], (name, rel)
+
+
+def _assert_bwd_matches_plain(b, s, h, hkv, d, dtype, device):
+    _, got, want = _kernel_grads(b, s, h, hkv, d, dtype, device)
+    rtol, atol, _ = BWD_TOL[dtype]
+    for name, g, w in zip("qkv", got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol,
                                    msg=lambda m: f"d{name}: {m}")
-        # the norm gate where the gradient is above rounding: at S=1 dq is 0
-        # (one key: ds = p (dp - delta) = 0) and both sides hold rounding
-        want_norm = torch.linalg.vector_norm(w.float()).item()
-        if want_norm > RMS_FLOOR * w.numel() ** 0.5:
-            rel = torch.linalg.vector_norm(g.float() - w.float()).item() / want_norm
-            assert rel <= rel_tol, (name, rel)
+        _assert_norm_close(name, g, w, dtype)
 
 
 @pytest.mark.cuda
@@ -226,6 +266,31 @@ def _assert_bwd_matches_plain(b, s, h, hkv, d, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_bwd_kernel_matches_plain(cuda_device, g, s, dtype):
     _assert_bwd_matches_plain(1 if s == 257 else 2, s, 16, 16 // g, 128, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv", [4, 2, 1])
+@pytest.mark.parametrize("s", [7, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_matches_plain_past_16_heads_a_group(cuda_device, hkv, s, dtype):
+    """G = 32, 64 and 128 query heads a KV head (H=128): a 64-row tile of
+    the bfloat16 dk/dv kernel holds two positions, one, or half of one.
+    bfloat16 dv sums P rounded to bfloat16 over G heads x positions, so its
+    error grows with G: against the float32-P plain version a few of its
+    small elements leave the max-abs tolerance past 32 heads (4 of 16,640
+    at G=128, S=130) while its error norm stays near 2e-3. So in bfloat16
+    dv is held element by element to the same sum with P rounded
+    (``_dv_with_bf16_p``) and by its error norm to the plain version."""
+    if dtype == "float32":
+        _assert_bwd_matches_plain(1, s, 128, hkv, 128, dtype, cuda_device)
+        return
+    (q, k, lse, dout), got, want = _kernel_grads(1, s, 128, hkv, 128, dtype, cuda_device)
+    rtol, atol, _ = BWD_TOL[dtype]
+    elementwise = (want[0], want[1], _dv_with_bf16_p(q, k, lse, dout))
+    for name, g, e, w in zip("qkv", got, elementwise, want):
+        torch.testing.assert_close(g.float(), e.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"d{name}: {m}")
+        _assert_norm_close(name, g, w, dtype)
 
 
 @pytest.mark.cuda
@@ -238,11 +303,29 @@ def test_cuda_bwd_kernel_matches_plain_at_a_training_shape(cuda_device, dtype):
 @pytest.mark.cuda
 def test_cuda_bwd_routes_report_their_design(cuda_device):
     """float32 on the CUDA cores (256 threads), bfloat16 on the tensor cores
-    (mma.sync, 4 warps); each kernel fits an SM and spills nothing."""
+    (wgmma + TMA, 3 warpgroups); each kernel fits an SM and spills nothing."""
     for dtype, design, threads in ((torch.float32, "CUDA-core FMA", 256),
-                                   (torch.bfloat16, "mma.sync", 128)):
+                                   (torch.bfloat16, "wgmma + TMA", 384)):
         info = FA.bwd_route_info(dtype)
         for name in ("dkdv", "dq"):
             assert (info[name]["design"], info[name]["threads"]) == (design, threads)
             assert info[name]["blocks_per_sm"] >= 1
             assert info[name]["local_bytes"] == 0, (dtype, name, info[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_is_deterministic(cuda_device, dtype):
+    """The kernels sum without atomics: two backward calls on the same
+    inputs give bit-equal dq, dk and dv (training shape, 2 x 1024, and a
+    ragged MQA shape)."""
+    tdt = getattr(torch, dtype)
+    for b, s, h, hkv in ((2, 1024, 16, 8), (1, 257, 16, 1)):
+        q, k, v, dout = (torch.from_numpy(a).to(cuda_device, tdt)
+                         for a in _grad_inputs(b, s, h, hkv, 128))
+        out, lse = FA._launch(q, k, v, with_lse=True)
+        first = FA._launch_bwd(q, k, v, out, lse, dout)
+        second = FA._launch_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(x, y), (name, b, s, h, hkv, dtype)
