@@ -154,19 +154,45 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             bound
   rec-check dlrm-mlperf in bfloat16: serve_step and retrieval_step through
             the kernel == through the plain version (torch.equal: a bag of
-            one row is its row); reduced(dlrm-mlperf) in float32 on the
-            card == on the CPU
+            one row is its row)
   rec       dlrm-mlperf at full width in bfloat16, batches from
             data/recsys.py: serve_p99 (B=512, p50/p99 of 64 steps),
             serve_bulk (B=262144, examples/s, median of 3), retrieval_cand
             (1,000,000 candidates, median of 5); the bag kernel's launch
             counter is set to 0 just before and read just after, and must
             show 1 launch per serve_step and 2 per retrieval_step; peak
-            memory, the busy share of one serve_bulk step
+            memory, the busy share of one serve_bulk step; then the 48 GB
+            table is freed
+  bag-bwd   the EmbeddingBag backward kernel (csrc/embedding_bag_bwd.cu)
+            against its plain version, bit for bit, float32 and bfloat16,
+            with and without weights: at the bag-kernel phase's shapes, a
+            3-row field named 65,536 times, ids -1, -V, V, -V-1 (wrapped or
+            dropped), a float32 gradient of 20M rows (past 2^31 elements);
+            then dlrm-mlperf's training lookup (65,536 x 26 bags of one row,
+            bfloat16, each field cut to 1,000,000 rows: V = 7,110,656): two
+            calls bit-equal, times of the kernel, its sort, the plain
+            version and aten.embedding_dense_backward (the yardstick), the
+            bound
+  rec-train dlrm-mlperf's training path, bfloat16, every width full and
+            each field cut to 1,000,000 rows (the MLPerf DLRM reference's
+            --max-ind-range): 20 steps of Trainer + adamw (the launcher's
+            schedule) at batch 65,536 from data/recsys.py seed 0; both bag
+            counters set to 0 just before and read just after: one forward
+            and one backward launch a step; the loss falls; step ms,
+            examples/s, peak memory, the step's share of its bound, busy
+            share; the gradient tree through the kernels == through the
+            plain route (torch.equal, B=512); reduced(dlrm-mlperf) float32
+            loss and every gradient leaf on the card against the CPU;
+            python -m repro_torch.launch.train --arch dlrm-mlperf --steps 3
+            --device cuda exiting 0
+  rec-family  FM and DIN at full width in bfloat16: serve_step at B=512 and
+            262,144, retrieval_step over 1,000,000 candidates, 5 training
+            steps at 65,536 (ms of each, peak memory); reduced float32
+            serve, retrieval, loss and gradients on the card against the CPU
 
 The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
-under torch.inference_mode(); attn-bwd and lm-train differentiate, outside
-it.
+under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train and
+rec-family differentiate, outside it (their serving steps under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
 host issuing each call; its "device ms" is the same calls queued behind a
 spin kernel, so that they run back to back on the card. Busy shares and
@@ -225,7 +251,8 @@ LAUNCH_CALLS = frozenset(("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKe
 QUEUE_ATTEMPTS = 6
 PROFILE_ATTEMPTS = 8
 #: every kernel of the port's paths (csrc/<name>.cu)
-KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag", "flash_attention_bwd")
+KERNELS = ("sm_cnn_conv", "flash_attention", "embedding_bag", "flash_attention_bwd",
+           "embedding_bag_bwd")
 #: the attention kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, and (B, S) at qwen3-0.6b's H=16, Hkv=8, d=128, from
 #: one token through ragged lengths to the largest S whose plain version
@@ -342,6 +369,27 @@ LAUNCH_WORLD_SHAPES = ((1, 16, 8, 5, 12), (64, 16, 8, 5, 12), (256, 16, 8, 5, 12
 
 #: rec-check: serve batches and retrieval candidates
 REC_CHECK_BATCHES, REC_CHECK_CANDIDATES = (512, 4096), 65536
+#: bag-bwd: a field of this many rows named at this many positions (each
+#: row ~21,845 times, as dlrm-mlperf's 3-row Criteo field at the training
+#: batch); the float32 table past 2^31 elements is BAG_F32_ROWS rows
+BAG_BWD_HOT = (3, 65536)
+#: rec-train: each field cut to at most this many rows (the MLPerf DLRM
+#: reference's --max-ind-range cap), steps and peak lr of Trainer + adamw,
+#: the batch of the gradient-tree check, and the launcher's run on the card
+REC_TRAIN_MAX_ROWS = 10 ** 6
+REC_TRAIN_STEPS, REC_TRAIN_LR = 20, 1e-3
+REC_TRAIN_CHECK_B = 512
+REC_TRAIN_CLI = ("--arch", "dlrm-mlperf", "--steps", "3", "--device", "cuda")
+#: rec-train and rec-family: the reduced float32 card-against-CPU checks,
+#: the loss's relative error and each gradient element's tolerance (the CPU
+#: tests' against JAX). Elementwise, not a norm over a leaf's norm: DIN's
+#: last attention bias has a gradient that is 0 in exact arithmetic (the
+#: softmax ignores a constant), so both sides hold rounding noise there
+REC_LOSS_REL = 1e-5
+REC_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+#: rec-family: FM and DIN at full width, serve_p99 steps timed, training steps
+REC_FAMILY = ("fm", "din")
+REC_FAMILY_P99_STEPS, REC_FAMILY_TRAIN_STEPS = 20, 5
 
 
 class CheckFailed(AssertionError):
@@ -2729,9 +2777,8 @@ def _rec_batch(torch, batch: dict) -> dict:
 
 def phase_rec_check(torch, cfg, params, seed: int) -> None:
     """The DLRM path in bfloat16 through the kernel against the same path
-    through the plain version, and reduced(dlrm-mlperf) in float32 on the
-    card against the CPU."""
-    from repro_torch.configs import reduced
+    through the plain version (reduced(dlrm-mlperf) in float32 on the card
+    against the CPU is rec-train's, with its loss and gradients)."""
     from repro_torch.data import recsys as rec_data
     from repro_torch.models import recsys as rec
 
@@ -2753,21 +2800,6 @@ def phase_rec_check(torch, cfg, params, seed: int) -> None:
     log(f"rec-check: retrieval_step N={REC_CHECK_CANDIDATES} bfloat16 kernel == plain "
         f"lookup: {'ok' if ok else 'FAIL'} (max_abs_err {(got - want).abs().max().item():.3e})")
     check(ok, "retrieval_step through the kernel != through the plain lookup")
-
-    small = reduced(cfg)
-    cpu = rec.init_model(small, torch.Generator().manual_seed(seed), "cpu")
-    card = rec.params_from_numpy(cpu, "cuda")
-    batch = rec_data.batch_for(small, 256, seed=seed)
-    rbatch = rec_data.retrieval_batch(small, 1000, seed=seed)
-    for what, fn, b in (("serve_step B=256", rec.serve_step, batch),
-                        ("retrieval_step N=1000", rec.retrieval_step, rbatch)):
-        on_card = fn(card, _rec_batch(torch, b), small).cpu()
-        on_cpu = fn(cpu, {k: torch.from_numpy(v) for k, v in b.items()}, small)
-        err = (on_card - on_cpu).abs().max().item()
-        ok = bool(torch.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-5))
-        log(f"rec-check: {small.name} float32 {what} on the card == on the CPU: "
-            f"max_abs_err={err:.3e} (rtol=1e-4 atol=1e-5) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{small.name} {what}: the card disagrees with the CPU: {err}")
 
 
 # --------------------------------------------------------------------- rec --
@@ -2867,6 +2899,400 @@ def phase_rec(torch, cfg, params, seed: int) -> dict:
     return {"launches": launches}
 
 
+# ----------------------------------------------------------------- bag-bwd --
+
+def bag_bwd_bound(ids, weighted: bool, d: int, v: int, dtype: str):
+    """Least time for the table gradient on the card: the ids (and weights)
+    read once, grad_out's B rows read once and the dense (V, d) gradient
+    written once, at the memory rate, against the d adds (and d multiplies,
+    weighted) of each position at the float32 peak."""
+    es = 4 if dtype == "float32" else 2
+    b, l = ids.shape
+    n_bytes = ids.numel() * (4 + (4 if weighted else 0)) + (b + v) * d * es
+    flops = b * l * d * (2 if weighted else 1)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), n_bytes
+
+
+def _bwd_agrees(torch, EB, g, ids, w, v: int, what: str) -> float:
+    """The backward kernel against its plain version on the same inputs, bit
+    for bit (both sum in the kernel's order); returns the max abs error."""
+    got = EB.embedding_bag_bwd(g, ids, w, v)
+    want = EB.embedding_bag_bwd_plain(g, ids, w, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    exact = bool(torch.equal(got, want))
+    dtype = str(g.dtype).replace("torch.", "")
+    log(f"bag-bwd: {what} weighted={w is not None} {dtype}: max_abs_err={err:.3e} "
+        f"bit_equal={exact} {'ok' if exact else 'FAIL'}")
+    check(exact, f"bag backward kernel is not bit-equal to its plain version at {what} "
+                 f"{dtype} weighted={w is not None}: {err}")
+    return err
+
+
+def phase_bag_bwd(torch, cfg, seed: int) -> dict:
+    """The EmbeddingBag backward kernel against its plain version, bit for
+    bit, in float32 and bfloat16, weighted and not: at BAG_SHAPES, a 3-row
+    field named 65,536 times, ids outside the table, a float32 gradient past
+    2^31 elements; then dlrm-mlperf's training lookup (B=65,536 x 26 bags of
+    one row over the table cut to REC_TRAIN_MAX_ROWS rows a field): two
+    calls bit-equal, times of the kernel, its sort, the plain version and
+    embedding_dense_backward (the yardstick), the bound."""
+    import dataclasses
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import recsys as rec
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    d = cfg.embed_dim
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def ids_in(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    def grad_out(b, d_, dtype):
+        return torch.randn((b, d_), generator=gen, device="cuda").to(getattr(torch, dtype))
+
+    cases = [(f"V={v} d={d_} B={b} L={l}", v, d_, ids_in(0, v, (b, l)))
+             for v, d_, b, l in BAG_SHAPES]
+    hv, hn = BAG_BWD_HOT
+    cases.append((f"a {hv}-row field at B={hn} L=1", hv, d, ids_in(0, hv, (hn, 1))))
+    v = BAG_SHAPES[3][0]
+    for bad in (-1, -v, v, -v - 1):   # [-V, 0) wraps; outside [-V, V) adds nothing
+        ids = ids_in(0, v, (13, 3))
+        ids[1, 2] = ids[4, 0] = bad
+        cases.append((f"id {bad} at bags 1 and 4, V={v} B=13 L=3", v, d, ids))
+    for what, v, d_, ids in cases:
+        for dtype in ("float32", "bfloat16"):
+            g = grad_out(ids.shape[0], d_, dtype)
+            for w in (None, torch.rand(tuple(ids.shape), generator=gen, device="cuda")):
+                max_err[dtype] = max(max_err[dtype], _bwd_agrees(torch, EB, g, ids, w, v, what))
+    # a float32 gradient past 2^31 elements: a 32-bit offset would wrap
+    ids = _top_ids(torch, gen, BAG_F32_ROWS, (BAG_MULTI[0], 1))
+    g = grad_out(ids.shape[0], d, "float32")
+    max_err["float32"] = max(max_err["float32"], _bwd_agrees(
+        torch, EB, g, ids, None, BAG_F32_ROWS,
+        f"V={BAG_F32_ROWS} d={d} B={ids.shape[0]} L=1, ids in the last {BAG_TOP:.0%} of rows"))
+    del ids, g
+    torch.cuda.empty_cache()
+
+    # dlrm-mlperf's training lookup, the table cut as rec-train cuts it
+    cut = dataclasses.replace(cfg, vocab_sizes=tuple(min(x, REC_TRAIN_MAX_ROWS)
+                                                     for x in cfg.vocab_sizes))
+    v = rec.padded_rows(sum(cut.vocab_sizes))
+    b_train = {s_.name: s_ for s_ in RECSYS_SHAPES}["train_batch"].batch
+    ids = _serve_ids(torch, cut, b_train, seed)
+    g = grad_out(ids.shape[0], d, "bfloat16")
+    counts = torch.bincount(ids.view(-1).long(), minlength=v)
+    log(f"bag-bwd: training lookup {ids.shape[0]} bags of one row (B={b_train} x "
+        f"{cfg.n_sparse} fields) over V={v} rows (fields cut to {REC_TRAIN_MAX_ROWS}): "
+        f"{int((counts > 0).sum())} rows named, the hottest {int(counts.max())} times, "
+        f"{int((counts > EB.BWD_CHUNK).sum())} rows named more than {EB.BWD_CHUNK} times")
+    first = EB.embedding_bag_bwd(g, ids, None, v)
+    second = EB.embedding_bag_bwd(g, ids, None, v)
+    torch.cuda.synchronize()
+    twice = bool(torch.equal(first, second))
+    log(f"bag-bwd: two calls at the training lookup bit-equal: {twice}")
+    check(twice, "bag backward: two calls differ")
+    max_err["bfloat16"] = max(max_err["bfloat16"], _bwd_agrees(
+        torch, EB, g, ids, None, v, f"training lookup V={v} d={d} B={ids.shape[0]} L=1"))
+    flat = ids.view(-1).long()
+    lib = torch.ops.aten.embedding_dense_backward(g, flat, v, -1, False)
+    lib_err = (lib.float() - first.float()).abs().max().item()
+    lib_rel = (torch.linalg.vector_norm(lib.float() - first.float())
+               / torch.linalg.vector_norm(first.float())).item()
+    del first, second, lib
+    fns = {"kernel": lambda: EB.embedding_bag_bwd(g, ids, None, v),
+           "library": lambda: torch.ops.aten.embedding_dense_backward(g, flat, v, -1, False),
+           "sort": lambda: EB._sorted_positions(ids, v)}
+    t = _time_alternating(torch, fns, iters=20)
+    EB.embedding_bag_bwd_plain(g, ids, None, v)   # warm-up
+    plain_ms = _event_ms(torch, lambda: EB.embedding_bag_bwd_plain(g, ids, None, v), 2)
+    dev_ms = _queued_ms(torch, fns["kernel"], 20)
+    bound_ms, bound_by, n_bytes = bag_bwd_bound(ids, False, d, v, "bfloat16")
+    log(f"bag-bwd: training lookup bfloat16 kernel_ms={t['kernel']:.5f} "
+        f"kernel_device_ms={dev_ms:.5f} (its torch.sort of the keys {t['sort']:.5f} ms) "
+        f"plain_ms={plain_ms:.5f} library_ms={t['library']:.5f} "
+        f"(aten.embedding_dense_backward, max_abs_err vs the kernel "
+        f"{lib_err:.3e}, error norm {lib_rel:.3e}) bound_ms={bound_ms:.5f} ({bound_by}: "
+        f"{n_bytes / 1e6:.3f} MB at 3.35 TB/s: ids, grad_out, the dense gradient) "
+        f"share_of_bound={bound_ms / t['kernel']:.4f} device_share={bound_ms / dev_ms:.4f} "
+        f"achieved_GB/s={n_bytes / dev_ms / 1e6:.1f}")
+    del g, ids, flat, counts
+    torch.cuda.empty_cache()
+    return {"max_err": max_err,
+            "timing": dict(t, plain=plain_ms, device_ms=dev_ms, bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           shape=f"B={b_train * cfg.n_sparse} L=1 d={d} V={v}")}
+
+
+# --------------------------------------------------------------- rec-train --
+
+def _grad_trees_close(torch, got, want):
+    """(every leaf within REC_GRAD_TOL elementwise, the worst max abs error)."""
+    close, worst = True, 0.0
+    for g, w in zip(_leaves(got), _leaves(want)):
+        g, w = g.float().cpu(), w.float().cpu()
+        close &= bool(torch.allclose(g, w, **REC_GRAD_TOL))
+        worst = max(worst, (g - w).abs().max().item())
+    return close, worst
+
+
+def _reduced_on_card_vs_cpu(torch, cfg, seed: int, what: str) -> None:
+    """reduced(cfg) in float32: serve_step, retrieval_step, loss_fn and every
+    gradient leaf on the card against the CPU."""
+    import functools
+
+    from repro_torch.configs import reduced
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+    from repro_torch.training.train_loop import value_and_grad
+
+    small = reduced(cfg)
+    cpu = rec.init_model(small, torch.Generator().manual_seed(seed), "cpu")
+    card = rec.params_from_numpy(cpu, "cuda")
+    batch = rec_data.batch_for(small, 256, seed=seed)
+    rbatch = rec_data.retrieval_batch(small, 1000, seed=seed)
+    with torch.inference_mode():
+        for name, fn, b in (("serve_step B=256", rec.serve_step, batch),
+                            ("retrieval_step N=1000", rec.retrieval_step, rbatch)):
+            on_card = fn(card, _rec_batch(torch, b), small).cpu()
+            on_cpu = fn(cpu, {k: torch.from_numpy(v) for k, v in b.items()}, small)
+            err = (on_card - on_cpu).abs().max().item()
+            ok = bool(torch.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-5))
+            log(f"{what}: {small.name} float32 {name} on the card == on the CPU: "
+                f"max_abs_err={err:.3e} (rtol=1e-4 atol=1e-5) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{small.name} {name}: the card disagrees with the CPU: {err}")
+    loss = functools.partial(rec.loss_fn, cfg=small)
+    l_card, _, g_card = value_and_grad(loss, card, {k: torch.from_numpy(v).cuda()
+                                                    for k, v in batch.items()})
+    l_cpu, _, g_cpu = value_and_grad(loss, cpu, {k: torch.from_numpy(v)
+                                                 for k, v in batch.items()})
+    loss_rel = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+    close, worst = _grad_trees_close(torch, g_card, g_cpu)
+    ok = loss_rel <= REC_LOSS_REL and close
+    log(f"{what}: {small.name} float32 loss_fn B=256 on the card {l_card.item():.6f} vs the "
+        f"CPU {l_cpu.item():.6f} (rel {loss_rel:.3e}, tol {REC_LOSS_REL}); "
+        f"{len(list(_leaves(g_cpu)))} gradient leaves within rtol "
+        f"{REC_GRAD_TOL['rtol']} atol {REC_GRAD_TOL['atol']}: {close} (max abs error "
+        f"{worst:.3e}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{small.name}: loss or gradients on the card disagree with the CPU: loss rel "
+              f"{loss_rel}, worst leaf {worst}")
+
+
+def phase_rec_train(torch, cfg, seed: int) -> dict:
+    """dlrm-mlperf's training path on the card, bfloat16, every width full
+    and each field cut to REC_TRAIN_MAX_ROWS rows: Trainer + adamw (the
+    launcher's schedule) for REC_TRAIN_STEPS steps of RECSYS_SHAPES'
+    train_batch, data from data/recsys.py seed 0; both bag counters set to 0
+    just before and read just after: one forward and one backward launch a
+    step; the loss falls; step ms, examples/s, peak memory, the step's share
+    of its bound, busy share. Then the kernel route's gradient tree ==
+    the plain route's (torch.equal, B=REC_TRAIN_CHECK_B), reduced float32 on
+    the card against the CPU, and python -m repro_torch.launch.train on the
+    card."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import recsys as rec
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer, value_and_grad
+
+    cut = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, REC_TRAIN_MAX_ROWS)
+                                                     for v in cfg.vocab_sizes))
+    b_train = {s_.name: s_ for s_ in RECSYS_SHAPES}["train_batch"].batch
+    t0 = time.perf_counter()
+    params = rec.init_model(cut, torch.Generator("cuda").manual_seed(seed), "cuda")
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    v, d = params["emb"].shape
+    loss = functools.partial(rec.loss_fn, cfg=cut)
+    tr = Trainer(loss, adamw(warmup_cosine_schedule(REC_TRAIN_LR, 10, REC_TRAIN_STEPS)),
+                 params)
+    del params
+    torch.cuda.synchronize()
+    log(f"rec-train: {cfg.name} {cut.dtype} at full width (d={d}, {cut.n_dense} dense, "
+        f"{cut.n_sparse} fields, bot {cut.bot_mlp}, top {cut.top_mlp}), fields cut to "
+        f"{REC_TRAIN_MAX_ROWS} rows: table {v} x {d} ({v * d * 2 / 1e9:.3f} GB), "
+        f"params={n_params:,}, Trainer + adamw(warmup_cosine_schedule({REC_TRAIN_LR}, 10, "
+        f"{REC_TRAIN_STEPS})) ready in {time.perf_counter() - t0:.3f} s; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    data = rec_data.batches(cut, b_train, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted ----
+    EB.reset_launches()
+    EB.reset_bwd_launches()
+    t0 = time.perf_counter()
+    tr.run(data, max_steps=REC_TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = EB.launches, EB.bwd_launches
+    # ---- end of the counted run ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    step_ms = [h["step_time_s"] * 1e3 for h in tr.history]
+    check(all(math.isfinite(x) for x in losses), "rec-train: a loss is not finite")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    med = statistics.median(step_ms[1:])
+    log(f"rec-train: {REC_TRAIN_STEPS} steps of B={b_train} in {train_s:.3f} s; step_ms "
+        f"first={step_ms[0]:.3f} median(2..{REC_TRAIN_STEPS})={med:.3f} "
+        f"min={min(step_ms[1:]):.3f} max={max(step_ms[1:]):.3f}; "
+        f"{b_train / med * 1e3:.1f} examples/s; loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB")
+    log(f"rec-train: embedding_bag launches={fwd}, embedding_bag_bwd launches={bwd} over "
+        f"{REC_TRAIN_STEPS} steps")
+    check(fwd > 0 and bwd > 0, "rec-train: the training path launched a bag kernel no time")
+    check(fwd == bwd == REC_TRAIN_STEPS,
+          f"rec-train: expected one forward and one backward bag launch a step, got {fwd} "
+          f"and {bwd} over {REC_TRAIN_STEPS} steps")
+    check(last < first, f"rec-train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    # the step's bound: the optimizer's bytes (30 a parameter: the bf16
+    # parameter and gradient read, float32 master, mu, nu read and written,
+    # the parameter written), both lookups' bytes, against the products
+    # (6 B x the MLP weights, 3 x the interaction's 2 B F^2 d) at the bf16 peak
+    batch_ids = _serve_ids(torch, cut, b_train, seed + 1)
+    fwd_bytes = bag_bound(batch_ids, False, d, cut.dtype)[2]
+    bwd_bytes = bag_bwd_bound(batch_ids, False, d, v, cut.dtype)[2]
+    del batch_ids
+    mlp_w = sum(w.numel() for part in ("bot", "top") for w in tr.params[part]["w"])
+    n_f = cut.n_sparse + 1
+    ops = 6 * b_train * mlp_w + 3 * 2 * b_train * n_f * n_f * d
+    step_bytes = 30 * n_params + fwd_bytes + bwd_bytes
+    bound_ms = max(step_bytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["bfloat16"]) * 1e3
+    log(f"rec-train: step bound max(bytes, operations): {30 * n_params / 1e9:.3f} GB of "
+        f"optimizer traffic (30 B a parameter) + {fwd_bytes / 1e9:.3f} GB bag forward + "
+        f"{bwd_bytes / 1e9:.3f} GB bag backward = {step_bytes / 1e9:.3f} GB, "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; {ops:.4e} operations "
+        f"(6 B x {mlp_w} MLP weights + 3 x the interaction), "
+        f"{ops / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms at 989 TFLOP/s; bound {bound_ms:.3f} "
+        f"ms, share of bound {bound_ms / med:.4f}")
+    one = [next(data)]   # made before the profiled step: the host's batch is not in it
+    busy = _busy_share(torch, lambda: tr.run(iter(one), max_steps=tr.step + 1, log_every=0),
+                       "embedding_bag", top=12)
+    log(f"rec-train: one step B={b_train} {busy}")
+
+    # the kernel route's gradient tree against the plain route's, bit for bit
+    batch = {k: torch.from_numpy(x).cuda()
+             for k, x in rec_data.batch_for(cut, REC_TRAIN_CHECK_B, seed=seed + 3).items()}
+    trees = {}
+    for lookup in ("kernel", "plain"):
+        before = (EB.launches, EB.bwd_launches)
+        l_, _, g_ = value_and_grad(functools.partial(rec.loss_fn, cfg=cut, lookup=lookup),
+                                   tr.params, batch)
+        trees[lookup] = (l_.item(), g_, (EB.launches - before[0], EB.bwd_launches - before[1]))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(_leaves(trees["kernel"][1]),
+                                                      _leaves(trees["plain"][1])))
+    ok = (same and trees["kernel"][0] == trees["plain"][0]
+          and trees["kernel"][2] == (1, 1) and trees["plain"][2] == (0, 0))
+    log(f"rec-train: bfloat16 B={REC_TRAIN_CHECK_B}: loss and {len(list(_leaves(trees['plain'][1])))} "
+        f"gradient leaves through the kernels == through the plain route (torch.equal): "
+        f"{same}; loss {trees['kernel'][0]:.6f}; launches fwd/bwd kernel route "
+        f"{trees['kernel'][2]}, plain route {trees['plain'][2]} {'ok' if ok else 'FAIL'}")
+    check(ok, "rec-train: the kernel route's gradient tree differs from the plain route's")
+    del trees, tr, data, batch
+    torch.cuda.empty_cache()
+
+    _reduced_on_card_vs_cpu(torch, cfg, seed, "rec-train")
+
+    # the launcher itself on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *REC_TRAIN_CLI],
+                          env=env, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    log(f"rec-train: python -m repro_torch.launch.train {' '.join(REC_TRAIN_CLI)}: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.3f} s: {' | '.join(lines[-3:])}")
+    check(proc.returncode == 0 and lines and lines[-1].startswith("final:")
+          and lines[0].startswith(f"arch={cfg.name} family=recsys params="),
+          f"rec-train: the launcher failed: {proc.stderr[-2000:]}")
+    return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
+            "loss": (first, last), "bound_ms": bound_ms}
+
+
+# -------------------------------------------------------------- rec-family --
+
+def _median_ms(torch, fn, n: int) -> float:
+    """Median host ms of ``n`` calls, each ended by a synchronize."""
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def phase_rec_family(torch, seed: int) -> dict:
+    """FM and DIN at full width in bfloat16 (weights from --seed, data from
+    data/recsys.py): serve_step at serve_p99 and serve_bulk, retrieval_step
+    over retrieval_cand's candidates, REC_FAMILY_TRAIN_STEPS Trainer + adamw
+    steps at train_batch (finite losses); then reduced float32 on the card
+    against the CPU."""
+    import functools
+
+    from repro_torch.configs import RECSYS_SHAPES, get_config
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    sizes = {s_.name: s_ for s_ in RECSYS_SHAPES}
+    p99, bulk = sizes["serve_p99"].batch, sizes["serve_bulk"].batch
+    n_cand, b_train = sizes["retrieval_cand"].n_candidates, sizes["train_batch"].batch
+    out = {}
+    for arch in REC_FAMILY:
+        cfg = get_config(arch)
+        params = rec.init_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+        n_params = sum(t_.numel() for t_ in _leaves(params))
+        res = {}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            for name, b in (("serve_p99", p99), ("serve_bulk", bulk)):
+                batch = _rec_batch(torch, rec_data.batch_for(cfg, b, seed=seed + 1))
+                scores = rec.serve_step(params, batch, cfg)   # warm-up
+                check(tuple(scores.shape) == (b,) and bool(torch.isfinite(scores).all()),
+                      f"rec-family: {arch} {name} scores not finite (B,)")
+                res[name] = _median_ms(torch, lambda: rec.serve_step(params, batch, cfg),
+                                       REC_FAMILY_P99_STEPS if name == "serve_p99" else 3)
+            rb = _rec_batch(torch, rec_data.retrieval_batch(cfg, n_cand, seed=seed + 2))
+            cand = rec.retrieval_step(params, rb, cfg)
+            check(cand.numel() == n_cand and bool(torch.isfinite(cand).all()),
+                  f"rec-family: {arch} retrieval scores not finite ({n_cand})")
+            res["retrieval_cand"] = _median_ms(torch, lambda: rec.retrieval_step(params, rb, cfg),
+                                               3)
+            del batch, scores, rb, cand
+        serve_peak = torch.cuda.max_memory_allocated()
+        tr = Trainer(functools.partial(rec.loss_fn, cfg=cfg),
+                     adamw(warmup_cosine_schedule(REC_TRAIN_LR, 10, REC_FAMILY_TRAIN_STEPS)),
+                     params)
+        del params
+        torch.cuda.reset_peak_memory_stats()
+        tr.run(rec_data.batches(cfg, b_train, seed=0), max_steps=REC_FAMILY_TRAIN_STEPS,
+               log_every=0)
+        torch.cuda.synchronize()
+        losses = [h["loss"] for h in tr.history]
+        check(all(math.isfinite(x) for x in losses), f"rec-family: {arch} loss not finite")
+        res["train_step"] = statistics.median(h["step_time_s"] * 1e3 for h in tr.history[1:])
+        log(f"rec-family: {arch} {cfg.dtype} params={n_params:,} (embed_dim {cfg.embed_dim}): "
+            f"serve_p99 B={p99} median {res['serve_p99']:.3f} ms, serve_bulk B={bulk} median "
+            f"{res['serve_bulk']:.3f} ms ({bulk / res['serve_bulk'] * 1e3:.1f} examples/s), "
+            f"retrieval_cand N={n_cand} median {res['retrieval_cand']:.3f} ms, peak "
+            f"{serve_peak / 1e9:.3f} GB; train B={b_train} step median(2..) "
+            f"{res['train_step']:.3f} ms ({b_train / res['train_step'] * 1e3:.1f} examples/s), "
+            f"loss {' '.join(f'{x:.4f}' for x in losses)}, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        del tr
+        torch.cuda.empty_cache()
+        _reduced_on_card_vs_cpu(torch, cfg, seed, "rec-family")
+        out[arch] = res
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2960,8 +3386,18 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         rec = phase_rec(torch, rec_cfg, params, args.seed)
         phases["rec"] = time.perf_counter() - t
-        del params
+        del params   # the 48 GB serving table
         torch.cuda.empty_cache()
+    # recsys training differentiates: outside inference_mode
+    t = time.perf_counter()
+    bag_bwd = phase_bag_bwd(torch, rec_cfg, args.seed)
+    phases["bag-bwd"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec_train = phase_rec_train(torch, rec_cfg, args.seed)
+    phases["rec-train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_rec_family(torch, args.seed)
+    phases["rec-family"] = time.perf_counter() - t
     for name, sec in phases.items():
         log(f"phase {name}: ok in {sec:.3f} s")
     log(f"total {time.perf_counter() - t_all:.3f} s on {dev['card']}")
@@ -2969,6 +3405,7 @@ def main(argv=None) -> int:
     t32 = kern["timings"][(256, "float32")]
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     tbg = bag["timings"]["serve_bulk"]
+    tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
     tb32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32")]
     line = {"kernels": [{
@@ -3019,8 +3456,16 @@ def main(argv=None) -> int:
         "max_abs_err_float32": bag["max_err"]["float32"], "ms": tbg["kernel"],
         "plain_ms": tbg["plain"], "bound_ms": tbg["bound_ms"],
         "bound_by": tbg["bound_by"], "library_ms": tbg["library"],
-        "device_ms": tbg["device_ms"],
+        "device_ms": tbg["device_ms"], "launches_train": rec_train["launches"],
         "dtype": "bfloat16", "shape": f"serve_bulk {tbg['shape']}",
+    }, {
+        "name": "embedding_bag_bwd", "route": "cuda", "source": embedding_bag.BWD_SOURCE,
+        "replaces": embedding_bag.BWD_REPLACES, "gradient_of": embedding_bag.REPLACES,
+        "launches": rec_train["bwd_launches"], "max_abs_err": bag_bwd["max_err"]["bfloat16"],
+        "max_abs_err_float32": bag_bwd["max_err"]["float32"], "ms": tbb["kernel"],
+        "plain_ms": tbb["plain"], "bound_ms": tbb["bound_ms"], "bound_by": tbb["bound_by"],
+        "library_ms": tbb["library"], "device_ms": tbb["device_ms"], "sort_ms": tbb["sort"],
+        "dtype": "bfloat16", "shape": f"training lookup {tbb['shape']}",
     }]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config("sm-cnn")`` resolves here.
 
 The paper's own text-pair model, qwen3-0.6b of the LM family and
-dlrm-mlperf of the recsys family are ported so far; the other architectures
-register here as their models are ported.
+dlrm-mlperf, fm and din of the recsys family are ported so far; the other
+architectures register here as their models are ported.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "din": "repro_torch.configs.din",
     "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "fm": "repro_torch.configs.fm",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
     "sm-cnn": "repro_torch.configs.sm_cnn",
 }

@@ -47,48 +47,17 @@
 // It runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "vec4.cuh"   // Vec4, load4, store4: a lane's 4 columns of a row
 
 namespace {
 
 constexpr int WARPS = 8;                // bags per block
 constexpr int THREADS = 32 * WARPS;
 constexpr int VEC = 4;                  // columns per lane per row slice
-
-struct Vec4 {
-  float x, y, z, w;
-};
-
-__device__ __forceinline__ Vec4 load4(const float* p) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  return {v.x, v.y, v.z, v.w};
-}
-
-__device__ __forceinline__ Vec4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return {a.x, a.y, b.x, b.y};
-}
-
-__device__ __forceinline__ void store4(float* p, const Vec4& v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v.x, v.y, v.z, v.w);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const Vec4& v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

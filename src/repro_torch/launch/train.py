@@ -11,14 +11,19 @@ accounting and the fault-tolerant step loop (``training.train_loop``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
       --batch 4 --seq-len 2048 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch sm-cnn --device cpu
 
-Families ``lm`` and ``textpair`` (sm-cnn) train. ``recsys`` and ``gnn``
-raise ``NotImplementedError``: their training comes with ROADMAP.md §1 item
-10e. The data are the port's numpy generators with the JAX launcher's
-seeds, so both launchers see the same batches; the weights are drawn from
-``torch.Generator`` seed 0 (on the device for the LM), so they are not
-JAX's.
+Families ``lm``, ``textpair`` (sm-cnn) and ``recsys`` (dlrm-mlperf, fm, din;
+DLRM's lookups on the hand-written EmbeddingBag kernels both ways,
+``kernels/embedding_bag.py``) train. BERT4Rec (from its ``loss_fn``) and the
+``gnn`` family raise ``NotImplementedError``: their training comes with
+ROADMAP.md §1 item 10e. ``--full`` dlrm-mlperf does not fit one card: its
+24.03e9 table elements need 16 bytes each for the parameter, its float32
+master copy and the two moments (384.5 GB), so it waits for the sharded
+table of item 11. The data are the port's numpy generators with the JAX
+launcher's seeds, so both launchers see the same batches; the weights are
+drawn from ``torch.Generator`` seed 0 on the device, so they are not JAX's.
 """
 from __future__ import annotations
 
@@ -52,6 +57,13 @@ def build(arch: str, full: bool, batch: int, seq_len: int, device="cuda"):
         data = token_batches(cfg.vocab_size, batch, seq_len)
         return cfg, params, loss, data
 
+    if fam == "recsys":
+        from repro_torch.data.recsys import batches
+        from repro_torch.models import recsys as rec_lib
+        params = rec_lib.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        loss = functools.partial(rec_lib.loss_fn, cfg=cfg)
+        return cfg, params, loss, batches(cfg, batch)
+
     if fam != "textpair":
         raise NotImplementedError(
             f"{arch}: training of the {fam} family is not ported yet "
@@ -83,7 +95,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--full", action="store_true",
-                    help="full config (qwen3-0.6b fits one 80 GB card)")
+                    help="full config (qwen3-0.6b fits one 80 GB card; "
+                         "dlrm-mlperf's 384.5 GB of state does not)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card cuda raises")
     args = ap.parse_args(argv)
