@@ -99,8 +99,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             the kernel, the plain version where it fits and SDPA, the bound;
             bfloat16 also at B=2 for S around the 64-key tiles (63 .. 191),
             where a tile crosses the diagonal; first each route's design
-            stage (bfloat16: mma.sync or wgmma; float32: CUDA cores),
-            registers, spills, shared memory and blocks resident on an SM
+            stage (bfloat16: wgmma; float32: 3xTF32 wgmma), registers,
+            spills, shared memory and blocks resident on an SM; float32's
+            bound also in 3xTF32 on the tensor cores
   lm-check  the LM path in float32 against itself: prefill through the
             kernel ("flash") == plain torch ("chunked"), logits and cache;
             decode at position S == forward over S+1 tokens
@@ -125,7 +126,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             kernel), the bound, two calls bit-equal (no atomics), and the
             forward with its lse against without, the plain forward with
             its lse and SDPA's forward with grad on; the float32 backward
-            timed at 4 x 2048 with SDPA's float32 backward
+            (3xTF32) at 4 x 2048: two calls bit-equal, timed with SDPA's
+            float32 backward, split by kernel, both float32 bounds
   lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
             layers, the loss and every gradient leaf through the kernels
             ("flash") against plain autograd ("chunked"), every leaf
@@ -524,6 +526,18 @@ def _profiled_split_ms(torch, fn, names, iters: int):
     return None
 
 
+def _bound(n_bytes: int, flops: int, dtype: str):
+    """(bound ms, what bounds it, bytes, operations, the 3xTF32 bound ms or
+    None): the larger of the bytes at the memory rate and the operations at
+    the dtype's peak; for float32 also at a third of the TF32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_3xtf32 = (max(t_bytes, 3 * flops / TF32_FLOPS * 1e3) if dtype == "float32"
+                else None)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
+        n_bytes, flops, t_3xtf32
+
+
 def conv_bound(b: int, s: int, d: int, w: int, f: int, dtype: str):
     """Least time for the conv on the card: each input read once and the
     output written once at the memory rate, against the multiply-adds at
@@ -535,12 +549,7 @@ def conv_bound(b: int, s: int, d: int, w: int, f: int, dtype: str):
     es = 4 if dtype == "float32" else 2
     n_bytes = (b * s * d + w * d * f + f + b * f) * es
     flops = 2 * b * s * w * d * f
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_3xtf32 = (max(t_bytes, 3 * flops / TF32_FLOPS * 1e3) if dtype == "float32"
-                else None)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
-        n_bytes, flops, t_3xtf32
+    return _bound(n_bytes, flops, dtype)
 
 
 def phase_kernel(torch, cfg) -> dict:
@@ -1933,14 +1942,20 @@ def attention_bound(b: int, s: int, h: int, hkv: int, d: int, dtype: str):
     function needs at the dtype's peak: two products of d terms for each
     visible (query, key) pair, S(S+1)/2 of them per query head (the causal
     half with the diagonal). Products on masked pairs are not needed, so
-    they are not counted."""
+    they are not counted. Also float32's bound on the tensor cores: 3xTF32,
+    three TF32 products for each float32 one (None for bfloat16)."""
     es = 4 if dtype == "float32" else 2
     n_bytes = es * b * s * d * (2 * h + 2 * hkv)
     flops = 4 * b * h * d * s * (s + 1) // 2
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
-        n_bytes, flops
+    return _bound(n_bytes, flops, dtype)
+
+
+def _tf32_note(tf32_ms, ms: float) -> str:
+    """The 3xTF32 bound and the share of it, for a float32 log line."""
+    if tf32_ms is None:
+        return ""
+    return (f" bound_ms_3xtf32={tf32_ms:.5f} (3 TF32 products a float32 one at "
+            f"{TF32_FLOPS / 1e12:.0f} TFLOP/s) share_of_3xtf32_bound={tf32_ms / ms:.4f}")
 
 
 def _attn_agrees(torch, got, want, dtype: str, what: str) -> float:
@@ -2036,9 +2051,9 @@ def phase_attn_kernel(torch, cfg) -> dict:
         iters = 20 if s <= PLAIN_MAX_S else 2
         t = _time_alternating(torch, fns, iters=iters)
         dev_ms = _queued_ms(torch, fns["kernel"], iters)
-        bound_ms, bound_by, n_bytes, flops = attention_bound(b, s, h, hkv, d, dtype)
+        bound_ms, bound_by, n_bytes, flops, tf32_ms = attention_bound(b, s, h, hkv, d, dtype)
         timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by,
-                                      device_ms=dev_ms)
+                                      device_ms=dev_ms, bound_ms_3xtf32=tf32_ms)
         plain = f"{t['plain']:.5f}" if "plain" in t else "not run (scores too large)"
         log(f"attn-kernel: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
             f"kernel_device_ms={dev_ms:.5f} "
@@ -2047,7 +2062,7 @@ def phase_attn_kernel(torch, cfg) -> dict:
             f"({bound_by}: {flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} "
             f"TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
             f"share_of_bound={bound_ms / t['kernel']:.4f} "
-            f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+            f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}" + _tf32_note(tf32_ms, t['kernel']))
         del q, k, v, qt, kt, vt, fns
         torch.cuda.empty_cache()
     return {"max_err": max_err, "timings": timings, "routes": routes}
@@ -2236,14 +2251,12 @@ def attention_bwd_bound(b: int, s: int, h: int, hkv: int, d: int, dtype: str):
     and lse read once, dq, dk, dv written once, at the memory rate, against
     the four products of d terms it needs for each visible (query, key)
     pair (dv, dp, dq, dk: twice the forward's) at the dtype's peak. The
-    recomputed S is not needed, so it is not counted."""
+    recomputed S is not needed, so it is not counted. Also float32's bound
+    in 3xTF32 (None for bfloat16), as attention_bound."""
     es = 4 if dtype == "float32" else 2
     n_bytes = es * b * s * d * (4 * h + 4 * hkv) + 4 * b * h * s
     flops = 8 * b * h * d * s * (s + 1) // 2
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), \
-        n_bytes, flops
+    return _bound(n_bytes, flops, dtype)
 
 
 def _grad_agrees(torch, got, want, dtype: str, what: str) -> float:
@@ -2380,7 +2393,7 @@ def phase_attn_bwd(torch, cfg) -> dict:
         # the three kernels of a call: the statistics pass, dk/dv, dq
         split = _profiled_split_ms(
             torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
-        bound_ms, bound_by, n_bytes, flops = attention_bwd_bound(b, s, h, hkv, d, dtype)
+        bound_ms, bound_by, n_bytes, flops, _ = attention_bwd_bound(b, s, h, hkv, d, dtype)
         timings[(b, s)] = dict(t, bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
                                library_device_ms=lib_dev_ms, device_split=split)
         log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
@@ -2403,7 +2416,7 @@ def phase_attn_bwd(torch, cfg) -> dict:
         del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
         torch.cuda.empty_cache()
 
-    # the float32 route (CUDA cores), timed as above
+    # the float32 route (3xTF32), timed as above
     b, s = BWD_TIMED_F32
     dtype = "float32"
     q, k, v, dout = inputs(b, s, dtype)
@@ -2411,24 +2424,42 @@ def phase_attn_bwd(torch, cfg) -> dict:
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     dout_t = dout.transpose(1, 2).contiguous()
+
+    def library_f32():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
+
     fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
            "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
-           "library": lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
-                                                  retain_graph=True)}
+           "library": library_f32}
     got = fns["kernel"]()
     max_err[dtype] = max(max_err[dtype], max(
         _grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s}")
         for name, g, w in zip(("dq", "dk", "dv"), got, fns["plain"]())))
-    del got
+    again = fns["kernel"]()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"attn-bwd: two float32 backward calls at B={b} S={s} differ")
+    log(f"attn-bwd: B={b} S={s} {dtype}: two backward calls bit-equal (dq, dk, dv)")
+    del got, again
     t = _time_alternating(torch, fns, iters=2, rounds=3)
-    bound_ms, bound_by, n_bytes, flops = attention_bwd_bound(b, s, h, hkv, d, dtype)
-    timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
-    log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} plain_ms="
-        f"{t['plain']:.5f} library_ms={t['library']:.5f} (SDPA causal GQA backward, "
-        f"float32) bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e12:.4f} TFLOP at "
-        f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.3f} MB at 3.35 TB/s) "
-        f"share_of_bound={bound_ms / t['kernel']:.4f} "
-        f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}")
+    dev_ms = _queued_ms(torch, fns["kernel"], 5)
+    lib_dev_ms = _queued_ms(torch, library_f32, 5)
+    split = _profiled_split_ms(
+        torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
+    bound_ms, bound_by, n_bytes, flops, tf32_ms = attention_bwd_bound(b, s, h, hkv, d, dtype)
+    timings[(b, s, dtype)] = dict(t, bound_ms=bound_ms, bound_by=bound_by, device_ms=dev_ms,
+                                  library_device_ms=lib_dev_ms, device_split=split,
+                                  bound_ms_3xtf32=tf32_ms)
+    log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
+        f"kernel_device_ms={dev_ms:.5f} plain_ms={t['plain']:.5f} "
+        f"library_ms={t['library']:.5f} library_device_ms={lib_dev_ms:.5f} (SDPA causal "
+        f"GQA backward, float32) bound_ms={bound_ms:.5f} ({bound_by}: "
+        f"{flops / 1e12:.4f} TFLOP at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s, "
+        f"{n_bytes / 1e6:.3f} MB at 3.35 TB/s) share_of_bound={bound_ms / t['kernel']:.4f} "
+        f"achieved_tflops={flops / t['kernel'] / 1e9:.3f}" + _tf32_note(tf32_ms, t['kernel']))
+    log(f"attn-bwd: B={b} S={s} {dtype} device ms by kernel (profiler): " + (
+        ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
+        if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
+                      f"kernel records)"))
     del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
     torch.cuda.empty_cache()
     return {"max_err": max_err, "lse_err": lse_err, "timings": timings, "routes": routes}
@@ -3404,6 +3435,7 @@ def main(argv=None) -> int:
 
     t32 = kern["timings"][(256, "float32")]
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
+    tfa32 = attn["timings"][(LM_BATCH, LM_SEQ, "float32")]
     tbg = bag["timings"]["serve_bulk"]
     tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
@@ -3424,6 +3456,11 @@ def main(argv=None) -> int:
         "replaces": flash_attention.REPLACES, "launches": lm["launches"],
         "max_abs_err": attn["max_err"]["bfloat16"],
         "max_abs_err_float32": attn["max_err"]["float32"], "ms": tfa["kernel"],
+        "ms_float32": tfa32["kernel"], "device_ms_float32": tfa32["device_ms"],
+        "plain_ms_float32": tfa32["plain"], "library_ms_float32": tfa32["library"],
+        "bound_ms_float32": tfa32["bound_ms"],
+        "bound_ms_float32_3xtf32": tfa32["bound_ms_3xtf32"],
+        "design_float32": attn["routes"]["float32"]["design"],
         "plain_ms": tfa["plain"], "bound_ms": tfa["bound_ms"],
         "bound_by": tfa["bound_by"], "library_ms": tfa["library"],
         "device_ms": tfa["device_ms"], "design": attn["routes"]["bfloat16"]["design"],
@@ -3447,6 +3484,10 @@ def main(argv=None) -> int:
         "ms_b8": attn_bwd["timings"][(8, TRAIN_S)]["kernel"],
         "ms_float32": tb32["kernel"], "plain_ms_float32": tb32["plain"],
         "library_ms_float32": tb32["library"], "bound_ms_float32": tb32["bound_ms"],
+        "bound_ms_float32_3xtf32": tb32["bound_ms_3xtf32"],
+        "device_ms_float32": tb32["device_ms"],
+        "library_device_ms_float32": tb32["library_device_ms"],
+        "design_float32": attn_bwd["routes"]["float32"]["dkdv"]["design"],
         "dtype": "bfloat16", "shape": f"B={TRAIN_B} S={TRAIN_S} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
     }, {

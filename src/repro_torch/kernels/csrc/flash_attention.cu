@@ -16,10 +16,12 @@
 //   operations 4 * B * H * d * S(S+1)/2
 //   bytes      itemsize * B * S * d * (2H + 2Hkv)   (q, o, k, v once)
 // At qwen3-0.6b's prefill of B=8, S=2048 (H=16, Hkv=8, d=128): 1.375e11
-// operations, 0.139 ms at 989 TFLOP/s in bfloat16 (2.052 ms at 67 TFLOP/s
-// in float32) against 0.060 ms for the bytes (bfloat16): bound by
-// operations, and by more the longer the sequence. Products on masked pairs
-// of the diagonal tiles are overhead above that bound.
+// operations, 0.139 ms at 989 TFLOP/s in bfloat16; in float32 2.052 ms at
+// 67 TFLOP/s on the CUDA cores and 0.833 ms in 3xTF32 on the tensor cores
+// (three TF32 products at 495 TFLOP/s), against 0.060 ms (bfloat16) or
+// 0.120 ms (float32) for the bytes: bound by operations, and by more the
+// longer the sequence. Products on masked pairs of the diagonal tiles are
+// overhead above that bound.
 //
 // Both routes share the block shape. One block per (q tile, KV head, batch
 // row); a block's 128 rows are BQ = 128 / G query positions x the G query
@@ -86,246 +88,61 @@
 // Shared memory: Q 32 KB + 2 stages x (K 16 KB + V 16 KB) = 96 KB; one
 // block of 384 threads an SM.
 //
-// float32 route: the CUDA-core kernel below (first written for the slice
-// that brought up qwen3-0.6b), kept because float32 is held to 2e-5 (max
-// abs and error norm), which the tensor cores' TF32 (about three decimal
-// digits) cannot meet. It serves the float32 checks, not the bf16 serving
-// path:
-//   * the q tile and one K/V tile of 64 positions are staged in shared
-//     memory as float32 (q and K rows padded to 132 floats so the float4
-//     reads of 16 different K rows by a half-warp fall in distinct banks);
-//   * 256 threads as 16 x 16: a thread holds 8 rows (ty + 16 i) x 4 score
-//     columns (tx + 16 j) of a tile in registers, then 8 rows x 8 output
-//     columns of acc. Each 4-deep step of Q K^T reads 12 float4 from shared
-//     memory for 128 FMAs; each 4-deep step of P V reads 16 float4 for 256.
-//     The row max and sum reduce over the 16 lanes of a half-warp with
-//     shuffles; the scores go through shared memory to the P V product.
+// float32 route: 3xTF32 on the tensor cores, wgmma + TMA, warp-specialised
+// like the bfloat16 route. float32 is held to 2e-5 (max abs and error
+// norm); one TF32 product keeps about 2^-11 of each operand and misses
+// that by far, so every product runs as three: each operand split v = hi +
+// lo, both rounded as cvt.rna.tf32.f32 rounds, and lo*hi + hi*lo + hi*hi
+// summed into float32, the small terms first (tf32.cuh, the conv's
+// arithmetic). The softmax, m, l and lse stay float32; MASK stays -1e30.
+// The design aims at the 3xTF32 bound (0.833 ms at 8 x 2048):
+//   * 3 warpgroups of 128 threads. Warpgroup 0 loads and splits (setmaxnreg
+//     56): one thread issues the TMA loads, Q once and the raw K and V of
+//     each 32-key tile into a 2-stage ring (float32 boxes of 32 values, 128
+//     bytes, with the 128-byte swizzle); the group splits each tile into
+//     K's hi, hi_c and lo tiles at the raw offsets and V^T's, transposed.
+//     Warpgroups 1 and 2 (setmaxnreg 224) consume rows 0..63 and 64..127;
+//     "full" and "empty" mbarriers for K's and V^T's split tiles let the
+//     split of one overlap the products on the other;
+//   * wgmma takes tf32 operands K-major only, A and B (the transpose bits
+//     exist for 16-bit types). S = Q K^T fits K as stored; P V needs V^T,
+//     keys contiguous, which the split pass writes. P's A fragment is S's
+//     accumulator as it stands: a lane holds keys 2t, 2t + 1 of each 8
+//     where the fragment wants columns t, t + 4, so V^T stores each 8 keys
+//     in the order 0, 2, 4, 6, 1, 3, 5, 7 and the P V sum runs over them in
+//     that order;
+//   * each consumer splits its rows of Q once: hi kept in registers as A
+//     fragments (64 a thread), lo written over the raw Q, which the Q lo
+//     pass reads by descriptor. S = Q lo K hi_c + Q hi K lo + Q hi K hi, 16
+//     wgmma m64n32k8 each; O += P lo V^T hi_c + P hi V^T lo + P hi V^T hi,
+//     4 wgmma m64n128k8 each, P split from the accumulator into registers;
+//   * non-finite inputs follow float32, not the split (tf32.cuh): the hi_c
+//     tiles are 0 at K's and V's inf and NaN, and a consumer whose rows of
+//     Q hold one runs the Q hi K lo pass a k-step at a time with those
+//     entries 0 (the group learns it with one barrier reduction, and takes
+//     the branch warp-uniformly: a divergent one serializes the wgmmas);
+//   * shared memory: raw Q 64 KB + ring 2 x 32 KB + K's 3 x 16 KB + V^T's
+//     3 x 16 KB = 224 KB of the 227 KB a block may take: the budget that
+//     set 32-key tiles and Q hi in registers (Q's hi and lo tiles alone
+//     would take 128 KB); one block of 384 threads an SM;
+//   * the output leaves from the accumulators in 8-byte stores, lse once
+//     by the lane that holds its row's full sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "hopper.cuh"   // descriptors, mbarriers, TMA, wgmma, the tensor-map encoder
+#include "hopper.cuh"   // descriptors, mbarriers, TMA, wgmma, the tensor-map encoders
+#include "tf32.cuh"     // the 3xTF32 split and products, the float32 tiles
 
 namespace {
 
 constexpr int D = 128;          // head width
 constexpr int ROWS = 128;       // query rows per block: BQ positions x G heads
-constexpr int BK = 64;          // kv positions per tile
+constexpr int BK = 64;          // keys a tile of the bfloat16 route (float32: TF_BK)
 constexpr float MASK = -1e30f;
-
-// ----------------------------------------------------------- float32 route --
-
-constexpr int THREADS = 256;    // 16 x 16
-constexpr int QS = D + 4;       // row stride (floats) of the staged q and K tiles
-constexpr int PS = BK + 16;     // row stride of the P tile: odd rows 16 banks over
-constexpr int RM = ROWS / 16;   // rows per thread
-constexpr int CN = BK / 16;     // score columns per thread
-constexpr int DN = D / 16;      // output columns per thread
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * ((size_t)ROWS * QS + (size_t)BK * QS + (size_t)BK * D + (size_t)ROWS * PS);
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int Hkv, int G, int BQ,
-                       float scale) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // (ROWS, QS)
-  float* ks = qs + ROWS * QS;                   // (BK, QS)
-  float* vs = ks + BK * QS;                     // (BK, D)
-  float* ps = vs + BK * D;                      // (ROWS, PS)
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;    // the longest rows first
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BQ;
-  const size_t q_row = (size_t)H * D;           // element strides of a position
-  const size_t kv_row = (size_t)Hkv * D;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  float* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  // stage the q tile: row r is position q0 + r / G, head kvh * G + r % G;
-  // the G heads of a position are adjacent in memory, so a tile row of
-  // consecutive r is one contiguous run per position
-#pragma unroll 4
-  for (int c = tid; c < ROWS * D / 4; c += THREADS) {
-    const int r = c / (D / 4), col = (c % (D / 4)) * 4;
-    const int pos = q0 + r / G;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S) x = load4(qb + (size_t)pos * q_row + (r % G) * D + col);
-    *reinterpret_cast<float4*>(qs + r * QS + col) = x;
-  }
-
-  int qpos[RM];
-  float m[RM], l[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    qpos[i] = q0 + (ty + 16 * i) / G;
-    m[i] = MASK;
-    l[i] = 0.f;                                 // this thread's columns only
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-
-  const int q_last = min(q0 + BQ, S) - 1;       // the block's last position
-  const int n_tiles = q_last / BK + 1;          // causal: later tiles are masked
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                            // the last tile is read out
-#pragma unroll 4
-    for (int c = tid; c < BK * D / 4; c += THREADS) {
-      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < S) {
-        const size_t off = (size_t)(k0 + r) * kv_row + col;
-        kx = load4(kb + off);
-        vx = load4(vb + off);
-      }
-      *reinterpret_cast<float4*>(ks + r * QS + col) = kx;
-      *reinterpret_cast<float4*>(vs + r * D + col) = vx;
-    }
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 kf[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        kf[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * QS + kk);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float4 qf = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * QS + kk);
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = dot4(qf, kf[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = MASK;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        s[i][j] = (k0 + tx + 16 * j <= qpos[i]) ? s[i][j] * scale : MASK;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pf[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * PS + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vs + (c + cc) * D + tx * 4);
-        const float4 v1 = *reinterpret_cast<const float4*>(vs + (c + cc) * D + 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float p = cc == 0 ? pf[i].x : cc == 1 ? pf[i].y : cc == 2 ? pf[i].z : pf[i].w;
-          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
-          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
-          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
-          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
-          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const float denom = fmaxf(half_warp_sum(l[i]), 1e-30f);
-    const int r = ty + 16 * i;
-    if (qpos[i] < S) {
-      if (lse != nullptr && tx == 0)            // m is in scaled units here
-        lse[((size_t)b * H + kvh * G + r % G) * S + qpos[i]] = m[i] + logf(denom);
-      float* dst = ob + (size_t)qpos[i] * q_row + (r % G) * D;
-      store4(dst + tx * 4, make_float4(acc[i][0] / denom, acc[i][1] / denom,
-                                       acc[i][2] / denom, acc[i][3] / denom));
-      store4(dst + 64 + tx * 4, make_float4(acc[i][4] / denom, acc[i][5] / denom,
-                                            acc[i][6] / denom, acc[i][7] / denom));
-    }
-  }
-}
-
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int S, int H, int Hkv, float scale, cudaStream_t stream) {
-  const int G = H / Hkv;
-  const int BQ = ROWS / G;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Hkv, G, BQ, scale);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------- bfloat16 route --
-
 constexpr float LOG2E = 1.4426950408889634f;
-
-// two floats as a bf16 pair, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -343,6 +160,345 @@ int log2_of(int g) {
 }
 
 constexpr int WG_THREADS = 128;                    // a warpgroup
+
+// ----------------------------------------------------------- float32 route --
+
+constexpr int TF_THREADS = 384;                    // a splitter + 2 consumer warpgroups
+constexpr int TF_BK = 32;                          // keys a tile
+constexpr int TF_STAGES = 2;                       // the raw K/V ring
+constexpr int TF_PART = TF_BK * 512;               // 32 keys x 128 floats: 16 KB
+// from a 1024-byte aligned base: the raw Q tile (128 rows; Q lo in place
+// once the consumers have split it), the raw ring (each stage K then V),
+// K's split tiles (hi, hi_c, lo), V^T's split tiles (hi, hi_c, lo), then
+// the barriers
+constexpr int TF_Q = 0;
+constexpr int TF_RAW = ROWS * 512;
+constexpr int TF_K = TF_RAW + TF_STAGES * 2 * TF_PART;
+constexpr int TF_V = TF_K + 3 * TF_PART;
+constexpr int TF_BAR = TF_V + 3 * TF_PART;
+constexpr int TF_SMEM = TF_BAR + 8 * (5 + TF_STAGES) + 1024;   // + alignment slack
+
+// The splitter's pass over one tile of V: raw V (32 keys x 128 dims, as TMA
+// lands it) into V^T's hi, hi_c and lo tiles, 128 rows (dims) of 32 keys
+// (128 bytes) with the 128-byte swizzle, K-major for the P V product. In a
+// row, each 8 keys are stored as keys 0, 2, 4, 6, 1, 3, 5, 7: the order in
+// which a lane's S accumulator holds P (columns 2t, 2t + 1 of each 8),
+// taken as an A fragment (columns t, t + 4).
+__device__ __forceinline__ void split_vt(const unsigned char* raw, unsigned char* vt, int pt) {
+  for (int item = pt; item < 128 * 8; item += 128) {
+    const int dim = item & 127, c = item >> 7;     // row dim, 16-byte chunk c
+    const int key = 8 * (c >> 1) + (c & 1);        // keys key, key + 2, + 4, + 6
+    const Split s0 = split(ld_f32(raw + sw_off(TF_BK, key, dim)));
+    const Split s1 = split(ld_f32(raw + sw_off(TF_BK, key + 2, dim)));
+    const Split s2 = split(ld_f32(raw + sw_off(TF_BK, key + 4, dim)));
+    const Split s3 = split(ld_f32(raw + sw_off(TF_BK, key + 6, dim)));
+    unsigned char* dst = vt + dim * 128 + ((c ^ (dim & 7)) << 4);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(s0.big, s1.big, s2.big, s3.big);
+    *reinterpret_cast<uint4*>(dst + TF_PART) = make_uint4(s0.big_c, s1.big_c, s2.big_c, s3.big_c);
+    *reinterpret_cast<uint4*>(dst + 2 * TF_PART) = make_uint4(s0.small, s1.small, s2.small,
+                                                               s3.small);
+  }
+}
+
+// The splitter's pass over one tile of K: raw K into K's hi, hi_c and lo
+// tiles at the raw offsets (K-major as TMA lands it).
+__device__ __forceinline__ void split_k(const unsigned char* raw, unsigned char* ks, int pt) {
+  for (int o = pt * 16; o < TF_PART; o += 128 * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    const Split s0 = split(x.x), s1 = split(x.y), s2 = split(x.z), s3 = split(x.w);
+    *reinterpret_cast<uint4*>(ks + o) = make_uint4(s0.big, s1.big, s2.big, s3.big);
+    *reinterpret_cast<uint4*>(ks + TF_PART + o) = make_uint4(s0.big_c, s1.big_c, s2.big_c,
+                                                             s3.big_c);
+    *reinterpret_cast<uint4*>(ks + 2 * TF_PART + o) = make_uint4(s0.small, s1.small, s2.small,
+                                                                 s3.small);
+  }
+}
+
+// One block per (q tile, KV head, batch row), 3 warpgroups. Warpgroup 0
+// loads and splits: one thread issues the TMA loads (Q once, then raw K
+// and V of each 32-key tile into a 2-stage ring), and the group splits
+// each tile into K's and V^T's hi, hi_c and lo tiles. Warpgroups 1 and 2
+// are the consumers of rows 0..63 and 64..127: each splits its rows of Q
+// once (hi kept in registers as A fragments, lo written over the raw Q),
+// then for each tile S = Q K^T in three wgmma m64n32k8 passes (Q lo K hi_c
+// from shared memory; Q hi K lo, Q hi K hi with Q from registers), the
+// softmax in registers, and O += P V in three wgmma m64n128k8 passes (P lo
+// V hi_c, P hi V lo, P hi V hi, P from registers).
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                           float* __restrict__ lse, int S, int H, int g_shift, float scale) {
+  extern __shared__ __align__(1024) unsigned char f32_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(f32_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
+  unsigned char* smem = f32_raw + (base - raw);
+  const uint32_t bar_q = base + TF_BAR;             // Q landed
+  const uint32_t bar_kf = bar_q + 8;                // K's split tiles written
+  const uint32_t bar_ke = bar_kf + 8;               // both consumers done with them
+  const uint32_t bar_vf = bar_ke + 8;               // V^T's split tiles written
+  const uint32_t bar_ve = bar_vf + 8;               // both consumers done with them
+  const uint32_t bar_raw = bar_ve + 8;              // raw K and V of stage s landed
+
+  // the warpgroup by a shuffle from lane 0, so the compiler sees the role
+  // branches as warp-uniform
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG_THREADS, 0);
+  const int G = 1 << g_shift;
+  const int BQ = ROWS >> g_shift;
+  const int qt = gridDim.x - 1 - blockIdx.x;        // the longest rows first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BQ;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int n_tiles = q_last / TF_BK + 1;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kf, WG_THREADS);
+    mbar_init(bar_ke, 2 * WG_THREADS);
+    mbar_init(bar_vf, WG_THREADS);
+    mbar_init(bar_ve, 2 * WG_THREADS);
+    for (int s = 0; s < TF_STAGES; ++s) mbar_init(bar_raw + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = tid;
+    auto load_kv = [&](int t) {                     // keys past S arrive as zeros
+      const int s = t % TF_STAGES;
+      const uint32_t dst = base + TF_RAW + s * 2 * TF_PART, bar = bar_raw + 8 * s;
+      mbar_expect_tx(bar, 2 * TF_PART);
+      for (int a = 0; a < 4; ++a) {
+        tma_load_4d(dst + a * TF_BK * 128, &tm_k, bar, 32 * a, kvh, t * TF_BK, b);
+        tma_load_4d(dst + TF_PART + a * TF_BK * 128, &tm_v, bar, 32 * a, kvh, t * TF_BK, b);
+      }
+    };
+    if (pt == 0) {
+      // Q: a box of 32 values x G heads x BQ positions is the 128 rows in
+      // order r = position * G + head, 128 bytes a row
+      mbar_expect_tx(bar_q, ROWS * 512);
+      for (int a = 0; a < 4; ++a)
+        tma_load_4d(base + TF_Q + a * ROWS * 128, &tm_q, bar_q, 32 * a, kvh * G, q0, b);
+      for (int t = 0; t < min(n_tiles, TF_STAGES); ++t) load_kv(t);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % TF_STAGES;
+      const unsigned char* kv = smem + TF_RAW + s * 2 * TF_PART;
+      mbar_wait(bar_raw + 8 * s, (uint32_t)((t / TF_STAGES) & 1));
+      if (t > 0) mbar_wait(bar_ke, (uint32_t)((t - 1) & 1));
+      split_k(kv, smem + TF_K, pt);
+      fence_proxy_async();                          // the split tiles are for wgmma
+      mbar_arrive(bar_kf);
+      if (t > 0) mbar_wait(bar_ve, (uint32_t)((t - 1) & 1));
+      split_vt(kv + TF_PART, smem + TF_V, pt);
+      fence_proxy_async();                          // and the raw stage is read out
+      mbar_arrive(bar_vf);
+      named_sync(1, WG_THREADS);
+      if (pt == 0 && t + TF_STAGES < n_tiles) load_kv(t + TF_STAGES);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+
+  const int c = wg - 1;                             // rows 64 c .. 64 c + 63
+  const int warp = (tid / 32) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * c + 16 * warp + g;            // this lane's rows: r0, r0 + 8
+  const int pos0 = q0 + (r0 >> g_shift), pos1 = q0 + ((r0 + 8) >> g_shift);
+  const int wg_first = q0 + ((64 * c) >> g_shift);
+  const int wg_last = q0 + ((64 * c + 63) >> g_shift);
+  const uint32_t q_rows = base + TF_Q + c * 64 * 128;
+
+  // Q's A fragments: hi (Split::big) in registers, lo written over the raw
+  // value, which the Q lo pass reads by descriptor
+  uint32_t qh[D / 8][4];
+  mbar_wait(bar_q, 0);
+  int q_bad = 0;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      unsigned char* at = smem + TF_Q + sw_off(ROWS, r0 + 8 * (e & 1), 8 * kk + t4 + 4 * (e >> 1));
+      const Split sp = split(*reinterpret_cast<const float*>(at));
+      qh[kk][e] = sp.big;
+      q_bad |= sp.big != sp.big_c;
+      *reinterpret_cast<uint32_t*>(at) = sp.small;
+    }
+  }
+  fence_proxy_async();                              // Q lo is for wgmma
+  // any inf or NaN in the group's Q, taken from lane 0 so the compiler sees
+  // the branch on it as warp-uniform (a divergent one serializes the wgmmas)
+  q_bad = __shfl_sync(0xffffffffu, (int)named_sync_or(2 + c, WG_THREADS, q_bad), 0);
+
+  float acc[64], sc[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+  float m[2] = {MASK, MASK}, l[2] = {0.f, 0.f};     // l: this lane's columns only
+  const uint32_t k_hi = base + TF_K, k_hic = k_hi + TF_PART, k_lo = k_hi + 2 * TF_PART;
+  const uint32_t v_hi = base + TF_V, v_hic = v_hi + TF_PART, v_lo = v_hi + 2 * TF_PART;
+  auto kdesc = [](uint32_t tile, int kk) {          // 32 keys, box kk / 4
+    return gmma_desc(tile + (kk >> 2) * TF_BK * 128 + (kk & 3) * 32, 16, 1024);
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * TF_BK;
+    const bool own = key0 <= wg_last;               // some row of the group sees a key here
+    mbar_wait(bar_kf, (uint32_t)(t & 1));
+    if (own) {
+      // S = Q lo K hi_c + Q hi_c K lo + Q hi K hi, the small terms first
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        wgmma_m64n32k8_tf32_ss(
+            sc, gmma_desc(q_rows + (kk >> 2) * ROWS * 128 + (kk & 3) * 32, 16, 1024),
+            kdesc(k_hic, kk), kk > 0);
+      if (q_bad) {                                  // hi_c: 0 at Q's inf and NaN
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          wgmma_wait<0>();                          // a is free again
+          fence_regs(sc);
+          uint32_t a[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = finite_bits(qh[kk][e]) ? qh[kk][e] : 0u;
+          wgmma_fence();
+          wgmma_m64n32k8_tf32_rs(sc, a, kdesc(k_lo, kk));
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_regs(sc);
+        wgmma_fence();
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_lo, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_hi, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+    }
+    mbar_arrive(bar_ke);
+    uint32_t ph[TF_BK / 8][4], pl[TF_BK / 8][4];    // P's A fragments, hi and lo
+    if (own) {
+      // scaled scores, masked past each row's position where the tile
+      // crosses the group's diagonal; a row's max and sum stay in its quad
+      const bool diag = key0 + TF_BK - 1 > wg_first;
+      float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+      for (int j = 0; j < TF_BK / 8; ++j) {
+        const int key = key0 + 8 * j + 2 * t4;
+        sc[4 * j] = !diag || key <= pos0 ? sc[4 * j] * scale : MASK;
+        sc[4 * j + 1] = !diag || key + 1 <= pos0 ? sc[4 * j + 1] * scale : MASK;
+        sc[4 * j + 2] = !diag || key <= pos1 ? sc[4 * j + 2] * scale : MASK;
+        sc[4 * j + 3] = !diag || key + 1 <= pos1 ? sc[4 * j + 3] * scale : MASK;
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float corr0 = expf(m[0] - mx0), corr1 = expf(m[1] - mx1);
+      m[0] = mx0;
+      m[1] = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < TF_BK / 8; ++j) {
+        const float p0 = expf(sc[4 * j] - mx0), p1 = expf(sc[4 * j + 1] - mx0);
+        const float p2 = expf(sc[4 * j + 2] - mx1), p3 = expf(sc[4 * j + 3] - mx1);
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        // the A fragment: (row g, column t) = key 2t, (g + 8, t), (g, t + 4)
+        // = key 2t + 1, (g + 8, t + 4)
+        const Split s0 = split(p0), s1 = split(p2), s2 = split(p1), s3 = split(p3);
+        ph[j][0] = s0.big; ph[j][1] = s1.big; ph[j][2] = s2.big; ph[j][3] = s3.big;
+        pl[j][0] = s0.small; pl[j][1] = s1.small; pl[j][2] = s2.small; pl[j][3] = s3.small;
+      }
+      l[0] = l[0] * corr0 + sum0;
+      l[1] = l[1] * corr1 + sum1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= corr0;
+        acc[4 * n + 1] *= corr0;
+        acc[4 * n + 2] *= corr1;
+        acc[4 * n + 3] *= corr1;
+      }
+    }
+    mbar_wait(bar_vf, (uint32_t)(t & 1));
+    if (own) {
+      // O += P lo V hi_c + P hi V lo + P hi V hi (P is finite, or NaN where
+      // the row already is)
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < TF_BK / 8; ++i)
+        wgmma_m64n128k8_tf32_rs(acc, pl[i], gmma_desc(v_hic + i * 32, 16, 1024));
+#pragma unroll
+      for (int i = 0; i < TF_BK / 8; ++i)
+        wgmma_m64n128k8_tf32_rs(acc, ph[i], gmma_desc(v_lo + i * 32, 16, 1024));
+#pragma unroll
+      for (int i = 0; i < TF_BK / 8; ++i)
+        wgmma_m64n128k8_tf32_rs(acc, ph[i], gmma_desc(v_hi + i * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    mbar_arrive(bar_ve);
+  }
+
+  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  if (lse != nullptr && t4 == 0) {                  // m is in scaled units here
+    const size_t lrow = ((size_t)b * H + (size_t)kvh * G) * S;
+    if (pos0 < S) lse[lrow + (size_t)(r0 & (G - 1)) * S + pos0] = m[0] + logf(l0);
+    if (pos1 < S) lse[lrow + (size_t)((r0 + 8) & (G - 1)) * S + pos1] = m[1] + logf(l1);
+  }
+  const size_t q_row = (size_t)H * D;
+  float* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * D + 2 * t4;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (pos0 < S)
+      *reinterpret_cast<float2*>(ob + (size_t)pos0 * q_row + (r0 & (G - 1)) * D + 8 * n) =
+          make_float2(acc[4 * n] / l0, acc[4 * n + 1] / l0);
+    if (pos1 < S)
+      *reinterpret_cast<float2*>(ob + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * D + 8 * n) =
+          make_float2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  const cudaError_t ctx = make_context_current();
+  if (ctx != cudaSuccess) return ctx;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int G = H / Hkv, g_shift = log2_of(G);
+  const int BQ = ROWS >> g_shift;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map_f32(encode, &tq, q, B, S, H, G, BQ) ||
+      !encode_map_f32(encode, &tk, k, B, S, Hkv, 1, TF_BK) ||
+      !encode_map_f32(encode, &tv, v, B, S, Hkv, 1, TF_BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
+  flash_attention_f32_kernel<<<grid, TF_THREADS, TF_SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), lse, S, H, g_shift, scale);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------- bfloat16 route --
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 constexpr int WS_THREADS = 3 * WG_THREADS;         // producer + 2 consumer warpgroups
 constexpr int WS_STAGES = 2;                       // the K/V ring
 constexpr int HALF_Q = ROWS * 128;                 // 64 dims of the 128 q rows: 16 KB
@@ -593,6 +749,8 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  const cudaError_t ctx = make_context_current();
+  if (ctx != cudaSuccess) return ctx;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int G = H / Hkv, g_shift = log2_of(G);
@@ -614,7 +772,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 
 }  // namespace
 
-// dtype 0: float32 (CUDA cores), 1: bfloat16 (tensor cores). lse is null,
+// dtype 0: float32 (3xTF32 wgmma), 1: bfloat16 (wgmma), both on the tensor
+// cores. lse is null,
 // or (B, H, S) float32 for each row's log-sum-exp. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue, without
 // launching, for a shape it does not take).
@@ -631,7 +790,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
 }
 
 // What a dtype's route is and what it holds on the card, for the logs:
-// info[0] the design stage (0: CUDA-core products, 2: wgmma + TMA), [1]
+// info[0] the design stage (2: wgmma + TMA, 4: 3xTF32 wgmma + TMA), [1]
 // registers and [2] local (spill) bytes a thread, [3] static and [4]
 // dynamic shared memory bytes a block, [5] blocks resident on an SM, [6]
 // threads a block. Returns a cudaError_t.
@@ -639,10 +798,10 @@ extern "C" int flash_attention_route_info(int dtype, int* info) {
   const void* fn;
   int threads, smem, stage;
   if (dtype == 0) {
-    fn = (const void*)flash_attention_kernel;
-    threads = THREADS;
-    smem = (int)SMEM_BYTES;
-    stage = 0;
+    fn = (const void*)flash_attention_f32_kernel;
+    threads = TF_THREADS;
+    smem = TF_SMEM;
+    stage = 4;
   } else if (dtype == 1) {
     fn = (const void*)flash_attention_bf16_wgmma_kernel;
     threads = WS_THREADS;

@@ -25,11 +25,12 @@
 //   bytes      itemsize * B * S * d * (4H + 4Hkv) + 4 * B * H * S
 //              (q, o, do, dq; k, v, dk, dv; lse once each)
 // At qwen3-0.6b's training shape B=4, S=2048 (H=16, Hkv=8, d=128): 1.375e11
-// operations, 0.139 ms at 989 TFLOP/s in bfloat16 (2.05 ms at 67 TFLOP/s
-// in float32), against 0.03 ms for the bytes: bound by operations. The
-// recompute of S (in both kernels) and of dp (in the dq kernel) are three
-// more products a pair, overhead above that bound: 7 products where the
-// bound counts 4.
+// operations, 0.139 ms at 989 TFLOP/s in bfloat16; in float32 2.05 ms at
+// 67 TFLOP/s on the CUDA cores and 0.833 ms in 3xTF32 on the tensor cores
+// (three TF32 products at 495 TFLOP/s); against 0.060 ms (bfloat16) or
+// 0.120 ms (float32) for the bytes: bound by operations. The recompute of
+// S (in both kernels) and of dp (in the dq kernel) are three more products
+// a pair, overhead above that bound: 7 products where the bound counts 4.
 //
 // Design: FlashAttention-2's backward without atomics, so the gradients are
 // the same from run to run (a single pass that accumulates dq by float32
@@ -38,15 +39,17 @@
 // row R = position * G + head (the heads of a position are adjacent in
 // memory), so one K/V tile serves all G heads and dk, dv sum over them
 // inside one block. Three kernels on the caller's stream:
-//   (a) delta = rowsum(do * o) in float32, a warp a row, into the caller's
-//       scratch;
-//   (b) dk/dv: one block per (key tile, KV head, batch row); it loops over
-//       the q tiles of 64 rows at or after its first key, recomputes
-//       P^T = exp(scale K Q^T - lse) and dP^T = V dO^T, and accumulates
-//       dV += P^T dO and dK += dS^T Q in registers;
+//   (a) the statistics: each row's (lse, delta = rowsum(do * o)) in
+//       float32, a warp a row, into the caller's scratch in block-row order
+//       (for each batch row and KV head, rows R in order, padded with
+//       zeros to a multiple of 128), so a tile's statistics are contiguous;
+//   (b) dk/dv: one block per (key block, KV head, batch row); it loops over
+//       the q tiles (64 rows; float32 32) at or after its first key,
+//       recomputes P^T = exp(scale K Q^T - lse) and dP^T = V dO^T, and
+//       accumulates dV += P^T dO and dK += dS^T Q in registers;
 //   (c) dq: one block per (q tile, KV head, batch row); it loops over the
-//       64-key tiles up to its last position, recomputes P and dP, and
-//       accumulates dQ += dS K in registers.
+//       key tiles (64 keys; float32 32) up to its last position, recomputes
+//       P and dP, and accumulates dQ += dS K in registers.
 // Keys and rows past S arrive as zeros and are masked or contribute zero,
 // so any S >= 1 works.
 //
@@ -104,13 +107,58 @@
 // 64 KB + 2 x 32 KB = 128 KB (plus barriers and alignment slack); one block
 // of 384 threads an SM.
 //
-// float32 route, the checks only: the CUDA cores (float32 FMAs), because
-// float32 is held to 1e-4, which the tensor cores' TF32 cannot meet: 256
-// threads as 16 x 16, 64-key and 64-row tiles staged in shared memory as
-// float32 (rows padded to 132 floats), a thread holding a 4 x 4 block of a
-// score tile and 4 rows x 8 columns of its accumulators; dk/dv 170,496 B,
-// dq 153,088 B of shared memory, one block of 256 threads an SM; delta in
-// (B, H, S) order.
+// float32 route, the training path's float32 checks: 3xTF32 on the tensor
+// cores. float32 is held to (1e-4, 1e-4, 2e-5) (rtol, atol, error norm);
+// one TF32 product keeps about 2^-11 of each operand and misses that, so
+// every product runs as three: each operand split v = hi + lo, both rounded
+// as cvt.rna.tf32.f32 rounds, lo*hi + hi*lo + hi*hi summed into float32,
+// the small terms first (tf32.cuh). lse, delta, P and dS stay float32. The
+// design aims at the 3xTF32 bound (0.833 ms at 4 x 2048) with mma.sync, not
+// wgmma, because wgmma's operands do not fit: it takes tf32 only K-major
+// and B only from shared memory, so a dq tile of 32 keys needs K, V (for S
+// and dP) and K^T (for dS K) as hi, hi_c and lo tiles, 9 x 16 KB = 144 KB,
+// beside Q and dO as A operands, whose hi parts in registers take 128 of a
+// consumer thread's registers beside dQ's 64 (as hi and lo tiles in shared
+// memory, 128 KB for 64 rows): over the 227 KB a block may take, or the
+// 255 registers a thread. dk/dv needs the same four ways round. With
+// mma.sync both operands come from registers, so one hi and lo tile of a
+// raw operand serves either orientation:
+//   * 8 warps of 16 rows (dq) or 16 keys (dk/dv). Thread 0 issues every
+//     load by TMA (float32 boxes of 32 values, 128 bytes, the 128-byte
+//     swizzle): the block's own rows (Q and dO, dq) or keys (K and V,
+//     dk/dv) once, then the streamed tiles of 32 keys or 32 rows, the next
+//     while the block works on this one. The block splits each streamed
+//     tile into hi and lo tiles at the raw offsets (tf32.cuh split_tiles);
+//     a fragment is read from them with 4-byte loads at swizzled offsets,
+//     which meet 32 distinct banks read either way round, so no operand is
+//     stored twice. The block's own operand, the A of S = Q K^T, dP, S^T
+//     and dP^T, is split in registers as its fragment is loaded;
+//   * P's and dS's A fragments are their accumulators as they stand: a
+//     lane holds columns 2t, 2t + 1 of each 8 where the fragment wants t,
+//     t + 4, so the B fragment of dS K, P^T dO and dS^T Q reads rows 2t and
+//     2t + 1 and the sum runs over each 8 in that order;
+//   * dk/dv's warps come in pairs on 16 keys: the first computes S^T, P^T
+//     and dV, the second dP^T, dS^T (taking P^T from the first through 2 KB
+//     of shared memory) and dK, so each holds one 16 x 128 accumulator; a
+//     warp holding both spilled. A block takes 64 keys;
+//   * the tensor cores truncate as they accumulate, an error that grows
+//     with the chain of accumulations (past the float32 gate for the
+//     32,896 rows a key sees at H=128, Hkv=1, S=257). So each
+//     accumulator's sum moves into the output in float32 after at most 16
+//     tiles (TF_CHAIN) and starts again from 0, the lane adding to what it
+//     wrote, in a fixed order: two calls stay bit-equal;
+//   * non-finite inputs follow float32 (tf32.cuh): a tile's split pass
+//     reports any inf or NaN to the block, which then reads the cross
+//     pass's hi as 0 there. A block checks its own operand and statistics
+//     once; where they and the tile are finite, P and dS are too, and every
+//     A operand is split without the non-finite selects (split_finite:
+//     8.49 -> 7.76 ms at 4 x 2048 on an H100 SXM);
+//   * shared memory: dq: Q and dO 128 KB + raw K and V 32 KB + split tile
+//     64 KB = 224 KB; dk/dv: K and V 64 KB + raw Q and dO 32 KB + split tile
+//     64 KB + P^T 8 KB = 168 KB; one block of 256 threads an SM;
+//   * each launcher first makes the device's primary context current on its
+//     thread (hopper.cuh): cuTensorMapEncodeTiled fails on a thread with
+//     none, and autograd runs the backward on a thread of its own.
 
 #include <atomic>
 
@@ -119,19 +167,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "hopper.cuh"   // descriptors, mbarriers, TMA, wgmma, the tensor-map encoder
+#include "hopper.cuh"   // descriptors, mbarriers, TMA, wgmma, the tensor-map encoders
+#include "tf32.cuh"     // the 3xTF32 split and products, the float32 tiles
 
 namespace {
 
 constexpr int D = 128;          // head width
-constexpr int BR = 64;          // rows (position x head) a q tile
-constexpr int BK = 64;          // keys a kv tile
-constexpr int THREADS = 256;    // 16 x 16
-constexpr int QS = D + 4;       // row stride (floats) of a staged (64, 128) tile
-constexpr int PS = 64 + 4;      // row stride of a staged (64, 64) tile
-constexpr size_t TILE = (size_t)64 * QS;
-constexpr size_t SMEM_DKDV = sizeof(float) * (4 * TILE + 2 * (size_t)64 * PS + 2 * 64);
-constexpr size_t SMEM_DQ = sizeof(float) * (4 * TILE + (size_t)64 * PS + 2 * 64);
+constexpr int BR = 64;          // rows (position x head) a q tile of the bfloat16 route
+constexpr int BK = 64;          // keys a kv tile of the bfloat16 route
+constexpr int THREADS = 256;    // the statistics kernel: 8 warps, a warp a row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MASK = -1e30f;
+constexpr int STAT_ROWS = 128;                     // the statistics' rows are padded to this
 
 __device__ __forceinline__ float4 load4f(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -142,9 +189,6 @@ __device__ __forceinline__ float4 load4f(const __nv_bfloat16* p) {
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4f(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -161,346 +205,472 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stages 64 rows of 128 values into dst (row stride QS) as float32: row i is
-// global row R = r0 + i of the (position, head) rows of one KV head when
-// heads > 1 (q, do), or position r0 + i when heads == 1 (k, v); rows past
-// n_rows are zeros. base points at (b, position 0, first head of the group);
-// a position is pos_stride elements.
-__device__ __forceinline__ void stage_rows(float* dst, const float* base, int r0, int n_rows,
-                                           int g_shift, size_t pos_stride) {
-  const int G = 1 << g_shift;
-#pragma unroll 4
-  for (int c = threadIdx.x; c < 64 * D / 4; c += THREADS) {
-    const int i = c / (D / 4), col = (c % (D / 4)) * 4;
-    const int R = r0 + i;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (R < n_rows) x = load4f(base + (size_t)(R >> g_shift) * pos_stride + (R & (G - 1)) * D + col);
-    store4f(dst + i * QS + col, x);
-  }
-}
-
-// lse and delta of 64 rows starting at global row r0 (0 past n_rows)
-__device__ __forceinline__ void stage_row_stats(float* lse_s, float* delta_s, const float* lse,
-                                                const float* delta, int b, int kvh, int H, int S,
-                                                int r0, int n_rows, int g_shift) {
-  const int i = threadIdx.x;
-  if (i < 64) {
-    const int R = r0 + i;
-    float l = 0.f, dl = 0.f;
-    if (R < n_rows) {
-      const int G = 1 << g_shift;
-      const size_t idx = ((size_t)b * H + kvh * G + (R & (G - 1))) * S + (R >> g_shift);
-      l = lse[idx];
-      dl = delta[idx];
-    }
-    lse_s[i] = l;
-    delta_s[i] = dl;
-  }
-}
-
-// (a) float32: delta[b, h, s] = sum_c do[b, s, h, c] * o[b, s, h, c], a warp a row
+// (a) for each (batch row b, KV head) the rows R = position * G + head in
+// order, NR of them (S * G padded to STAT_ROWS): (lse * lse_mul,
+// rowsum(do * o)) in float32, zeros past S * G; a warp a row. lse_mul is
+// log2 e for the bfloat16 route (exp2), 1 for float32 (exp).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                       float* __restrict__ delta, int B, int S, int H) {
+flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       const float* __restrict__ lse, float2* __restrict__ stats, int S, int H,
+                       int Hkv, int g_shift, int NR, size_t n_rows, float lse_mul) {
   const size_t row = (size_t)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
-  if (row >= (size_t)B * S * H) return;
-  const float x = warp_sum(dot4(load4f(o + row * D + lane * 4),
-                                load4f(dout + row * D + lane * 4), 0.f));
-  if (lane == 0) {                    // row = (b * S + s) * H + h
-    const int h = (int)(row % H);
-    const size_t bs = row / H;
-    const int s = (int)(bs % S);
-    const size_t b = bs / S;
-    delta[(b * H + h) * S + s] = x;
+  if (row >= n_rows) return;
+  const int R = (int)(row % NR);
+  const size_t bk = row / NR;
+  const int kvh = (int)(bk % Hkv);
+  const size_t b = bk / Hkv;
+  float2 st = make_float2(0.f, 0.f);
+  if (R < (S << g_shift)) {
+    const int pos = R >> g_shift, h = (kvh << g_shift) + (R & ((1 << g_shift) - 1));
+    const size_t src = ((b * S + pos) * H + h) * D + lane * 4;
+    st.y = warp_sum(dot4(load4f(o + src), load4f(dout + src), 0.f));
+    if (lane == 0) st.x = lse[(b * H + h) * S + pos] * lse_mul;
   }
+  if (lane == 0) stats[row] = st;
 }
 
 // ----------------------------------------------------------- float32 route --
 
-// (b) dk, dv of one 64-key tile of one KV head: loops over the q tiles
-// whose rows reach its keys
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      const float* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                      int S, int H, int Hkv, int g_shift, float scale) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);   // (64 keys, QS)
-  float* vs = ks + TILE;
-  float* qs = vs + TILE;                         // (64 rows, QS)
-  float* dos = qs + TILE;
-  float* pts = dos + TILE;                       // P^T (64 keys, PS)
-  float* dsts = pts + 64 * PS;                   // dS^T (64 keys, PS)
-  float* lse_s = dsts + 64 * PS;
-  float* delta_s = lse_s + 64;
+constexpr int TF_THREADS = 256;                    // 8 warps of 16 rows (dq) or keys (dk/dv)
+constexpr int TF_TILE = 32;                        // keys (dq) or rows (dk/dv) a streamed tile
+constexpr int TF_PART = TF_TILE * 512;             // a raw float32 tile of 32 rows: 16 KB
+constexpr int TF_STATS = TF_TILE * 8;              // (lse, delta) of 32 rows
+// tiles an accumulator chain runs before its sum moves into the output in
+// float32: the tensor cores truncate each accumulation, and that error
+// grows with the chain, so no chain spans more than 16 tiles (512 rows or
+// keys)
+constexpr int TF_CHAIN = 16;
+// dq: from a 1024-byte aligned base: the raw Q and dO of the block's 128
+// rows, the raw K and V of one 32-key tile, the split tile (K hi, K lo, V
+// hi, V lo), the barriers
+constexpr int QF_ROWS = 128;
+constexpr int QF_Q = 0;
+constexpr int QF_DO = QF_ROWS * 512;
+constexpr int QF_RAW = 2 * QF_ROWS * 512;
+constexpr int QF_SPLIT = QF_RAW + 2 * TF_PART;
+constexpr int QF_BAR = QF_SPLIT + 4 * TF_PART;
+constexpr int QF_SMEM = QF_BAR + 16 + 1024;        // + alignment slack
+// dk/dv: the raw K and V of the block's 64 keys, the raw Q and dO of one
+// 32-row tile, the split tile (Q hi, Q lo, dO hi, dO lo), the P^T that each
+// pair of warps passes between its two, the raw statistics of the tile, the
+// statistics in use, the barriers
+constexpr int KF_KEYS = 64;
+constexpr int KF_K = 0;
+constexpr int KF_V = KF_KEYS * 512;
+constexpr int KF_RAW = 2 * KF_KEYS * 512;
+constexpr int KF_SPLIT = KF_RAW + 2 * TF_PART;
+constexpr int KF_XCH = KF_SPLIT + 4 * TF_PART;     // 4 pairs x 16 values x 32 lanes
+constexpr int KF_RAW_STATS = KF_XCH + 4 * 16 * 32 * 4;
+constexpr int KF_STATS = KF_RAW_STATS + TF_STATS;
+constexpr int KF_BAR = KF_STATS + TF_STATS;
+constexpr int KF_SMEM = KF_BAR + 16 + 1024;        // + alignment slack
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = 1 << g_shift;
-  const int k0 = kt * BK;
-  const int n_rows = S * G;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  const float* dob = dout + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  stage_rows(ks, kb, k0, S, 0, kv_row);
-  stage_rows(vs, vb, k0, S, 0, kv_row);
-
-  float dk_acc[4][8], dv_acc[4][8];
+// Moves a lane's share of one row of a 16-row x 128 accumulator (its
+// columns 8 n + 2 t, + 1: values e, e + 1 of each acc[n]) into the output
+// row dst (null where the row is not stored) in float32 and zeroes it: the
+// first move writes, later ones add to what the lane wrote. The 16 loads
+// are issued before any add, so a move waits on memory once.
+__device__ __forceinline__ void flush_row(float (&acc)[D / 8][4], int e, float* dst, bool first) {
+  if (dst != nullptr) {
+    float2 x[D / 8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+    for (int n = 0; n < D / 8; ++n)
+      x[n] = first ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(dst + 8 * n);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(x[n].x + acc[n][e],
+                                                            x[n].y + acc[n][e + 1]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][e] = acc[n][e + 1] = 0.f;
+}
 
-  // rows at positions >= k0 see some key of the tile: the first such tile
-  const int t_first = (k0 * G) / BR;
-  const int n_tiles = (n_rows + BR - 1) / BR;
-  for (int t = t_first; t < n_tiles; ++t) {
-    const int r0 = t * BR;
-    __syncthreads();                             // the last tile is read out
-    stage_rows(qs, qb, r0, n_rows, g_shift, q_row);
-    stage_rows(dos, dob, r0, n_rows, g_shift, q_row);
-    stage_row_stats(lse_s, delta_s, lse, delta, b, kvh, H, S, r0, n_rows, g_shift);
-    __syncthreads();
+// Both rows of a lane's share (acc values 0, 1: row g; 2, 3: row g + 8).
+__device__ __forceinline__ void flush_rows(float (&acc)[D / 8][4], float* dst0, float* dst1,
+                                           bool first) {
+  flush_row(acc, 0, dst0, first);
+  flush_row(acc, 2, dst1, first);
+}
 
-    // S^T (key j, row i) and dP^T for j = ty + 16 a, i = tx + 16 c
-    float s[4][4], dp[4][4];
+// The products of one 32-key tile for a warp's 16 rows of dq: S = Q K^T
+// and dP = dO V^T (A: Q and dO split here, B: K's and V's split tiles),
+// P = exp(s scale - lse) (0 past the row's position), dS = P (dP - delta)
+// scale, then dQ += dS K. dS's A fragment is its accumulator as it stands,
+// keys 2t, 2t + 1 of each 8 where the fragment wants columns t, t + 4; so
+// the dS K sum runs over the keys in that order and K's B fragment reads
+// keys 2t and 2t + 1.
+template <bool NF>
+__device__ __forceinline__ void dq_tile(const unsigned char* qs, const unsigned char* dos,
+                                        const unsigned char* kv, float (&acc)[D / 8][4], int r0,
+                                        int g, int t4, int key0, bool diag, int pos0, int pos1,
+                                        float2 st0, float2 st1, float scale) {
+  const unsigned char* khi = kv;
+  const unsigned char* klo = kv + TF_PART;
+  const unsigned char* vhi = kv + 2 * TF_PART;
+  const unsigned char* vlo = kv + 3 * TF_PART;
+  float sc[TF_TILE / 8][4], dp[TF_TILE / 8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int j = 0; j < TF_TILE / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+    for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll 2
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 kf[4], vf[4];
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = 8 * kk + t4;
+    const Split a[4] = {split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0, c))),
+                        split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0 + 8, c))),
+                        split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0, c + 4))),
+                        split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0 + 8, c + 4)))};
+    const Split e[4] = {split_as<NF>(ld_f32(dos + sw_off(QF_ROWS, r0, c))),
+                        split_as<NF>(ld_f32(dos + sw_off(QF_ROWS, r0 + 8, c))),
+                        split_as<NF>(ld_f32(dos + sw_off(QF_ROWS, r0, c + 4))),
+                        split_as<NF>(ld_f32(dos + sw_off(QF_ROWS, r0 + 8, c + 4)))};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        kf[a] = load4f(ks + (ty + 16 * a) * QS + kk);
-        vf[a] = load4f(vs + (ty + 16 * a) * QS + kk);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 qf = load4f(qs + (tx + 16 * c) * QS + kk);
-        const float4 gf = load4f(dos + (tx + 16 * c) * QS + kk);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          s[a][c] = dot4(kf[a], qf, s[a][c]);
-          dp[a][c] = dot4(vf[a], gf, dp[a][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = tx + 16 * c, R = r0 + i;
-      const int pos = R >> g_shift;
-      const bool row_ok = R < n_rows;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int j = ty + 16 * a, key = k0 + j;
-        float p = 0.f;
-        if (row_ok && key < S && key <= pos) p = expf(s[a][c] * scale - lse_s[i]);
-        const float ds = p * (dp[a][c] - delta_s[i]) * scale;
-        pts[j * PS + i] = p;
-        dsts[j * PS + i] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dV (key j, col) += sum_i P^T[j][i] dO[i][col]; dK += dS^T[j][i] Q[i][col]
-    // for j = ty + 16 a and col = 4 tx .. 4 tx + 3, 64 + 4 tx .. 64 + 4 tx + 3
-#pragma unroll 2
-    for (int i = 0; i < BR; i += 4) {
-      float4 pf[4], df[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pf[a] = load4f(pts + (ty + 16 * a) * PS + i);
-        df[a] = load4f(dsts + (ty + 16 * a) * PS + i);
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float4 g0 = load4f(dos + (i + ii) * QS + 4 * tx);
-        const float4 g1 = load4f(dos + (i + ii) * QS + 64 + 4 * tx);
-        const float4 q0v = load4f(qs + (i + ii) * QS + 4 * tx);
-        const float4 q1v = load4f(qs + (i + ii) * QS + 64 + 4 * tx);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = ii == 0 ? pf[a].x : ii == 1 ? pf[a].y : ii == 2 ? pf[a].z : pf[a].w;
-          const float d = ii == 0 ? df[a].x : ii == 1 ? df[a].y : ii == 2 ? df[a].z : df[a].w;
-          dv_acc[a][0] = fmaf(p, g0.x, dv_acc[a][0]);
-          dv_acc[a][1] = fmaf(p, g0.y, dv_acc[a][1]);
-          dv_acc[a][2] = fmaf(p, g0.z, dv_acc[a][2]);
-          dv_acc[a][3] = fmaf(p, g0.w, dv_acc[a][3]);
-          dv_acc[a][4] = fmaf(p, g1.x, dv_acc[a][4]);
-          dv_acc[a][5] = fmaf(p, g1.y, dv_acc[a][5]);
-          dv_acc[a][6] = fmaf(p, g1.z, dv_acc[a][6]);
-          dv_acc[a][7] = fmaf(p, g1.w, dv_acc[a][7]);
-          dk_acc[a][0] = fmaf(d, q0v.x, dk_acc[a][0]);
-          dk_acc[a][1] = fmaf(d, q0v.y, dk_acc[a][1]);
-          dk_acc[a][2] = fmaf(d, q0v.z, dk_acc[a][2]);
-          dk_acc[a][3] = fmaf(d, q0v.w, dk_acc[a][3]);
-          dk_acc[a][4] = fmaf(d, q1v.x, dk_acc[a][4]);
-          dk_acc[a][5] = fmaf(d, q1v.y, dk_acc[a][5]);
-          dk_acc[a][6] = fmaf(d, q1v.z, dk_acc[a][6]);
-          dk_acc[a][7] = fmaf(d, q1v.w, dk_acc[a][7]);
-        }
-      }
+    for (int j = 0; j < TF_TILE / 8; ++j) {
+      const uint32_t o0 = sw_off(TF_TILE, 8 * j + g, c), o1 = sw_off(TF_TILE, 8 * j + g, c + 4);
+      mma3<NF>(sc[j], a, ld_u32(khi + o0), ld_u32(khi + o1), ld_u32(klo + o0), ld_u32(klo + o1));
+      mma3<NF>(dp[j], e, ld_u32(vhi + o0), ld_u32(vhi + o1), ld_u32(vlo + o0), ld_u32(vlo + o1));
     }
   }
-
-  float* dkb = dk + (size_t)b * S * kv_row + (size_t)kvh * D;
-  float* dvb = dv + (size_t)b * S * kv_row + (size_t)kvh * D;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty + 16 * a;
-    if (key < S) {
-      const size_t off = (size_t)key * kv_row;
-      store4f(dkb + off + 4 * tx, make_float4(dk_acc[a][0], dk_acc[a][1], dk_acc[a][2], dk_acc[a][3]));
-      store4f(dkb + off + 64 + 4 * tx,
-              make_float4(dk_acc[a][4], dk_acc[a][5], dk_acc[a][6], dk_acc[a][7]));
-      store4f(dvb + off + 4 * tx, make_float4(dv_acc[a][0], dv_acc[a][1], dv_acc[a][2], dv_acc[a][3]));
-      store4f(dvb + off + 64 + 4 * tx,
-              make_float4(dv_acc[a][4], dv_acc[a][5], dv_acc[a][6], dv_acc[a][7]));
+  for (int j = 0; j < TF_TILE / 8; ++j) {
+    const int key = key0 + 8 * j + 2 * t4;
+    const float p0 = !diag || key <= pos0 ? expf(sc[j][0] * scale - st0.x) : 0.f;
+    const float p1 = !diag || key + 1 <= pos0 ? expf(sc[j][1] * scale - st0.x) : 0.f;
+    const float p2 = !diag || key <= pos1 ? expf(sc[j][2] * scale - st1.x) : 0.f;
+    const float p3 = !diag || key + 1 <= pos1 ? expf(sc[j][3] * scale - st1.x) : 0.f;
+    dp[j][0] = p0 * (dp[j][0] - st0.y) * scale;
+    dp[j][1] = p1 * (dp[j][1] - st0.y) * scale;
+    dp[j][2] = p2 * (dp[j][2] - st1.y) * scale;
+    dp[j][3] = p3 * (dp[j][3] - st1.y) * scale;
+  }
+#pragma unroll
+  for (int i = 0; i < TF_TILE / 8; ++i) {
+    const Split d[4] = {split_as<NF>(dp[i][0]), split_as<NF>(dp[i][2]), split_as<NF>(dp[i][1]), split_as<NF>(dp[i][3])};
+    const int key = 8 * i + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t o0 = sw_off(TF_TILE, key, 8 * n + g), o1 = sw_off(TF_TILE, key + 1, 8 * n + g);
+      mma3<NF>(acc[n], d, ld_u32(khi + o0), ld_u32(khi + o1), ld_u32(klo + o0), ld_u32(klo + o1));
     }
   }
 }
 
-// (c) dq of one 64-row q tile of one KV head: loops over the key tiles up
-// to its last position
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int S, int H, int Hkv,
-                    int g_shift, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // (64 rows, QS)
-  float* dos = qs + TILE;
-  float* ks = dos + TILE;                        // (64 keys, QS)
-  float* vs = ks + TILE;
-  float* dss = vs + TILE;                        // dS (64 rows, PS)
-  float* lse_s = dss + 64 * PS;
-  float* delta_s = lse_s + 64;
+// (c) dq of 128 rows (BQ = 128 / G positions x G heads) of one KV head, 8
+// warps of 16 rows: thread 0 loads Q and dO once, then the raw K and V of
+// each 32-key tile up to the block's last position, the next while the
+// block works on this one; the block splits each into the split tile, then
+// each warp with a visible key in the tile runs dq_tile.
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const float2* __restrict__ stats,
+                        float* __restrict__ dq, int S, int H, int Hkv, int g_shift, int NR,
+                        float scale) {
+  extern __shared__ __align__(1024) unsigned char f32_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(f32_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
+  unsigned char* smem = f32_raw + (base - raw);
+  const uint32_t bar_q = base + QF_BAR;              // Q and dO landed
+  const uint32_t bar_kv = bar_q + 8;                 // K and V of the tile landed
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int t = gridDim.x - 1 - blockIdx.x;      // the longest rows first
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int G = 1 << g_shift;
-  const int n_rows = S * G;
-  const int r0 = t * BR;
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
-  const float* qb = q + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  const float* dob = dout + (size_t)b * S * q_row + (size_t)kvh * G * D;
-  const float* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
+  const int BQ = QF_ROWS >> g_shift;
+  const int qt = gridDim.x - 1 - blockIdx.x;         // the longest rows first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BQ;
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int n_tiles = q_last / TF_TILE + 1;
 
-  stage_rows(qs, qb, r0, n_rows, g_shift, q_row);
-  stage_rows(dos, dob, r0, n_rows, g_shift, q_row);
-  stage_row_stats(lse_s, delta_s, lse, delta, b, kvh, H, S, r0, n_rows, g_shift);
-
-  float dq_acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dq_acc[a][c] = 0.f;
-
-  const int last_pos = min(r0 + BR - 1, n_rows - 1) >> g_shift;
-  const int n_kt = last_pos / BK + 1;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                             // the last tile is read out
-    stage_rows(ks, kb, k0, S, 0, kv_row);
-    stage_rows(vs, vb, k0, S, 0, kv_row);
-    __syncthreads();
-
-    // S (row i, key j) and dP for i = ty + 16 a, j = tx + 16 c
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 4) {
-      float4 qf[4], gf[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qf[a] = load4f(qs + (ty + 16 * a) * QS + kk);
-        gf[a] = load4f(dos + (ty + 16 * a) * QS + kk);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 kf = load4f(ks + (tx + 16 * c) * QS + kk);
-        const float4 vf = load4f(vs + (tx + 16 * c) * QS + kk);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          s[a][c] = dot4(qf[a], kf, s[a][c]);
-          dp[a][c] = dot4(gf[a], vf, dp[a][c]);
-        }
-      }
-    }
-#pragma unroll
+  auto load_kv = [&](int t) {                        // keys past S arrive as zeros
+    mbar_expect_tx(bar_kv, 2 * TF_PART);
     for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a, R = r0 + i;
-      const int pos = R >> g_shift;
-      const bool row_ok = R < n_rows;
+      tma_load_4d(base + QF_RAW + a * TF_TILE * 128, &tm_k, bar_kv, 32 * a, kvh, t * TF_TILE, b);
+      tma_load_4d(base + QF_RAW + TF_PART + a * TF_TILE * 128, &tm_v, bar_kv, 32 * a, kvh,
+                  t * TF_TILE, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // Q, dO: a box of 32 values x G heads x BQ positions is the 128 rows in
+    // order r = position * G + head, 128 bytes a row
+    mbar_expect_tx(bar_q, 2 * QF_ROWS * 512);
+    for (int a = 0; a < 4; ++a) {
+      tma_load_4d(base + QF_Q + a * QF_ROWS * 128, &tm_q, bar_q, 32 * a, kvh * G, q0, b);
+      tma_load_4d(base + QF_DO + a * QF_ROWS * 128, &tm_do, bar_q, 32 * a, kvh * G, q0, b);
+    }
+    load_kv(0);
+  }
+  __syncthreads();
+
+  const int r0 = 16 * warp + g;                      // this lane's rows: r0, r0 + 8
+  const int pos0 = q0 + (r0 >> g_shift), pos1 = q0 + ((r0 + 8) >> g_shift);
+  const int w_first = q0 + ((16 * warp) >> g_shift);
+  const int w_last = q0 + ((16 * warp + 15) >> g_shift);
+  // this lane's rows' (lse, delta): the block's rows are rows qt * 128 ..
+  // of its (b, KV head) in the statistics' order
+  const float2* st = stats + ((size_t)b * Hkv + kvh) * NR + (size_t)qt * QF_ROWS;
+  const float2 st0 = st[r0], st1 = st[r0 + 8];
+  const size_t q_row = (size_t)H * D;
+  float* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * D + 2 * t4;
+  float* dst0 = pos0 < S ? dqb + (size_t)pos0 * q_row + (r0 & (G - 1)) * D : nullptr;
+  float* dst1 = pos1 < S ? dqb + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * D : nullptr;
+  float acc[D / 8][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c, key = k0 + j;
-        float p = 0.f;
-        if (row_ok && key < S && key <= pos) p = expf(s[a][c] * scale - lse_s[i]);
-        dss[i * PS + j] = p * (dp[a][c] - delta_s[i]) * scale;
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  int chain = 0, moved = 0;                          // tiles in acc; moves made
+  mbar_wait(bar_q, 0);
+  // any inf or NaN in the block's Q, dO or its rows' statistics: its tiles
+  // then take the split with the non-finite rule. The selects cost issue
+  // slots in every product, so finite blocks go without; P and dS, split
+  // as A operands, are finite where all of these are
+  const bool qd_bad = __syncthreads_or(any_nonfinite(smem + QF_Q, 2 * QF_ROWS * 512) ||
+                                       !isfinite(st0.x + st0.y + st1.x + st1.y)) != 0;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(bar_kv, (uint32_t)(t & 1));
+    __syncthreads();                                 // the last tile's split is read out
+    bool bad = split_tiles(smem + QF_RAW, smem + QF_SPLIT, TF_PART, 2);
+    fence_proxy_async();                             // the raw tile is read: TMA may refill it
+    bad = __syncthreads_or(bad) != 0;
+    if (tid == 0 && t + 1 < n_tiles) load_kv(t + 1);
+    const int key0 = t * TF_TILE;
+    if (key0 <= w_last) {                            // some row of the warp sees a key here
+      const bool diag = key0 + TF_TILE - 1 > w_first;
+      if (bad || qd_bad)
+        dq_tile<true>(smem + QF_Q, smem + QF_DO, smem + QF_SPLIT, acc, r0, g, t4, key0, diag,
+                      pos0, pos1, st0, st1, scale);
+      else
+        dq_tile<false>(smem + QF_Q, smem + QF_DO, smem + QF_SPLIT, acc, r0, g, t4, key0, diag,
+                       pos0, pos1, st0, st1, scale);
+      if (++chain == TF_CHAIN) {
+        flush_rows(acc, dst0, dst1, moved++ == 0);
+        chain = 0;
       }
     }
-    __syncthreads();
+  }
+  if (chain > 0 || moved == 0) flush_rows(acc, dst0, dst1, moved == 0);
+}
 
-    // dQ (row i, col) += sum_j dS[i][j] K[j][col] for i = ty + 16 a
+// The dk/dv kernel's warps come in pairs, both on the same 16 keys of a
+// 32-row tile: the first computes S^T = K Q^T (A: K split here, B: Q's
+// split tile), P^T = exp(s scale - lse) (0 where the row lies before the
+// key or past the last row) and dV += P^T dO; the second dP^T = V dO^T,
+// then, with P^T from the first through shared memory, dS^T = P^T (dP^T -
+// delta) scale and dK += dS^T Q. Each holds one 16 x 128 accumulator (64
+// registers a thread) and runs two products of the four. The A fragments
+// of P^T and dS^T are their accumulators as they stand (rows 2t, 2t + 1 of
+// each 8), so dO's and Q's B fragments read rows 2t and 2t + 1.
+
+// C (16 keys x 32 rows) = A B^T over the 128 dims: A the raw rows kr0,
+// kr0 + 8 of a 64-key tile, split here; B a split tile of 32 rows.
+template <bool NF>
+__device__ __forceinline__ void keys_by_rows(float (&c)[TF_TILE / 8][4], const unsigned char* a,
+                                             const unsigned char* bhi, const unsigned char* blo,
+                                             int kr0, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < TF_TILE / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 #pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 df[4];
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int col = 8 * kk + t4;
+    const Split f[4] = {split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0, col))),
+                        split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0 + 8, col))),
+                        split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0, col + 4))),
+                        split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0 + 8, col + 4)))};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) df[a] = load4f(dss + (ty + 16 * a) * PS + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 k0v = load4f(ks + (j + jj) * QS + 4 * tx);
-        const float4 k1v = load4f(ks + (j + jj) * QS + 64 + 4 * tx);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float d = jj == 0 ? df[a].x : jj == 1 ? df[a].y : jj == 2 ? df[a].z : df[a].w;
-          dq_acc[a][0] = fmaf(d, k0v.x, dq_acc[a][0]);
-          dq_acc[a][1] = fmaf(d, k0v.y, dq_acc[a][1]);
-          dq_acc[a][2] = fmaf(d, k0v.z, dq_acc[a][2]);
-          dq_acc[a][3] = fmaf(d, k0v.w, dq_acc[a][3]);
-          dq_acc[a][4] = fmaf(d, k1v.x, dq_acc[a][4]);
-          dq_acc[a][5] = fmaf(d, k1v.y, dq_acc[a][5]);
-          dq_acc[a][6] = fmaf(d, k1v.z, dq_acc[a][6]);
-          dq_acc[a][7] = fmaf(d, k1v.w, dq_acc[a][7]);
-        }
-      }
+    for (int j = 0; j < TF_TILE / 8; ++j) {
+      const uint32_t o0 = sw_off(TF_TILE, 8 * j + g, col), o1 = sw_off(TF_TILE, 8 * j + g, col + 4);
+      mma3<NF>(c[j], f, ld_u32(bhi + o0), ld_u32(bhi + o1), ld_u32(blo + o0), ld_u32(blo + o1));
     }
   }
+}
 
-  float* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * D;
+// acc (16 keys x 128) += C B: C (16 keys x 32 rows) as its accumulator
+// stands, B a split tile of 32 rows read at rows 2t, 2t + 1.
+template <bool NF>
+__device__ __forceinline__ void add_rows_product(float (&acc)[D / 8][4],
+                                                 const float (&c)[TF_TILE / 8][4],
+                                                 const unsigned char* bhi,
+                                                 const unsigned char* blo, int g, int t4) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int R = r0 + ty + 16 * a;
-    if (R < n_rows) {
-      float* dst = dqb + (size_t)(R >> g_shift) * q_row + (R & (G - 1)) * D;
-      store4f(dst + 4 * tx, make_float4(dq_acc[a][0], dq_acc[a][1], dq_acc[a][2], dq_acc[a][3]));
-      store4f(dst + 64 + 4 * tx,
-              make_float4(dq_acc[a][4], dq_acc[a][5], dq_acc[a][6], dq_acc[a][7]));
+  for (int i = 0; i < TF_TILE / 8; ++i) {
+    const Split f[4] = {split_as<NF>(c[i][0]), split_as<NF>(c[i][2]), split_as<NF>(c[i][1]), split_as<NF>(c[i][3])};
+    const int row = 8 * i + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t o0 = sw_off(TF_TILE, row, 8 * n + g), o1 = sw_off(TF_TILE, row + 1, 8 * n + g);
+      mma3<NF>(acc[n], f, ld_u32(bhi + o0), ld_u32(bhi + o1), ld_u32(blo + o0), ld_u32(blo + o1));
     }
   }
+}
+
+// One 32-row tile for one warp of a pair (role 0: dV, role 1: dK); xch is
+// the pair's P^T, a lane's 16 values 32 lanes apart.
+template <bool NF>
+__device__ __forceinline__ void dkdv_tile(int role, int pair, const unsigned char* smem,
+                                          const float2* st, float (&acc)[D / 8][4], int kr0,
+                                          int g, int t4, int key_lo, int key_hi, int r0,
+                                          int n_rows, int g_shift, bool diag, float scale) {
+  const unsigned char* qs = smem + KF_SPLIT;         // Q hi, Q lo, dO hi, dO lo
+  float* xch = reinterpret_cast<float*>(const_cast<unsigned char*>(smem) + KF_XCH) +
+               pair * 16 * 32 + (threadIdx.x & 31);
+  float c[TF_TILE / 8][4];
+  if (role == 0) {
+    keys_by_rows<NF>(c, smem + KF_K, qs, qs + TF_PART, kr0, g, t4);          // S^T
+#pragma unroll
+    for (int j = 0; j < TF_TILE / 8; ++j) {
+      const int ra = 8 * j + 2 * t4;                 // this lane's rows of the tile: ra, ra + 1
+      const float la = st[ra].x, lb = st[ra + 1].x;
+      const int pa = (r0 + ra) >> g_shift, pb = (r0 + ra + 1) >> g_shift;
+      const bool oka = !diag || r0 + ra < n_rows, okb = !diag || r0 + ra + 1 < n_rows;
+      c[j][0] = oka && (!diag || key_lo <= pa) ? expf(c[j][0] * scale - la) : 0.f;
+      c[j][1] = okb && (!diag || key_lo <= pb) ? expf(c[j][1] * scale - lb) : 0.f;
+      c[j][2] = oka && (!diag || key_hi <= pa) ? expf(c[j][2] * scale - la) : 0.f;
+      c[j][3] = okb && (!diag || key_hi <= pb) ? expf(c[j][3] * scale - lb) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xch[(4 * j + e) * 32] = c[j][e];
+    }
+    named_sync(1 + pair, 64);                        // P^T is there for the pair's dK warp
+    add_rows_product<NF>(acc, c, qs + 2 * TF_PART, qs + 3 * TF_PART, g, t4);   // dV += P^T dO
+  } else {
+    keys_by_rows<NF>(c, smem + KF_V, qs + 2 * TF_PART, qs + 3 * TF_PART, kr0, g, t4);  // dP^T
+    named_sync(1 + pair, 64);
+#pragma unroll
+    for (int j = 0; j < TF_TILE / 8; ++j) {
+      const int ra = 8 * j + 2 * t4;
+      const float da = st[ra].y, db = st[ra + 1].y;
+      c[j][0] = xch[(4 * j) * 32] * (c[j][0] - da) * scale;
+      c[j][1] = xch[(4 * j + 1) * 32] * (c[j][1] - db) * scale;
+      c[j][2] = xch[(4 * j + 2) * 32] * (c[j][2] - da) * scale;
+      c[j][3] = xch[(4 * j + 3) * 32] * (c[j][3] - db) * scale;
+    }
+    add_rows_product<NF>(acc, c, qs, qs + TF_PART, g, t4);                      // dK += dS^T Q
+  }
+}
+
+// (b) dk, dv of 64 keys of one KV head, 8 warps: pair p (warps p and p + 4)
+// owns keys 16 p .. 16 p + 15, warp p their dV and warp p + 4 their dK.
+// Thread 0 loads K and V once, then the raw Q, dO and statistics of each
+// 32-row tile from the first tile holding position k0 to the last, the
+// next while the block works on this one; the block splits Q and dO into
+// the split tile, then each pair with a key that a row of the tile sees
+// runs dkdv_tile.
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float2* __restrict__ stats, float* __restrict__ dk,
+                          float* __restrict__ dv, int S, int Hkv, int g_shift, int NR,
+                          float scale) {
+  extern __shared__ __align__(1024) unsigned char f32_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(f32_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
+  unsigned char* smem = f32_raw + (base - raw);
+  const uint32_t bar_kv = base + KF_BAR;             // K and V landed
+  const uint32_t bar_rows = bar_kv + 8;              // the tile's Q, dO, statistics landed
+
+  // the warp's role and pair by a shuffle from lane 0, so the compiler sees
+  // the branches on them as warp-uniform
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid & 31;
+  const int role = warp >> 2, pair = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int G = 1 << g_shift;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * KF_KEYS;
+  const int n_rows = S << g_shift;
+  const int t_first = (k0 << g_shift) / TF_TILE;     // the first tile holding position k0
+  const int n_iter = (n_rows + TF_TILE - 1) / TF_TILE - t_first;
+  const float2* st = stats + ((size_t)b * Hkv + kvh) * NR;
+
+  // a box of 32 values x min(G, 32) heads x max(32 / G, 1) positions is
+  // the tile's 32 rows in order; rows past S arrive as zeros
+  auto load_rows = [&](int i) {
+    const int r0 = (t_first + i) * TF_TILE;
+    const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
+    mbar_expect_tx(bar_rows, 2 * TF_PART + TF_STATS);
+    for (int a = 0; a < 4; ++a) {
+      tma_load_4d(base + KF_RAW + a * TF_TILE * 128, &tm_q, bar_rows, 32 * a, head, pos, b);
+      tma_load_4d(base + KF_RAW + TF_PART + a * TF_TILE * 128, &tm_do, bar_rows, 32 * a, head,
+                  pos, b);
+    }
+    bulk_load(base + KF_RAW_STATS, st + r0, TF_STATS, bar_rows);
+  };
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_rows, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_kv, 2 * KF_KEYS * 512);       // keys past S arrive as zeros
+    for (int a = 0; a < 4; ++a) {
+      tma_load_4d(base + KF_K + a * KF_KEYS * 128, &tm_k, bar_kv, 32 * a, kvh, k0, b);
+      tma_load_4d(base + KF_V + a * KF_KEYS * 128, &tm_v, bar_kv, 32 * a, kvh, k0, b);
+    }
+    load_rows(0);
+  }
+  __syncthreads();
+
+  const int kr0 = 16 * pair + g;                     // this lane's keys: k0 + kr0, + 8
+  const int key_lo = k0 + kr0, key_hi = key_lo + 8;
+  const int kw_first = k0 + 16 * pair, kw_last = kw_first + 15;
+  float acc[D / 8][4];                               // role 0: dV, role 1: dK
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float2* st_s = reinterpret_cast<const float2*>(smem + KF_STATS);
+  // the lane's output rows: element offsets (-1: not stored)
+  const size_t kv_row = (size_t)Hkv * D;
+  const size_t out0 = (size_t)b * S * kv_row + (size_t)kvh * D + 2 * t4;
+  float* out = role == 0 ? dv : dk;
+  float* dst0 = key_lo < S ? out + out0 + (size_t)key_lo * kv_row : nullptr;
+  float* dst1 = key_hi < S ? out + out0 + (size_t)key_hi * kv_row : nullptr;
+  // a pair works on the tiles from the first whose last row reaches its
+  // first key to the last; its sums move after each TF_CHAIN of them
+  const int i_own = max(0, ((kw_first << g_shift) / TF_TILE) - t_first);
+  mbar_wait(bar_kv, 0);
+  // any inf or NaN in the block's K or V; a tile's own (its Q, dO and
+  // statistics) joins it below (see the dq kernel)
+  const bool kv_bad = __syncthreads_or(any_nonfinite(smem + KF_K, 2 * KF_KEYS * 512)) != 0;
+
+  for (int i = 0; i < n_iter; ++i) {
+    mbar_wait(bar_rows, (uint32_t)(i & 1));
+    __syncthreads();                                 // the last tile's split is read out
+    bool bad = split_tiles(smem + KF_RAW, smem + KF_SPLIT, TF_PART, 2);
+    if (tid < TF_TILE) {
+      const float2 x = reinterpret_cast<const float2*>(smem + KF_RAW_STATS)[tid];
+      reinterpret_cast<float2*>(smem + KF_STATS)[tid] = x;
+      bad |= !isfinite(x.x + x.y);
+    }
+    fence_proxy_async();                             // the raw tile is read: TMA may refill it
+    bad = __syncthreads_or(bad) != 0;
+    if (tid == 0 && i + 1 < n_iter) load_rows(i + 1);
+    const int r0 = (t_first + i) * TF_TILE;
+    const int p_lo = r0 >> g_shift, p_hi = min((r0 + TF_TILE - 1) >> g_shift, S - 1);
+    if (p_hi >= kw_first) {                          // some row sees a key of this pair
+      const bool diag = p_lo < kw_last || r0 + TF_TILE > n_rows;
+      if (bad || kv_bad)
+        dkdv_tile<true>(role, pair, smem, st_s, acc, kr0, g, t4, key_lo, key_hi, r0, n_rows,
+                        g_shift, diag, scale);
+      else
+        dkdv_tile<false>(role, pair, smem, st_s, acc, kr0, g, t4, key_lo, key_hi, r0, n_rows,
+                         g_shift, diag, scale);
+      if ((i - i_own) % TF_CHAIN == TF_CHAIN - 1) flush_rows(acc, dst0, dst1, i - i_own < TF_CHAIN);
+    }
+  }
+  const int n_own = max(n_iter - i_own, 0);          // the tiles the pair worked on
+  if (n_own % TF_CHAIN != 0 || n_own == 0) flush_rows(acc, dst0, dst1, n_own < TF_CHAIN);
 }
 
 
 // ---------------------------------------------------------- bfloat16 route --
 
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float MASK = -1e30f;
 constexpr int WG_THREADS = 128;                    // a warpgroup
 constexpr int WS_THREADS = 3 * WG_THREADS;         // producer + 2 consumer warpgroups
 constexpr int WS_STAGES = 2;                       // the ring
-constexpr int STAT_ROWS = 128;                     // the statistics' rows are padded to this
 constexpr int STATS_BYTES = BR * 8;                // (lse log2 e, delta) of a 64-row tile
 constexpr int TILE_HALF = 64 * 128;                // 64 dims of 64 rows (keys or q rows): 8 KB
 
@@ -532,31 +702,6 @@ constexpr int KD_SMEM = KD_BAR + 8 * (1 + 2 * WS_STAGES) + 1024;   // + alignmen
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (a) bfloat16: for each (batch row b, KV head) the rows R = position * G +
-// head in order, NR of them (S * G padded to STAT_ROWS): (lse * log2 e,
-// rowsum(do * o)) in float32, zeros past S * G; a warp a row
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
-                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                       float2* __restrict__ stats, int S, int H, int Hkv, int g_shift, int NR,
-                       size_t n_rows) {
-  const size_t row = (size_t)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const int R = (int)(row % NR);
-  const size_t bk = row / NR;
-  const int kvh = (int)(bk % Hkv);
-  const size_t b = bk / Hkv;
-  float2 st = make_float2(0.f, 0.f);
-  if (R < (S << g_shift)) {
-    const int pos = R >> g_shift, h = (kvh << g_shift) + (R & ((1 << g_shift) - 1));
-    const size_t src = ((b * S + pos) * H + h) * D + lane * 4;
-    st.y = warp_sum(dot4(load4f(o + src), load4f(dout + src), 0.f));
-    if (lane == 0) st.x = lse[(b * H + h) * S + pos] * LOG2E;
-  }
-  if (lane == 0) stats[row] = st;
 }
 
 // d (64 x 64) = A B^T over the 128 dims for one tile, issued and committed:
@@ -967,8 +1112,8 @@ cudaError_t allow_smem() {
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
   const struct { const void* fn; int bytes; } kernels[] = {
-      {(const void*)flash_bwd_dkdv_kernel, (int)SMEM_DKDV},
-      {(const void*)flash_bwd_dq_kernel, (int)SMEM_DQ},
+      {(const void*)flash_bwd_dkdv_f32_kernel, KF_SMEM},
+      {(const void*)flash_bwd_dq_f32_kernel, QF_SMEM},
       {(const void*)flash_bwd_dkdv_wgmma_kernel, KD_SMEM},
       {(const void*)flash_bwd_dq_wgmma_kernel, DQ_SMEM}};
   for (const auto& kn : kernels) {
@@ -979,77 +1124,79 @@ cudaError_t allow_smem() {
   return cudaSuccess;
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
-                   int H, int Hkv, float scale, cudaStream_t stream) {
-  const int G = H / Hkv, g_shift = log2_of(G);
-  cudaError_t err = allow_smem();
-  if (err != cudaSuccess) return err;
-  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k);
-  const float *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout);
-  const size_t rows = (size_t)B * S * H;
-  const unsigned delta_blocks = (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
-  flash_bwd_delta_kernel<<<delta_blocks, THREADS, 0, stream>>>(
-      static_cast<const float*>(o), gf, delta, B, S, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((S + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkdv_kernel<<<grid_kv, THREADS, SMEM_DKDV, stream>>>(
-      qf, kf, vf, gf, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv,
-      g_shift, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((unsigned)(((size_t)S * G + BR - 1) / BR), Hkv, B);
-  flash_bwd_dq_kernel<<<grid_q, THREADS, SMEM_DQ, stream>>>(
-      qf, kf, vf, gf, lse, delta, static_cast<float*>(dq), S, H, Hkv, g_shift, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const float* lse, float* scratch, void* dq, void* dk,
-                        void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+// The statistics kernel, then dk/dv, then dq, on the caller's stream.
+// Each is a 3xTF32 kernel for float32 and a wgmma one for bfloat16.
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* scratch, void* dq, void* dk,
+                   void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
+  const cudaError_t ctx = make_context_current();
+  if (ctx != cudaSuccess) return ctx;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int G = H / Hkv, g_shift = log2_of(G);
   const int NR = stat_rows(S, g_shift);
-  // dq reads 128-row boxes (the forward's); dk/dv 64-row tiles, one
-  // position's run of 64 heads where G > 64; K and V in 64- and 128-key boxes
-  const int kd_heads = G < BR ? G : BR, kd_positions = G < BR ? BR >> g_shift : 1;
+  // dq reads the forward's 128-row boxes; dk/dv reads row tiles of
+  // kd_rows (bfloat16 64, float32 32), one position's run of heads where G
+  // is larger; K and V arrive in the dq kernel's key tiles and the dk/dv
+  // kernel's 128-key blocks
+  static_assert(QF_ROWS == DQ_ROWS, "both routes' dq kernels take the forward's 128 rows");
+  const bool f32 = dtype == 0;
+  const int kd_rows = f32 ? TF_TILE : BR, dq_keys = f32 ? TF_TILE : BK;
+  const int kd_keys = f32 ? KF_KEYS : KD_KEYS;
+  const int kd_heads = G < kd_rows ? G : kd_rows;
+  const int kd_positions = G < kd_rows ? kd_rows >> g_shift : 1;
+  const auto map = f32 ? encode_map_f32 : encode_map;
   CUtensorMap q_dq, do_dq, k_dq, v_dq, q_kd, do_kd, k_kd, v_kd;
-  if (!encode_map(encode, &q_dq, q, B, S, H, G, DQ_ROWS >> g_shift) ||
-      !encode_map(encode, &do_dq, dout, B, S, H, G, DQ_ROWS >> g_shift) ||
-      !encode_map(encode, &k_dq, k, B, S, Hkv, 1, BK) ||
-      !encode_map(encode, &v_dq, v, B, S, Hkv, 1, BK) ||
-      !encode_map(encode, &q_kd, q, B, S, H, kd_heads, kd_positions) ||
-      !encode_map(encode, &do_kd, dout, B, S, H, kd_heads, kd_positions) ||
-      !encode_map(encode, &k_kd, k, B, S, Hkv, 1, KD_KEYS) ||
-      !encode_map(encode, &v_kd, v, B, S, Hkv, 1, KD_KEYS))
+  if (!map(encode, &q_dq, q, B, S, H, G, DQ_ROWS >> g_shift) ||
+      !map(encode, &do_dq, dout, B, S, H, G, DQ_ROWS >> g_shift) ||
+      !map(encode, &k_dq, k, B, S, Hkv, 1, dq_keys) ||
+      !map(encode, &v_dq, v, B, S, Hkv, 1, dq_keys) ||
+      !map(encode, &q_kd, q, B, S, H, kd_heads, kd_positions) ||
+      !map(encode, &do_kd, dout, B, S, H, kd_heads, kd_positions) ||
+      !map(encode, &k_kd, k, B, S, Hkv, 1, kd_keys) ||
+      !map(encode, &v_kd, v, B, S, Hkv, 1, kd_keys))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return err;
   float2* stats = reinterpret_cast<float2*>(scratch);
   const size_t n_rows = (size_t)B * Hkv * NR;        // a multiple of the 8 warps a block
-  flash_bwd_stats_kernel<<<(unsigned)(n_rows / (THREADS / 32)), THREADS, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, stats, S, H, Hkv,
-      g_shift, NR, n_rows);
+  const unsigned stat_blocks = (unsigned)(n_rows / (THREADS / 32));
+  if (f32)
+    flash_bwd_stats_kernel<float><<<stat_blocks, THREADS, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), lse, stats, S, H, Hkv,
+        g_shift, NR, n_rows, 1.f);
+  else
+    flash_bwd_stats_kernel<bf16><<<stat_blocks, THREADS, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, stats, S, H, Hkv,
+        g_shift, NR, n_rows, LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const dim3 grid_kd((S + kd_keys - 1) / kd_keys, Hkv, B), grid_dq(NR / DQ_ROWS, Hkv, B);
+  if (f32) {
+    flash_bwd_dkdv_f32_kernel<<<grid_kd, TF_THREADS, KF_SMEM, stream>>>(
+        q_kd, do_kd, k_kd, v_kd, stats, static_cast<float*>(dk), static_cast<float*>(dv), S, Hkv,
+        g_shift, NR, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_f32_kernel<<<grid_dq, TF_THREADS, QF_SMEM, stream>>>(
+        q_dq, do_dq, k_dq, v_dq, stats, static_cast<float*>(dq), S, H, Hkv, g_shift, NR, scale);
+    return cudaGetLastError();
+  }
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_wgmma_kernel<<<dim3((S + KD_KEYS - 1) / KD_KEYS, Hkv, B), WS_THREADS, KD_SMEM,
-                                stream>>>(q_kd, do_kd, k_kd, v_kd, stats, static_cast<bf16*>(dk),
-                                          static_cast<bf16*>(dv), S, Hkv, g_shift, NR, scale,
-                                          scale_log2);
+  flash_bwd_dkdv_wgmma_kernel<<<grid_kd, WS_THREADS, KD_SMEM, stream>>>(
+      q_kd, do_kd, k_kd, v_kd, stats, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hkv,
+      g_shift, NR, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<<<dim3(NR / DQ_ROWS, Hkv, B), WS_THREADS, DQ_SMEM, stream>>>(
+  flash_bwd_dq_wgmma_kernel<<<grid_dq, WS_THREADS, DQ_SMEM, stream>>>(
       q_dq, do_dq, k_dq, v_dq, stats, static_cast<bf16*>(dq), S, H, Hkv, g_shift, NR, scale,
       scale_log2);
   return cudaGetLastError();
 }
 
 // float32 values of scratch the kernels need at this shape, for either
-// dtype: 2 * B * Hkv * (S * G padded to STAT_ROWS), at least B * H * S
+// dtype: 2 * B * Hkv * (S * G padded to STAT_ROWS)
 long long scratch_values(int B, int S, int H, int Hkv) {
   return 2ll * B * Hkv * stat_rows(S, log2_of(H / Hkv));
 }
@@ -1057,9 +1204,8 @@ long long scratch_values(int B, int S, int H, int Hkv) {
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16. scratch is the caller's float32 scratch of
-// scratch_len values, at least 2 * B * Hkv * (S * H / Hkv padded to 128)
-// (float32: delta in (B, H, S) order; bfloat16: (lse log2 e, delta) pairs in
-// block-row order). Returns cudaGetLastError() after the launches
+// scratch_len values, at least 2 * B * Hkv * (S * H / Hkv padded to 128):
+// each row's (lse, delta) pair in block-row order (bfloat16: lse log2 e). Returns cudaGetLastError() after the launches
 // (cudaErrorInvalidValue, without launching, for a shape it does not take
 // or a scratch too small).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
@@ -1071,35 +1217,30 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
       B > 65535 || Hkv > 65535 || (long long)S * (H / Hkv) > (1ll << 30) ||
       scratch_len < scratch_values(B, S, H, Hkv))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, scale, st);
-  if (dtype == 1)
-    return (int)launch_bf16(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, scale,
-                            st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)launch(dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // What a dtype's kernels hold on the card, for the logs: for kernel 0
 // (dk/dv) and 1 (dq), info[0] registers and [1] local (spill) bytes a
 // thread, [2] static and [3] dynamic shared memory bytes a block, [4]
-// blocks resident on an SM, [5] threads a block, [6] the design (0: CUDA-core
-// FMAs, 2: wgmma + TMA). Returns a cudaError_t.
+// blocks resident on an SM, [5] threads a block, [6] the design (2: wgmma +
+// TMA, 3: 3xTF32 mma.sync + TMA). Returns a cudaError_t.
 extern "C" int flash_attention_bwd_route_info(int dtype, int which, int* info) {
   if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
   const void* fn;
-  int smem, threads = THREADS;
+  int smem, threads;
   if (dtype == 1) {
     fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel
                     : (const void*)flash_bwd_dq_wgmma_kernel;
     smem = which == 0 ? KD_SMEM : DQ_SMEM;
     threads = WS_THREADS;
-  } else if (which == 0) {
-    fn = (const void*)flash_bwd_dkdv_kernel;
-    smem = (int)SMEM_DKDV;
   } else {
-    fn = (const void*)flash_bwd_dq_kernel;
-    smem = (int)SMEM_DQ;
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_f32_kernel
+                    : (const void*)flash_bwd_dq_f32_kernel;
+    smem = which == 0 ? KF_SMEM : QF_SMEM;
+    threads = TF_THREADS;
   }
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1115,6 +1256,6 @@ extern "C" int flash_attention_bwd_route_info(int dtype, int which, int* info) {
   info[3] = smem;
   info[4] = blocks;
   info[5] = threads;
-  info[6] = dtype == 1 ? 2 : 0;   // 2: wgmma + TMA on the tensor cores, 0: CUDA-core FMAs
+  info[6] = dtype == 1 ? 2 : 3;   // 2: wgmma + TMA, 3: 3xTF32 mma.sync + TMA
   return 0;
 }

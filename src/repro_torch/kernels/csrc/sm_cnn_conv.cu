@@ -98,6 +98,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tf32.cuh"   // tf32_rna, Split / split, mma_tf32: the 3xTF32 arithmetic
+
 namespace {
 
 __device__ __forceinline__ float fmax_nan(float a, float b) {
@@ -329,42 +331,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 // The warps of team p (p, p + teams, ...) meet at named barrier 1 + p.
 __device__ __forceinline__ void team_sync(int p) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(1 + p), "n"(32 * TC_KS) : "memory");
-}
-
-// Round float32 bits to TF32 as cvt.rna.tf32.f32 does for a finite value:
-// to nearest, ties away from zero (add half a TF32 ulp to the magnitude,
-// clear the 13 low mantissa bits). Two integer operations.
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t u) {
-  return (u + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ bool finite_bits(uint32_t u) {
-  return (u & 0x7f800000u) != 0x7f800000u;
-}
-
-// v = big + small in TF32; big keeps an inf or NaN as it is (for hi*hi)
-// while big_c and small are 0 there, so the cross passes carry neither.
-struct Split {
-  uint32_t big, big_c, small;
-};
-
-__device__ __forceinline__ Split split(float v) {
-  Split s;
-  const uint32_t u = __float_as_uint(v);
-  const bool finite = finite_bits(u);
-  s.big = finite ? tf32_rna(u) : u;
-  const uint32_t lo = tf32_rna(__float_as_uint(v - __uint_as_float(s.big)));
-  s.big_c = finite ? s.big : 0u;
-  s.small = finite ? lo : 0u;
-  return s;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Sample b (S*d floats, as in x) into the raw tile by 4-byte cp.async.

@@ -19,8 +19,12 @@ The C entry point picks a kernel by dtype:
   That is stage 2 of the tensor-core design (stage 1 was ``mma.sync`` +
   ``cp.async``). The work is bound by operations: 1.375e11 at B=8, S=2048
   (H=16, Hkv=8, d=128), 0.139 ms at the card's 989 TFLOP/s.
-* float32: the CUDA-core kernel, because float32 is held to 2e-5, which
-  the tensor cores' TF32 (about three decimal digits) cannot meet.
+* float32: the tensor cores too, in 3xTF32. One TF32 product (about three
+  decimal digits) cannot meet float32's 2e-5, three can: each operand split
+  into a TF32 high and low part, hi*hi + hi*lo + lo*hi summed in float32
+  (``csrc/tf32.cuh``). ``wgmma`` + TMA with a warpgroup that loads and
+  splits the tiles for two consumer warpgroups; bound by the same 1.375e11
+  operations, 0.833 ms in 3xTF32 at the card's 495 TFLOP/s of TF32.
 
 Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). Any
 ``S >= 1`` works: the kernel masks the ragged tail itself, where the Pallas
@@ -39,7 +43,8 @@ its own, so the serving forward's build is untouched: FlashAttention-2's
 dk/dv and dq kernels without atomics, so the gradients are the same from
 run to run; bfloat16 warp-specialised on the tensor cores, every product a
 ``wgmma`` and every tile arriving by TMA into a 2-stage ring, as in the
-forward; float32 on the CUDA cores), on CPU tensors in
+forward; float32 in 3xTF32 ``mma.sync`` fed by TMA, since the ``wgmma``
+form's tiles do not fit a block), on CPU tensors in
 ``flash_attention_bwd_plain``. Serving runs under ``torch.inference_mode()``
 and keeps the forward with no ``lse`` written.
 
@@ -76,10 +81,9 @@ KERNEL_HEAD_DIMS = (128,)
 #: kernel takes a group size G = H / Hkv that divides it
 KERNEL_ROWS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: design stage of a route's kernel, as the C library reports it
-STAGES = {0: "CUDA-core FMA", 2: "wgmma + TMA"}
-#: design of the backward's kernels, as the C library reports it
-BWD_DESIGNS = {0: "CUDA-core FMA", 2: "wgmma + TMA"}
+#: the design of a kernel, by the code both C libraries report (the
+#: forward's route stage, the backward's kernels' design)
+DESIGNS = {2: "wgmma + TMA", 3: "3xTF32 mma.sync + TMA", 4: "3xTF32 wgmma + TMA"}
 #: the mask value: exp(-1e30 - m) is 0 without NaN, unlike -inf
 MASK = -1e30
 
@@ -251,9 +255,9 @@ def _bwd_kernel_fn():
 
 def _bwd_scratch_values(b: int, s: int, h: int, hkv: int) -> int:
     """float32 values of scratch the backward kernels take: each row's
-    (lse log2 e, delta), a (batch row, KV head)'s S x G rows padded to 128
-    (``STAT_ROWS`` of ``csrc/flash_attention_bwd.cu``, which refuses a
-    smaller scratch); float32 uses the first B x H x S for delta."""
+    (lse, delta) (bfloat16: lse log2 e), a (batch row, KV head)'s S x G rows
+    padded to 128 (``STAT_ROWS`` of ``csrc/flash_attention_bwd.cu``, which
+    refuses a smaller scratch)."""
     return 2 * b * hkv * (-(-s * (h // hkv) // 128) * 128)
 
 
@@ -274,7 +278,7 @@ def route_info(dtype: torch.dtype) -> dict:
     keys = ("stage", "registers", "local_bytes", "static_smem", "dynamic_smem",
             "blocks_per_sm", "threads")
     out = dict(zip(keys, info))
-    out["design"] = STAGES[out["stage"]]
+    out["design"] = DESIGNS[out["stage"]]
     return out
 
 
@@ -282,8 +286,9 @@ def bwd_route_info(dtype: torch.dtype) -> dict:
     """The backward's two kernels for ``dtype`` on the current card, as
     ``{"dkdv": {...}, "dq": {...}}``: registers and local (spill) bytes a
     thread, static and dynamic shared memory a block, blocks resident on an
-    SM, threads a block and the design (bfloat16: ``wgmma`` + TMA on the
-    tensor cores, 384 threads; float32: CUDA-core FMAs, 256 threads)."""
+    SM, threads a block and the design (bfloat16: ``wgmma`` + TMA, 384
+    threads; float32: 3xTF32 ``mma.sync`` + TMA, 256 threads; both on the
+    tensor cores)."""
     fn = build.load_library("flash_attention_bwd").flash_attention_bwd_route_info
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -297,7 +302,7 @@ def bwd_route_info(dtype: torch.dtype) -> dict:
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd_route_info failed: CUDA error {err}")
         out[name] = dict(zip(keys, info))
-        out[name]["design"] = BWD_DESIGNS[out[name]["design"]]
+        out[name]["design"] = DESIGNS[out[name]["design"]]
     return out
 
 
@@ -370,8 +375,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
                          f"{q.device}")
     _check_kernel(q, k, v, out, dout, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # float32 scratch for each row's delta (bfloat16: with its lse, in the
-    # kernels' row order)
+    # float32 scratch for each row's lse and delta, in the kernels' row order
     scratch = torch.empty(_bwd_scratch_values(b, s, h, hkv), dtype=torch.float32,
                           device=q.device)
     with _on_device(q):

@@ -20,10 +20,11 @@ The keyword ``lookup="plain"`` sends the lookups through both plain
 versions instead, on any device; it exists to check the kernels against
 them on the card and nothing on a user path sets it.
 
-FM and DIN look their rows up with plain torch indexing, as the JAX code
-does with ``jnp.take`` outside any Pallas kernel; the bag kernel could not
-take them either (widths 10 and 18 are not multiples of its 4), and their
-gradient is autograd's. ``loss_fn`` is the JAX package's binary
+FM and DIN look their rows up in plain torch (``take_rows``), as the JAX
+code does with ``jnp.take`` outside any Pallas kernel, with ``jnp.take``'s
+indexing: an id in [-V, 0) wraps, one outside [-V, V) gives a NaN row
+rather than raising. The bag kernel could not take them either (widths 10
+and 18 are not multiples of its 4), and their gradient is autograd's. ``loss_fn`` is the JAX package's binary
 cross-entropy for all three.
 
 The JAX code's ``constrain`` calls are sharding hints and are left out
@@ -150,11 +151,29 @@ def _field_rows(ids: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return ids.long() + offsets
 
 
+def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` with ``jnp.take``'s indexing, the JAX package's: a
+    row in [-V, 0) wraps to row + V, a row outside [-V, V) gives a row of
+    NaN (V = ``table.shape[0]``). The rows are wrapped, clamped for the
+    gather and masked with ``torch.where``, so nothing waits on the card
+    and no id raises (plain indexing raises on the CPU and asserts on the
+    card, which ends the process's CUDA context). The gradient of a NaN row
+    goes nowhere: ``torch.where`` gives the clamped row none."""
+    v = table.shape[0]
+    rows = rows.long()
+    rows = torch.where(rows < 0, rows + v, rows)
+    inside = (rows >= 0) & (rows < v)
+    got = table[rows.clamp(0, v - 1)]
+    inside = inside.reshape(inside.shape + (1,) * (got.dim() - inside.dim()))
+    return torch.where(inside, got, torch.full((), float("nan"), dtype=got.dtype,
+                                                device=got.device))
+
+
 def fm_forward(params: Dict, ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     """ids (B, F) -> logits (B,) float32.  0.5*((Σv)² − Σv²) over fields."""
     gids = _field_rows(ids, _offsets_on(cfg.vocab_sizes, ids.device))
-    v = params["emb"][gids].float()                                  # (B,F,k)
-    lin = params["lin"][gids].float().sum(-1)
+    v = take_rows(params["emb"], gids).float()                       # (B,F,k)
+    lin = take_rows(params["lin"], gids).float().sum(-1)
     sum_v = v.sum(dim=1)
     pair = 0.5 * (sum_v.square() - v.square().sum(dim=1)).sum(-1)
     return params["bias"] + lin + pair
@@ -168,13 +187,13 @@ def fm_retrieval(params: Dict, user_ids: torch.Tensor, cand_ids: torch.Tensor,
     so retrieval is one batched dot — O(N*k), no loop."""
     offs = _offsets_on(cfg.vocab_sizes, cand_ids.device)
     gu = _field_rows(user_ids, offs[:-1])
-    vu = params["emb"][gu].float()                                   # (B,F-1,k)
+    vu = take_rows(params["emb"], gu).float()                        # (B,F-1,k)
     sum_u = vu.sum(dim=1)                                            # (B,k)
-    const = (params["bias"] + params["lin"][gu].float().sum(-1)
+    const = (params["bias"] + take_rows(params["lin"], gu).float().sum(-1)
              + 0.5 * (sum_u.square() - vu.square().sum(dim=1)).sum(-1))
     gc = _field_rows(cand_ids, offs[-1])
-    vc = params["emb"][gc].float()                                   # (N,k)
-    lin_c = params["lin"][gc].float()
+    vc = take_rows(params["emb"], gc).float()                        # (N,k)
+    lin_c = take_rows(params["lin"], gc).float()
     return const[:, None] + lin_c[None, :] + sum_u @ vc.T            # (B,N)
 
 
@@ -285,8 +304,8 @@ def din_attention(params: Dict, hist_e: torch.Tensor, tgt_e: torch.Tensor,
 def din_forward(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
                 target: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     """hist (B,S) item ids, target (B,) -> logits (B,) float32."""
-    he = params["emb"][hist.long()]
-    te = params["emb"][target.long()]
+    he = take_rows(params["emb"], hist)
+    te = take_rows(params["emb"], target)
     interest = din_attention(params, he, te, hist_mask)
     x = torch.cat([interest, te], dim=-1)
     return mlp_apply(params["out"], x)[:, 0].float()
@@ -299,8 +318,8 @@ def din_retrieval(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
     The user history embeds ONCE (its S rows); only the candidate targets
     gather at N scale."""
     n = cand_ids.shape[0]
-    he = params["emb"][hist.long()]                                  # (1,S,d)
-    te = params["emb"][cand_ids.long()]                              # (N,d)
+    he = take_rows(params["emb"], hist)                              # (1,S,d)
+    te = take_rows(params["emb"], cand_ids)                          # (N,d)
     he_b = he.expand(n, -1, -1)
     mask_b = hist_mask.expand(n, -1)
     interest = din_attention(params, he_b, te, mask_b)

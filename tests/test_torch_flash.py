@@ -10,8 +10,9 @@ Inputs are standard normal, so the softmax stays spread, not one-hot.
 The ``cuda``-marked tests hold the CUDA kernel itself against the plain
 version, by max absolute error and by the error's norm, at d=128 for
 lengths around its 64-key tiles, for 1, 2, 4 and 8 query heads a KV head,
-and at qwen3-0.6b's 8 x 2048 prefill, in both routes (bfloat16 on the
-tensor cores, float32 on the CUDA cores); they skip where no card is
+and at qwen3-0.6b's 8 x 2048 prefill, in both routes (bfloat16 and float32
+in 3xTF32, both wgmma on the tensor cores), and the float32 kernel on
+inputs holding +-inf and NaN; they skip where no card is
 present (``chip_smoke.py`` does the same at qwen3-0.6b's widths). The JAX side is imported by a fixture, so that the
 card-only tests also run on a machine with the port's dependencies alone:
 
@@ -192,14 +193,38 @@ def test_cuda_kernel_matches_plain_at_the_prefill_shape(cuda_device, dtype, tol)
 
 @pytest.mark.cuda
 def test_cuda_routes_report_their_design(cuda_device):
-    """bfloat16 runs on the tensor cores (wgmma + TMA, stage 2: a producer
-    and two consumer warpgroups), float32 on the CUDA cores (256 threads);
-    each fits at least one block on an SM and spills nothing."""
+    """Both routes run on the tensor cores with three warpgroups (a TMA
+    producer, for float32 also the splitter, and two consumer warpgroups):
+    bfloat16 in wgmma + TMA (stage 2), float32 in 3xTF32 wgmma + TMA
+    (stage 4); each fits at least one block on an SM and spills nothing."""
     bf16, f32 = FA.route_info(torch.bfloat16), FA.route_info(torch.float32)
     assert (bf16["stage"], bf16["design"], bf16["threads"]) == (2, "wgmma + TMA", 384)
-    assert (f32["stage"], f32["design"], f32["threads"]) == (0, "CUDA-core FMA", 256)
+    assert (f32["stage"], f32["design"], f32["threads"]) == (4, "3xTF32 wgmma + TMA", 384)
     for info in (bf16, f32):
         assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_float32_kernel_follows_plain_on_inf_and_nan(cuda_device):
+    """+-inf and NaN in q and k follow float32, not the 3xTF32 split: the
+    kernel's NaN positions are the plain version's, and every other value
+    agrees at the float32 gate. (v stays finite: the plain version sums
+    0 x v over the masked keys, which a NaN in v turns into NaN for every
+    row, where the kernel skips keys past a row's position.)"""
+    b, s, h, hkv, d = 2, 130, 16, 8, 128
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(b, s, h, hkv, d, seed=5))
+    q[0, 5, 3, 7] = float("inf")
+    q[1, 40, 0, 0] = float("nan")
+    q[0, 90, 1, 2] = -float("inf")
+    k[0, 100, 2, 5] = float("nan")
+    k[1, 64, 1, 1] = float("inf")
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert want.isnan().any() and not want.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+    finite = ~want.isnan()
+    torch.testing.assert_close(got[finite], want[finite], rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@ The ``cuda``-marked tests hold the backward kernel of
 kernel's lse against the plain lse, at d=128 for lengths around the 64-key
 tiles and the bfloat16 kernels' 128-key and 128-row blocks, 1 to 16 query
 heads a KV head, in float32 and bfloat16, and two backward calls bit-equal
-(the kernels use no atomics); they skip where no card is present. The JAX
+(the kernels use no atomics; float32 also at 4 x 2048); they skip where no
+card is present. The JAX
 side is imported by a fixture, so the card-only tests also run on a machine
 with the port's dependencies alone:
 
@@ -192,7 +193,11 @@ def test_bwd_scratch_holds_every_row_statistic(b, s, h, hkv):
 
 # the backward kernel against the plain backward on the card: max abs error
 # within atol + rtol |want|, and the error's norm over the gradient's.
-# float32 (CUDA cores) differs only in the order of float32 sums. bfloat16
+# float32 (3xTF32) differs in the order of float32 sums and by the dropped
+# lo x lo product (2^-22 of each term); the kernels end each tensor-core
+# accumulator chain after 16 tiles, since its truncation grows with the
+# chain (unbounded, the 32,896 rows a key sums at G=128 leave the norm
+# gate). bfloat16
 # (wgmma) rounds ds to bfloat16 for dq and dk as the reference does, and
 # P for dv where the reference keeps float32: an output rounding (2^-8 of
 # it), ds values that round to the other neighbour, 2^-9 of each dv term
@@ -302,9 +307,10 @@ def test_cuda_bwd_kernel_matches_plain_at_a_training_shape(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_cuda_bwd_routes_report_their_design(cuda_device):
-    """float32 on the CUDA cores (256 threads), bfloat16 on the tensor cores
-    (wgmma + TMA, 3 warpgroups); each kernel fits an SM and spills nothing."""
-    for dtype, design, threads in ((torch.float32, "CUDA-core FMA", 256),
+    """float32 in 3xTF32 mma.sync + TMA (8 warps), bfloat16 in wgmma + TMA
+    (3 warpgroups), both on the tensor cores; each kernel fits an SM and
+    spills nothing."""
+    for dtype, design, threads in ((torch.float32, "3xTF32 mma.sync + TMA", 256),
                                    (torch.bfloat16, "wgmma + TMA", 384)):
         info = FA.bwd_route_info(dtype)
         for name in ("dkdv", "dq"):
@@ -329,3 +335,18 @@ def test_cuda_bwd_kernel_is_deterministic(cuda_device, dtype):
         torch.cuda.synchronize()
         for name, x, y in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(x, y), (name, b, s, h, hkv, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_bwd_is_deterministic_at_the_training_length(cuda_device):
+    """Two float32 backward calls at 4 x 2048 (G = 2, qwen3-0.6b's H=16,
+    Hkv=8) give bit-equal dq, dk and dv: 128 tiles of 32 rows a key block,
+    so each key's sums cross the 16-tile chain ends 8 times."""
+    q, k, v, dout = (torch.from_numpy(a).to(cuda_device)
+                     for a in _grad_inputs(4, 2048, 16, 8, 128))
+    out, lse = FA._launch(q, k, v, with_lse=True)
+    first = FA._launch_bwd(q, k, v, out, lse, dout)
+    second = FA._launch_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name

@@ -164,6 +164,75 @@ def test_retrieval_equals_serving_each_candidate(arch):
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
+def _outside_ids(arch, cfg, batch, retrieval):
+    """``batch`` with ids at the table's edges: -1 and -V (wrapped by
+    ``jnp.take`` to rows V - 1 and 0), V and -V-1 (NaN rows), V the unified
+    table's rows. FM's rows are its ids plus the field's offset, so the ids
+    go where the offset is 0 (field 0) or are shifted by the candidates'
+    field offset."""
+    v = _port_params(arch)["emb"].shape[0]
+    rows = np.array([-1, -v, v, -v - 1], dtype=np.int32)
+    b = {k: np.array(x) for k, x in batch.items()}
+    if retrieval:
+        shift = int(rec.field_offsets(cfg.vocab_sizes, "cpu")[-1]) if arch == "fm" else 0
+        b["candidates"][:4] = rows - shift
+    elif arch == "fm":
+        b["ids"][:4, 0] = rows
+    else:
+        b["target"][:2] = rows[:2]
+        b["hist"][2:4, 0] = rows[2:]
+    return b, v
+
+
+@pytest.mark.parametrize("arch", ["fm", "din"])
+@pytest.mark.parametrize("retrieval", [False, True])
+def test_ids_outside_the_table_follow_jnp_take(arch, retrieval):
+    """FM and DIN serving and retrieval at ids -1, -V, V and -V-1: JAX's
+    scores, NaN where JAX gives NaN (a NaN row poisons its sample), and no
+    IndexError."""
+    jcfg, cfg, jp = _setup(arch)
+    base = data.retrieval_batch(cfg, 8, seed=9) if retrieval else data.batch_for(cfg, 8, seed=9)
+    b, _ = _outside_ids(arch, cfg, base, retrieval)
+    step, jstep = ((rec.retrieval_step, jax_rec.retrieval_step) if retrieval
+                   else (rec.serve_step, jax_rec.serve_step))
+    want = _np(jstep(jp, _j(b), jcfg))
+    got = _np(step(_port_params(arch), _t(b), cfg))
+    assert np.isnan(want).any() and not np.isnan(want).all()
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["fm", "din"])
+def test_wrapped_ids_train_like_jax(arch):
+    """Ids -1 and -V (wrapped rows): the loss and EVERY gradient leaf
+    finite and equal to ``jax.value_and_grad``'s, the table's gradient on
+    the wrapped rows included. With ids V and -V-1 as well: the table's
+    gradient equal to JAX's, NaN where JAX's is (the NaN samples' other
+    rows), finite elsewhere; the gradient of a NaN row goes to no row."""
+    jcfg, cfg, jp = _setup(arch)
+    b, v = _outside_ids(arch, cfg, data.batch_for(cfg, 8, seed=10), False)
+    wrapped = {k: x.copy() for k, x in b.items()}
+    if arch == "fm":
+        wrapped["ids"][2:4, 0] = (-1, -v)
+    else:
+        wrapped["hist"][2:4, 0] = (-1, -v)
+    for batch, finite in ((wrapped, True), (b, False)):
+        (want, _), want_g = jax.value_and_grad(
+            functools.partial(jax_rec.loss_fn, cfg=jcfg), has_aux=True)(jp, _j(batch))
+        got, _, grads = value_and_grad(functools.partial(rec.loss_fn, cfg=cfg),
+                                       _port_params(arch), _t(batch))
+        assert np.isfinite(got.item()) == finite == np.isfinite(float(want))
+        grads, want_flat = _flat(grads), _flat(want_g)
+        for path, g in grads.items():
+            if finite or path == "emb":
+                np.testing.assert_allclose(_np(g), _np(want_flat[path]), err_msg=path,
+                                           equal_nan=not finite, **GRAD_TOL)
+            if finite:
+                assert np.isfinite(_np(g)).all(), path
+        emb = _np(grads["emb"])
+        assert np.isfinite(emb[[0, v - 1]]).all() == np.isfinite(
+            _np(want_flat["emb"])[[0, v - 1]]).all()
+
+
 # ----------------------------------------------------------------- loss_fn --
 
 @pytest.mark.parametrize("arch", ARCHS)

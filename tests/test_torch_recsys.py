@@ -166,6 +166,26 @@ def test_embedding_lookup_equals_jax_exactly():
                                   np.asarray(jax_rec.field_offsets(jcfg.vocab_sizes)))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(7,), (3, 5)])
+def test_take_rows_follows_jnp_take(dtype, shape):
+    """FM's and DIN's lookup helper against ``jnp.take``: every id from -V-3
+    to V+2 (a row, a wrapped row [-V, 0), or NaN outside [-V, V)), bit for
+    bit with NaN where JAX gives NaN, and no host wait (no ``.item()``)."""
+    v, d = 6, 3
+    rng = np.random.default_rng(11)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    ids = rng.integers(-v - 3, v + 3, size=shape).astype(np.int32)
+    ids.reshape(-1)[:4] = (-1, -v, v, -v - 1)
+    jt = jnp.asarray(table).astype(jnp.dtype(dtype))
+    want = np.asarray(jnp.take(jt, jnp.asarray(ids), axis=0).astype(jnp.float32))
+    got = rec.take_rows(torch.from_numpy(table).to(getattr(torch, dtype)),
+                        torch.from_numpy(ids))
+    assert tuple(got.shape) == shape + (d,) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(_np(got), want)
+    assert np.isnan(want).any() and not np.isnan(want).all()
+
+
 @pytest.mark.parametrize("mode", ["sum", "mean", "max"])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_ragged_embedding_bag_matches_jax(mode, weighted):
