@@ -191,10 +191,39 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             262,144, retrieval_step over 1,000,000 candidates, 5 training
             steps at 65,536 (ms of each, peak memory); reduced float32
             serve, retrieval, loss and gradients on the card against the CPU
+  bert4rec  BERT4Rec at full width in bfloat16 (d 64, 2 blocks, 2 heads,
+            seq 200, a 1,000,448 x 64 table), its lookups on the bag
+            kernels both ways: serve_p99 (B=512, p50/p99 of 20 steps),
+            serve_bulk (262,144 rows as 8 calls of 32,768, median of 3),
+            retrieval_cand (1 sequence x 1,000,000 candidates, median of 5),
+            the bag kernel's launch counter set to 0 just before and read
+            just after: one launch a serve_step and a retrieval_step (a
+            step's ids go as one launch); at the timed shapes (B=512, a
+            32,768-row serve_bulk chunk, 1,000,000 candidates, then the loss
+            and every gradient leaf at B=16,384) through the kernels ==
+            through the plain route (torch.equal); 10 Trainer + adamw steps
+            at B=16,384 (the largest power of two up to 65,536 whose step
+            peaks under 70 GB: twice the batch, by the bytes a row holds,
+            would not), both bag counters counted: one forward and one
+            backward launch a step; step ms, examples/s, peak, the step's
+            bound and share, busy share; reduced float32 card == CPU
+  gnn       meshgraphnet at full width (15 layers, d_hidden 128, bfloat16,
+            remat): 5 Trainer + adamw steps each on molecule (128 graphs x
+            30 nodes x 64 edges through forward_batched), full_graph_sm
+            (2,708 nodes, 10,556 edges, d_feat 1,433) and minibatch_lg (the
+            port's NeighborSampler over random_graph(232,965, 492), 1,024
+            seeds, fanout (15, 10), pads that hold every hop's full
+            fanout (169,984 nodes / 168,960 edges), features taken
+            by node_ids from one seeded host matrix, the loss over
+            node_mask): finite losses, step ms, peak, the host's sampling
+            time apart; ogb_products printed as left out (its edge latents
+            do not fit one card); reduced float32 forward, forward_batched
+            and loss_fn gradients, each aggregator, card == CPU
 
 The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
-under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train and
-rec-family differentiate, outside it (their serving steps under it).
+under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
+rec-family, bert4rec and gnn differentiate, outside it (their serving steps
+under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
 host issuing each call; its "device ms" is the same calls queued behind a
 spin kernel, so that they run back to back on the card. Busy shares and
@@ -392,6 +421,16 @@ REC_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 #: rec-family: FM and DIN at full width, serve_p99 steps timed, training steps
 REC_FAMILY = ("fm", "din")
 REC_FAMILY_P99_STEPS, REC_FAMILY_TRAIN_STEPS = 20, 5
+#: bert4rec: serve_bulk's rows go as chunks of this many (one call of all
+#: 262,144 would hold 83.9 GB of float32 scores a block); the training
+#: batch (the largest power of two up to train_batch's 65,536 whose step
+#: peaks under B4R_PEAK_CAP bytes: 32,768 runs out of the card's memory) and
+#: its steps. Its step counts and check sizes are rec's and rec-family's
+B4R_BULK_CHUNK = 32768
+B4R_TRAIN_BATCH, B4R_TRAIN_STEPS = 16384, 10
+B4R_PEAK_CAP = 70e9
+#: gnn: training steps a shape
+GNN_TRAIN_STEPS = 5
 
 
 class CheckFailed(AssertionError):
@@ -3071,6 +3110,15 @@ def _grad_trees_close(torch, got, want):
     return close, worst
 
 
+def _serving_batch(cfg, batch: dict) -> dict:
+    """A serving batch from data/recsys.py's training batch: BERT4Rec serves
+    {"seq", "target"} (the label as the target, as the JAX package's
+    launch/specs.py lays it out); the CTR models their batch as it is."""
+    if cfg.kind == "bert4rec":
+        return {"seq": batch["seq"], "target": batch["label"]}
+    return batch
+
+
 def _reduced_on_card_vs_cpu(torch, cfg, seed: int, what: str) -> None:
     """reduced(cfg) in float32: serve_step, retrieval_step, loss_fn and every
     gradient leaf on the card against the CPU."""
@@ -3085,9 +3133,10 @@ def _reduced_on_card_vs_cpu(torch, cfg, seed: int, what: str) -> None:
     cpu = rec.init_model(small, torch.Generator().manual_seed(seed), "cpu")
     card = rec.params_from_numpy(cpu, "cuda")
     batch = rec_data.batch_for(small, 256, seed=seed)
+    serve = _serving_batch(small, batch)
     rbatch = rec_data.retrieval_batch(small, 1000, seed=seed)
     with torch.inference_mode():
-        for name, fn, b in (("serve_step B=256", rec.serve_step, batch),
+        for name, fn, b in (("serve_step B=256", rec.serve_step, serve),
                             ("retrieval_step N=1000", rec.retrieval_step, rbatch)):
             on_card = fn(card, _rec_batch(torch, b), small).cpu()
             on_cpu = fn(cpu, {k: torch.from_numpy(v) for k, v in b.items()}, small)
@@ -3324,6 +3373,436 @@ def phase_rec_family(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- bert4rec --
+
+def _b4r_serving(cfg, batch: int, seed: int) -> dict:
+    """The serving batch {"seq", "target"} of data/recsys.py's bert4rec
+    batch: its sequences and its labels as targets, drawn with no negatives
+    (they come after both from the generator, so the two are unchanged)."""
+    import dataclasses
+
+    from repro_torch.data import recsys as rec_data
+    return _serving_batch(cfg, rec_data.batch_for(dataclasses.replace(cfg, n_negatives=0),
+                                                  batch, seed=seed))
+
+
+def b4r_step_bound(cfg, batch: int, n_params: int):
+    """The least time of one BERT4Rec training step on the card, the larger
+    of (a) the bytes it must move: 30 B a parameter of adamw traffic, the
+    lookup's bf16 rows read and their table gradient written, and (b) its
+    operations at the bf16 peak: 3x the forward's products (per block
+    q/k/v/o 8 B S d^2 + MLP 16 B S d^2 + scores and p @ v 4 B S^2 d, and
+    the sampled softmax's 2 B (N + 1) d). Returns (ms, "bytes"|"operations",
+    bytes, operations)."""
+    b, s, d, n = batch, cfg.seq_len, cfg.embed_dim, cfg.n_negatives
+    rows = b * (s + 1 + n)
+    n_bytes = 30 * n_params + 2 * 2 * rows * d
+    ops = 3 * (cfg.n_blocks * (24 * b * s * d * d + 4 * b * s * s * d) + 2 * b * (n + 1) * d)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        n_bytes, ops
+
+
+def phase_bert4rec(torch, seed: int) -> dict:
+    """BERT4Rec at full width in bfloat16 (weights from --seed, data from
+    data/recsys.py): serve_p99, serve_bulk in chunks of B4R_BULK_CHUNK,
+    retrieval_cand, the bag kernel's launches counted (one a serve_step and
+    a retrieval_step: the ids of a step go as one launch); the kernel route
+    == the plain route at the timed shapes (a serve_p99 batch, a serve_bulk
+    chunk, all the candidates; then the loss and every gradient leaf of a
+    B4R_TRAIN_BATCH training batch); B4R_TRAIN_STEPS Trainer + adamw steps
+    at B4R_TRAIN_BATCH with both bag counters counted (one forward and one
+    backward launch a step), its peak under B4R_PEAK_CAP and twice the
+    batch, by the bytes a row holds, past it; reduced float32 on the card
+    against the CPU."""
+    import functools
+
+    from repro_torch.configs import RECSYS_SHAPES, get_config
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import recsys as rec
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer, value_and_grad
+
+    sync = torch.cuda.synchronize
+    cfg = get_config("bert4rec")
+    sizes = {s_.name: s_ for s_ in RECSYS_SHAPES}
+    p99, bulk = sizes["serve_p99"].batch, sizes["serve_bulk"].batch
+    n_cand, b_full = sizes["retrieval_cand"].n_candidates, sizes["train_batch"].batch
+    t0 = time.perf_counter()
+    params = rec.init_model(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    n_params = sum(t_.numel() for t_ in _leaves(params))
+    v, d = params["emb"].shape
+    p99_batches = [_rec_batch(torch, _b4r_serving(cfg, p99, seed + i))
+                   for i in range(REC_FAMILY_P99_STEPS + 1)]
+    n_chunks = bulk // B4R_BULK_CHUNK
+    bulk_chunks = [_rec_batch(torch, _b4r_serving(cfg, B4R_BULK_CHUNK, seed + 100 + i))
+                   for i in range(n_chunks)]
+    ret_batch = _rec_batch(torch, rec_data.retrieval_batch(cfg, n_cand, seed=seed + 2))
+    sync()
+    log(f"bert4rec: cfg d={cfg.embed_dim} blocks={cfg.n_blocks} heads={cfg.n_heads} "
+        f"seq={cfg.seq_len} items={cfg.n_items} {cfg.dtype}: params={n_params:,} (n_params() "
+        f"{cfg.n_params():,}; the table padded to {v:,} rows, row {cfg.n_items} the [MASK] "
+        f"token, {v * d * 2 / 1e6:.1f} MB); made with batches in "
+        f"{time.perf_counter() - t0:.3f} s; serve_bulk's {bulk} rows as {n_chunks} calls of "
+        f"{B4R_BULK_CHUNK} (one call would hold {bulk * cfg.n_heads * cfg.seq_len ** 2 * 4 / 1e9:.1f} "
+        f"GB of float32 scores a block)")
+    with torch.inference_mode():
+        # warm-up at each shape
+        rec.serve_step(params, p99_batches[-1], cfg)
+        rec.serve_step(params, bulk_chunks[0], cfg)
+        rec.retrieval_step(params, ret_batch, cfg)
+        sync()
+        torch.cuda.empty_cache()
+
+        # ---- the serving path, counted ----
+        EB.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        p99_s = []
+        for batch in p99_batches[:REC_FAMILY_P99_STEPS]:
+            t = time.perf_counter()
+            scores = rec.serve_step(params, batch, cfg)
+            sync()
+            p99_s.append(time.perf_counter() - t)
+            check(tuple(scores.shape) == (p99,) and bool(torch.isfinite(scores).all()),
+                  "bert4rec: serve_p99 scores not finite (B,)")
+        bulk_s = []
+        for _ in range(REC_BULK_STEPS):
+            t = time.perf_counter()
+            outs = [rec.serve_step(params, c, cfg) for c in bulk_chunks]
+            sync()
+            bulk_s.append(time.perf_counter() - t)
+        scores = torch.cat(outs)
+        check(tuple(scores.shape) == (bulk,) and bool(torch.isfinite(scores).all()),
+              "bert4rec: serve_bulk scores not finite (B,)")
+        bulk_std = scores.std().item()
+        ret_s = []
+        for _ in range(REC_RETRIEVAL_STEPS):
+            t = time.perf_counter()
+            cand = rec.retrieval_step(params, ret_batch, cfg)
+            sync()
+            ret_s.append(time.perf_counter() - t)
+        serve_launches = EB.launches
+        # ---- end of the counted run ----
+        serve_peak = torch.cuda.max_memory_allocated()
+        check(tuple(cand.shape) == (1, n_cand) and bool(torch.isfinite(cand).all()),
+              "bert4rec: retrieval scores not finite (1, N)")
+        n_calls = REC_FAMILY_P99_STEPS + REC_BULK_STEPS * n_chunks + REC_RETRIEVAL_STEPS
+        med_b, med_r = statistics.median(bulk_s), statistics.median(ret_s)
+        log(f"bert4rec: serve_p99 B={p99}, {REC_FAMILY_P99_STEPS} steps: p50_ms="
+            f"{_percentile(p99_s, 0.5) * 1e3:.3f} p99_ms={_percentile(p99_s, 0.99) * 1e3:.3f} "
+            f"(min {min(p99_s) * 1e3:.3f}, max {max(p99_s) * 1e3:.3f})")
+        log(f"bert4rec: serve_bulk B={bulk} ({n_chunks} x {B4R_BULK_CHUNK}): "
+            f"{','.join(f'{x * 1e3:.3f}' for x in bulk_s)} ms, median {med_b * 1e3:.3f} ms, "
+            f"{bulk / med_b:.1f} examples/s; scores std {bulk_std:.4f}")
+        log(f"bert4rec: retrieval_cand 1 sequence x {n_cand} candidates: "
+            f"{','.join(f'{x * 1e3:.3f}' for x in ret_s)} ms, median {med_r * 1e3:.3f} ms; "
+            f"top candidate {int(cand.argmax())}; serving peak allocated "
+            f"{serve_peak / 1e9:.3f} GB")
+        log(f"bert4rec: embedding_bag launches={serve_launches} over {n_calls} serve_step and "
+            f"retrieval_step calls")
+        check(serve_launches > 0, "bert4rec: the serving path launched the bag kernel no time")
+        check(serve_launches == n_calls, f"bert4rec: expected one bag launch a serve_step and a "
+                                         f"retrieval_step, got {serve_launches} for {n_calls}")
+        del outs, scores, cand
+        torch.cuda.empty_cache()
+        busy = _busy_share(torch, lambda: rec.serve_step(params, p99_batches[0], cfg),
+                           "embedding_bag", top=8)
+        log(f"bert4rec: serve_p99 B={p99} {busy}")
+
+        # the kernel route against the plain route, serving, at the timed
+        # shapes: a serve_p99 batch, a serve_bulk chunk, all the candidates
+        for name, fn, batch in (
+                (f"serve_step B={p99}", rec.serve_step, p99_batches[0]),
+                (f"serve_step B={B4R_BULK_CHUNK} (a serve_bulk chunk)", rec.serve_step,
+                 bulk_chunks[0]),
+                (f"retrieval_step N={n_cand}", rec.retrieval_step, ret_batch)):
+            got = fn(params, batch, cfg)
+            want = fn(params, batch, cfg, lookup="plain")
+            ok = bool(torch.isfinite(got).all()) and bool(torch.equal(got, want))
+            log(f"bert4rec: {name} bfloat16 kernel == plain lookup (torch.equal): "
+                f"{'ok' if ok else 'FAIL'} (max_abs_err {(got - want).abs().max().item():.3e})")
+            check(ok, f"bert4rec: {name} through the kernel != through the plain lookup")
+            del got, want
+            torch.cuda.empty_cache()
+        del p99_batches, bulk_chunks, ret_batch
+
+    # training differentiates: outside inference_mode
+    b_train = B4R_TRAIN_BATCH
+    t0 = time.perf_counter()
+    gen = rec_data.batches(cfg, b_train, seed=0)
+    batches = [{k: torch.from_numpy(x).cuda() for k, x in next(gen).items()}
+               for _ in range(B4R_TRAIN_STEPS + 1)]
+    sync()
+    batch_bytes = sum(t_.numel() * t_.element_size() for b_ in batches for t_ in b_.values())
+    log(f"bert4rec: train B={b_train} (train_batch {b_full} cut to the largest power of two "
+        f"whose step peaks under {B4R_PEAK_CAP / 1e9:.0f} GB), n_negatives {cfg.n_negatives}: "
+        f"{B4R_TRAIN_STEPS + 1} batches ({batch_bytes / 1e9:.3f} GB) made and moved to the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+
+    # the kernel route against the plain route on the first training batch:
+    # the loss and every gradient leaf, the table's (the backward kernel on
+    # this step's ids and cotangent) included; the kernel route's gradients
+    # are kept, its activations freed before the plain route runs
+    n_pos = sum(batches[0][k].numel() for k in ("seq", "label", "negatives"))
+    trees = {}
+    for lookup in ("kernel", "plain"):
+        torch.cuda.reset_peak_memory_stats()
+        before = (EB.launches, EB.bwd_launches)
+        l_, _, g_ = value_and_grad(functools.partial(rec.loss_fn, cfg=cfg, lookup=lookup),
+                                   params, batches[0])
+        sync()
+        trees[lookup] = (l_.item(), g_, (EB.launches - before[0], EB.bwd_launches - before[1]),
+                         torch.cuda.max_memory_allocated())
+        del l_, g_
+        torch.cuda.empty_cache()
+    kern, plain = trees["kernel"], trees["plain"]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(_leaves(kern[1]), _leaves(plain[1])))
+    finite = all(bool(torch.isfinite(g_).all()) for g_ in _leaves(kern[1]))
+    emb_err = (kern[1]["emb"].float() - plain[1]["emb"].float()).abs().max().item()
+    ok = (same and finite and kern[0] == plain[0] and kern[2] == (1, 1)
+          and plain[2] == (0, 0))
+    log(f"bert4rec: bfloat16 loss_fn B={b_train} ({n_pos:,} positions over {v:,} rows at "
+        f"d={d}): loss {kern[0]:.6f} and {len(list(_leaves(plain[1])))} gradient leaves, the "
+        f"table's included (max_abs_err {emb_err:.3e}), through the kernels == through the "
+        f"plain route (torch.equal): {same}; launches fwd/bwd kernel route {kern[2]}, plain "
+        f"route {plain[2]}; peak allocated {kern[3] / 1e9:.3f} / {plain[3] / 1e9:.3f} GB "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "bert4rec: the kernel route's loss or gradients differ from the plain route's")
+    del trees, kern, plain
+
+    tr = Trainer(functools.partial(rec.loss_fn, cfg=cfg),
+                 adamw(warmup_cosine_schedule(REC_TRAIN_LR, 10, B4R_TRAIN_STEPS)), params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    # ---- the training path, counted ----
+    EB.reset_launches()
+    EB.reset_bwd_launches()
+    t0 = time.perf_counter()
+    tr.run(iter(batches[:B4R_TRAIN_STEPS]), max_steps=B4R_TRAIN_STEPS, log_every=0)
+    sync()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = EB.launches, EB.bwd_launches
+    # ---- end of the counted run ----
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    step_ms = [h["step_time_s"] * 1e3 for h in tr.history]
+    med = statistics.median(step_ms[1:])
+    check(all(math.isfinite(x) for x in losses), "bert4rec: a training loss is not finite")
+    bound_ms, bound_by, n_bytes, ops = b4r_step_bound(cfg, b_train, n_params)
+    log(f"bert4rec: {B4R_TRAIN_STEPS} steps of B={b_train} in {train_s:.3f} s; step_ms "
+        f"first={step_ms[0]:.3f} median(2..{B4R_TRAIN_STEPS})={med:.3f} min={min(step_ms[1:]):.3f} "
+        f"max={max(step_ms[1:]):.3f}; {b_train / med * 1e3:.1f} examples/s; loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB")
+    log(f"bert4rec: step bound max(bytes, operations): {n_bytes / 1e9:.3f} GB "
+        f"({n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), {ops:.4e} operations "
+        f"({ops / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms at 989 TFLOP/s): {bound_ms:.3f} ms by "
+        f"{bound_by}, share of bound {bound_ms / med:.4f}")
+    log(f"bert4rec: embedding_bag launches={fwd}, embedding_bag_bwd launches={bwd} over "
+        f"{B4R_TRAIN_STEPS} steps")
+    check(fwd > 0 and bwd > 0, "bert4rec: the training path launched a bag kernel no time")
+    check(fwd == bwd == B4R_TRAIN_STEPS,
+          f"bert4rec: expected one forward and one backward bag launch a step, got {fwd} and "
+          f"{bwd} over {B4R_TRAIN_STEPS} steps")
+    check(peak < B4R_PEAK_CAP, f"bert4rec: the step peaked at {peak / 1e9:.3f} GB, past "
+                               f"{B4R_PEAK_CAP / 1e9:.0f} GB")
+    # the next power of two: what the step adds to what was held before it
+    # scales with the batch, and so do the batches; the rest (weights,
+    # optimizer state) does not
+    per_row = (peak - held + batch_bytes) / b_train
+    twice = held - batch_bytes + 2 * b_train * per_row
+    log(f"bert4rec: the step holds {per_row / 1e6:.3f} MB a row over the "
+        f"{(held - batch_bytes) / 1e9:.3f} GB of weights and optimizer state held before it; "
+        f"B={2 * b_train} would peak at about {twice / 1e9:.1f} GB, past {B4R_PEAK_CAP / 1e9:.0f} "
+        f"GB: {'ok' if twice > B4R_PEAK_CAP else 'FAIL'}")
+    check(twice > B4R_PEAK_CAP, f"bert4rec: B={2 * b_train} would peak at about "
+                                f"{twice / 1e9:.1f} GB, under the cap: the training batch is "
+                                f"not the largest power of two that fits")
+    one = batches[-1:]
+    busy = _busy_share(torch, lambda: tr.run(iter(one), max_steps=tr.step + 1, log_every=0),
+                       "embedding_bag", top=12)
+    log(f"bert4rec: one step B={b_train} {busy}")
+    del tr, batches, one
+    torch.cuda.empty_cache()
+    _reduced_on_card_vs_cpu(torch, cfg, seed, "bert4rec")
+    return {"launches": serve_launches + fwd, "bwd_launches": bwd, "step_ms": med,
+            "peak": peak}
+
+
+# --------------------------------------------------------------------- gnn --
+
+def _gnn_steps(torch, cfg, params, batches, batched: bool, what: str):
+    """GNN_TRAIN_STEPS Trainer + adamw steps over ``batches`` (tensors on
+    the card): (step ms median of steps 2.., the first step's ms, losses,
+    peak bytes, the trainer)."""
+    import functools
+
+    from repro_torch.models import gnn
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    tr = Trainer(functools.partial(gnn.loss_fn, cfg=cfg, batched=batched),
+                 adamw(warmup_cosine_schedule(REC_TRAIN_LR, 10, GNN_TRAIN_STEPS)), params)
+    torch.cuda.reset_peak_memory_stats()
+    tr.run(iter(batches), max_steps=GNN_TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    check(len(losses) == GNN_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"gnn: {what}: a training loss is not finite")
+    step_ms = [h["step_time_s"] * 1e3 for h in tr.history]
+    return statistics.median(step_ms[1:]), step_ms[0], losses, peak, tr
+
+
+def _gnn_reduced_on_card_vs_cpu(torch, cfg, seed: int) -> None:
+    """reduced(meshgraphnet) in float32 for each aggregator: forward,
+    forward_batched and loss_fn's value and every gradient leaf on the card
+    against the CPU (index_add_ sums with float atomics on the card)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import reduced
+    from repro_torch.data.graph import graph_batch
+    from repro_torch.models import gnn
+    from repro_torch.training.train_loop import value_and_grad
+
+    for agg in ("sum", "mean", "max"):
+        small = dataclasses.replace(reduced(cfg), aggregator=agg)
+        cpu = gnn.init_gnn(small, torch.Generator().manual_seed(seed), 16, "cpu")
+        card = gnn.params_from_numpy(cpu, "cuda")
+        for batched, b in ((False, graph_batch(200, 800, 16, seed=seed)),
+                           (True, graph_batch(30, 64, 16, seed=seed, n_graphs=8))):
+            b["receivers"][..., :b["nodes"].shape[-2]] = np.arange(b["nodes"].shape[-2])
+            keys = ("nodes", "edges", "senders", "receivers")
+            f = gnn.forward_batched if batched else gnn.forward
+            with torch.inference_mode():
+                on_card = f(card, *[torch.from_numpy(b[k]).cuda() for k in keys], small).cpu()
+                on_cpu = f(cpu, *[torch.from_numpy(b[k]) for k in keys], small)
+            fwd_err = (on_card - on_cpu).abs().max().item()
+            fwd_ok = bool(torch.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-5))
+            loss = functools.partial(gnn.loss_fn, cfg=small, batched=batched)
+            l_card, _, g_card = value_and_grad(loss, card, {k: torch.from_numpy(v).cuda()
+                                                            for k, v in b.items()})
+            l_cpu, _, g_cpu = value_and_grad(loss, cpu, {k: torch.from_numpy(v)
+                                                         for k, v in b.items()})
+            loss_rel = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+            close, worst = _grad_trees_close(torch, g_card, g_cpu)
+            ok = fwd_ok and loss_rel <= REC_LOSS_REL and close
+            log(f"gnn: {small.name} float32 {agg} {'forward_batched 8 x 30' if batched else 'forward 200'} "
+                f"on the card == on the CPU: max_abs_err={fwd_err:.3e}; loss_fn rel "
+                f"{loss_rel:.3e}; {len(list(_leaves(g_cpu)))} gradient leaves within rtol "
+                f"{REC_GRAD_TOL['rtol']} atol {REC_GRAD_TOL['atol']}: {close} (max abs error "
+                f"{worst:.3e}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"gnn: {small.name} {agg} batched={batched}: the card disagrees with the "
+                      f"CPU (forward {fwd_err}, loss rel {loss_rel}, worst leaf {worst})")
+
+
+def phase_gnn(torch, seed: int) -> dict:
+    """MeshGraphNet at full width (15 layers, d_hidden 128, bfloat16,
+    remat) on the GNN_SHAPES one card holds: molecule through
+    forward_batched, full_graph_sm, and minibatch_lg from the port's
+    NeighborSampler over random_graph(232,965, 492) with features taken by
+    node_ids from one seeded host matrix; GNN_TRAIN_STEPS Trainer + adamw
+    steps each (finite losses, step ms, peak; the host's sampling apart from
+    the card's step); reduced float32 on the card against the CPU.
+    ogb_products is left out: its edge latents do not fit one card."""
+    import numpy as np
+
+    from repro_torch.configs import GNN_SHAPES, get_config
+    from repro_torch.data import graph as G
+    from repro_torch.models import gnn
+
+    cfg = get_config("meshgraphnet")
+    shapes = {s_.name: s_ for s_ in GNN_SHAPES}
+    gen = torch.Generator("cuda")
+    out = {}
+
+    def on_card(b):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in b.items()}
+
+    def report(name, params, what, batches, batched, extra=""):
+        n_params = sum(t_.numel() for t_ in _leaves(params))
+        med, first, losses, peak, tr = _gnn_steps(torch, cfg, params, batches, batched, name)
+        log(f"gnn: {name} ({what}) params={n_params:,} (n_params() "
+            f"{cfg.n_params(batches[0]['nodes'].shape[-1]):,}): {GNN_TRAIN_STEPS} steps, "
+            f"step_ms first={first:.3f} median(2..)={med:.3f}; loss "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB{extra}")
+        busy = _busy_share(torch, lambda: tr.run(iter(batches[-1:]), max_steps=tr.step + 1,
+                                                 log_every=0), "indexFunc", top=6)
+        log(f"gnn: {name} one step {busy}")
+        out[name] = {"step_ms": med, "peak": peak}
+
+    s_ = shapes["molecule"]
+    batches = [on_card(G.graph_batch(s_.n_nodes, s_.n_edges, s_.d_feat, d_out=cfg.d_out,
+                                     seed=seed + i, n_graphs=s_.n_graphs))
+               for i in range(GNN_TRAIN_STEPS)]
+    params = gnn.init_gnn(cfg, gen.manual_seed(seed), s_.d_feat, "cuda")
+    report("molecule", params, f"{s_.n_graphs} graphs x {s_.n_nodes} nodes x {s_.n_edges} "
+                               f"edges, d_feat {s_.d_feat}, forward_batched", batches, True)
+
+    s_ = shapes["full_graph_sm"]
+    batches = [on_card(G.graph_batch(s_.n_nodes, s_.n_edges, s_.d_feat, d_out=cfg.d_out,
+                                     seed=seed + i))
+               for i in range(GNN_TRAIN_STEPS)]
+    params = gnn.init_gnn(cfg, gen.manual_seed(seed), s_.d_feat, "cuda")
+    report("full_graph_sm", params, f"{s_.n_nodes} nodes, {s_.n_edges} edges, d_feat "
+                                    f"{s_.d_feat}", batches, False)
+
+    s_ = shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = G.random_graph(s_.n_nodes, round(s_.n_edges / s_.n_nodes), seed=seed)
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((s_.n_nodes, s_.d_feat), dtype=np.float32)
+    targets = rng.standard_normal((s_.n_nodes, cfg.d_out), dtype=np.float32)
+    host_s = time.perf_counter() - t0
+    sampler = G.NeighborSampler(graph, s_.fanout, seed=seed)
+    # pads that hold every hop's full fanout, so the sampler truncates nothing
+    hops = [s_.batch_nodes]
+    for f in s_.fanout:
+        hops.append(hops[-1] * f)
+    pad_nodes, pad_edges = sum(hops), sum(hops[1:])
+    batches, sample_s, sizes = [], [], []
+    for i in range(GNN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        seeds = np.random.default_rng(seed + i).choice(s_.n_nodes, s_.batch_nodes, replace=False)
+        sub = sampler.sample(seeds, pad_nodes, pad_edges)
+        ids = sub["node_ids"]
+        b = {"nodes": feats[ids], "targets": targets[ids], "node_mask": sub["node_mask"],
+             "senders": sub["senders"], "receivers": sub["receivers"],
+             "edges": rng.standard_normal((pad_edges, cfg.d_edge_in), dtype=np.float32)
+             * sub["edge_mask"][:, None]}
+        sample_s.append(time.perf_counter() - t0)
+        sizes.append((int(sub["node_mask"].sum()), int(sub["edge_mask"].sum())))
+        batches.append(on_card(b))
+    check(all(n <= pad_nodes and e <= pad_edges for n, e in sizes),
+          "gnn: minibatch_lg: a sample exceeds its pads")
+    params = gnn.init_gnn(cfg, gen.manual_seed(seed), s_.d_feat, "cuda")
+    report("minibatch_lg", params,
+           f"NeighborSampler over random_graph({s_.n_nodes:,}, "
+           f"{round(s_.n_edges / s_.n_nodes)}): {graph.n_edges:,} edges, "
+           f"{graph.indices.nbytes / 1e6:.1f} MB of indices; {s_.batch_nodes} seeds, fanout "
+           f"{s_.fanout}, pads {pad_nodes} nodes / {pad_edges} edges; d_feat {s_.d_feat}",
+           batches, False,
+           f"; host: graph, features and targets {host_s:.3f} s, each sample "
+           f"{','.join(f'{x * 1e3:.1f}' for x in sample_s)} ms (median "
+           f"{statistics.median(sample_s) * 1e3:.1f}), real nodes/edges "
+           f"{' '.join(f'{n}/{e}' for n, e in sizes)}")
+    out["minibatch_lg"]["sample_ms"] = statistics.median(sample_s) * 1e3
+    s_ = shapes["ogb_products"]
+    log(f"gnn: ogb_products ({s_.n_nodes:,} nodes, {s_.n_edges:,} edges) left out: one "
+        f"(E, {cfg.d_hidden}) bf16 edge latent is {s_.n_edges * cfg.d_hidden * 2 / 1e9:.1f} GB "
+        f"and the (E, {3 * cfg.d_hidden}) message input "
+        f"{s_.n_edges * 3 * cfg.d_hidden * 2 / 1e9:.1f} GB, past one card even for a forward "
+        f"pass; it waits for sharded node and edge latents (ROADMAP.md item 11)")
+    del batches, params, graph, feats, targets, sampler
+    torch.cuda.empty_cache()
+    _gnn_reduced_on_card_vs_cpu(torch, cfg, seed)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3429,6 +3908,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     phase_rec_family(torch, args.seed)
     phases["rec-family"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b4r = phase_bert4rec(torch, args.seed)
+    phases["bert4rec"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_gnn(torch, args.seed)
+    phases["gnn"] = time.perf_counter() - t
     for name, sec in phases.items():
         log(f"phase {name}: ok in {sec:.3f} s")
     log(f"total {time.perf_counter() - t_all:.3f} s on {dev['card']}")
@@ -3498,6 +3983,7 @@ def main(argv=None) -> int:
         "plain_ms": tbg["plain"], "bound_ms": tbg["bound_ms"],
         "bound_by": tbg["bound_by"], "library_ms": tbg["library"],
         "device_ms": tbg["device_ms"], "launches_train": rec_train["launches"],
+        "launches_bert4rec": b4r["launches"],
         "dtype": "bfloat16", "shape": f"serve_bulk {tbg['shape']}",
     }, {
         "name": "embedding_bag_bwd", "route": "cuda", "source": embedding_bag.BWD_SOURCE,
@@ -3506,6 +3992,7 @@ def main(argv=None) -> int:
         "max_abs_err_float32": bag_bwd["max_err"]["float32"], "ms": tbb["kernel"],
         "plain_ms": tbb["plain"], "bound_ms": tbb["bound_ms"], "bound_by": tbb["bound_by"],
         "library_ms": tbb["library"], "device_ms": tbb["device_ms"], "sort_ms": tbb["sort"],
+        "launches_bert4rec_train": b4r["bwd_launches"],
         "dtype": "bfloat16", "shape": f"training lookup {tbb['shape']}",
     }]}
     print(json.dumps(line), flush=True)

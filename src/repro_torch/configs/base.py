@@ -1,8 +1,6 @@
 """Config dataclasses: the text-pair family (the paper's own model), the LM
-transformers and the recsys models, plus the input-shape specs of their
-cells.
-
-The GNN family follows with its models.
+transformers, the GNN and the recsys models, plus the input-shape specs of
+their cells.
 """
 from __future__ import annotations
 
@@ -123,6 +121,41 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int = 15
+    d_hidden: int = 128
+    mlp_layers: int = 2          # hidden layers per MLP
+    aggregator: str = "sum"
+    d_edge_in: int = 4           # synthetic relative-position edge features
+    d_out: int = 2
+    dtype: str = "bfloat16"
+    remat: bool = True
+    family: str = "gnn"
+
+    def n_params(self, d_feat: int) -> int:
+        h = self.d_hidden
+        mlp = lambda i, o: i * h + (self.mlp_layers - 1) * h * h + h * o  # noqa: E731
+        enc = mlp(d_feat, h) + mlp(self.d_edge_in, h)
+        proc = self.n_layers * (mlp(3 * h, h) + mlp(2 * h, h))
+        dec = mlp(h, self.d_out)
+        return enc + proc + dec
+
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "graph_full", n_nodes=2708, n_edges=10556, d_feat=1433),
+    ShapeSpec("minibatch_lg", "graph_sampled", n_nodes=232965, n_edges=114615892,
+              d_feat=602, batch_nodes=1024, fanout=(15, 10)),
+    ShapeSpec("ogb_products", "graph_full", n_nodes=2449029, n_edges=61859140, d_feat=100),
+    ShapeSpec("molecule", "graph_batched", n_nodes=30, n_edges=64, d_feat=16, n_graphs=128),
+)
+
+
+# ---------------------------------------------------------------------------
 # RecSys
 # ---------------------------------------------------------------------------
 
@@ -231,6 +264,9 @@ def reduced(cfg):
             cfg, name=cfg.name + "-smoke", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=min(cfg.n_kv_heads, 2), d_head=16, d_ff=128,
             vocab_size=256, moe=moe, dtype="float32", attn_chunk=16)
+    if isinstance(cfg, GNNConfig):
+        return dataclasses.replace(cfg, name=cfg.name + "-smoke", n_layers=2,
+                                   d_hidden=16, dtype="float32")
     if isinstance(cfg, RecsysConfig):
         kw = dict(name=cfg.name + "-smoke", embed_dim=8, dtype="float32",
                   n_negatives=16)

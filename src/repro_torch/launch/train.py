@@ -12,18 +12,21 @@ accounting and the fault-tolerant step loop (``training.train_loop``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
       --batch 4 --seq-len 2048 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert4rec --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --arch meshgraphnet --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --arch sm-cnn --device cpu
 
-Families ``lm``, ``textpair`` (sm-cnn) and ``recsys`` (dlrm-mlperf, fm, din;
-DLRM's lookups on the hand-written EmbeddingBag kernels both ways,
-``kernels/embedding_bag.py``) train. BERT4Rec (from its ``loss_fn``) and the
-``gnn`` family raise ``NotImplementedError``: their training comes with
-ROADMAP.md §1 item 10e. ``--full`` dlrm-mlperf does not fit one card: its
-24.03e9 table elements need 16 bytes each for the parameter, its float32
-master copy and the two moments (384.5 GB), so it waits for the sharded
-table of item 11. The data are the port's numpy generators with the JAX
-launcher's seeds, so both launchers see the same batches; the weights are
-drawn from ``torch.Generator`` seed 0 on the device, so they are not JAX's.
+Every family trains: ``lm``, ``textpair`` (sm-cnn), ``recsys``
+(dlrm-mlperf, fm, din, bert4rec; DLRM's and BERT4Rec's lookups on the
+hand-written EmbeddingBag kernels both ways, ``kernels/embedding_bag.py``)
+and ``gnn`` (meshgraphnet, on synthetic 200-node, 800-edge graphs with 16
+node features, a new graph a step, as the JAX launcher builds them).
+``--full`` dlrm-mlperf does not fit one card: its 24.03e9 table elements
+need 16 bytes each for the parameter, its float32 master copy and the two
+moments (384.5 GB), so it waits for the sharded table of ROADMAP.md §1
+item 11. The data are the port's numpy generators with the JAX launcher's
+seeds, so both launchers see the same batches; the weights are drawn from
+``torch.Generator`` seed 0 on the device, so they are not JAX's.
 """
 from __future__ import annotations
 
@@ -64,10 +67,20 @@ def build(arch: str, full: bool, batch: int, seq_len: int, device="cuda"):
         loss = functools.partial(rec_lib.loss_fn, cfg=cfg)
         return cfg, params, loss, batches(cfg, batch)
 
-    if fam != "textpair":
-        raise NotImplementedError(
-            f"{arch}: training of the {fam} family is not ported yet "
-            f"(ROADMAP.md §1 item 10e)")
+    if fam == "gnn":
+        from repro_torch.data.graph import graph_batch
+        from repro_torch.models import gnn as gnn_lib
+        d_feat = 16
+        params = gnn_lib.init_gnn(cfg, torch.Generator(device=dev).manual_seed(0),
+                                  d_feat, dev)
+        loss = functools.partial(gnn_lib.loss_fn, cfg=cfg)
+
+        def graphs():
+            i = 0
+            while True:
+                yield graph_batch(200, 800, d_feat=d_feat, d_out=cfg.d_out, seed=i)
+                i += 1
+        return cfg, params, loss, graphs()
 
     # textpair (sm-cnn)
     from repro_torch.data import qa as QA

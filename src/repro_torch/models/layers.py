@@ -1,8 +1,9 @@
-"""Foundational layers: RMS norm, RoPE, GQA attention, SwiGLU, MLPs, inits,
-the LM's cross-entropy.
+"""Foundational layers: RMS and layer norm, RoPE, GQA attention, SwiGLU,
+MLPs, inits, the LM's cross-entropy.
 
-The LM subset of the JAX package's ``models/layers.py`` and its plain MLP
-stack (the recsys models'), as pure functions
+The LM subset of the JAX package's ``models/layers.py``, its plain MLP
+stack (the recsys models') and its layer norm (BERT4Rec's and the GNN's),
+as pure functions
 over plain dicts of tensors, with the same names, layouts and order of
 float32 casts: ``q (B, S, H, D)``, ``k/v (B, S, Hkv, D)``, query head ``h``
 on KV head ``h // G`` with ``G = H / Hkv``. Initializers draw from an
@@ -75,6 +76,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis in float32, cast back to x's type: the
+    JAX formula, ``(x - mean) * rsqrt(var + eps) * w + b`` with the biased
+    variance ``mean((x - mean)^2)``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""RecSys models: the EmbeddingBag substrate, FM, DLRM and DIN, serving
-and training.
+"""RecSys models: the EmbeddingBag substrate, FM, DLRM, DIN and BERT4Rec,
+serving and training.
 
 The port of the JAX package's ``models/recsys.py``, with its names,
 parameter tree and layouts. Every embedding lives in one unified table
@@ -12,7 +12,8 @@ DLRM's per-field single-hot lookup (``embedding_lookup``) runs as
 per ``serve_step`` and per training step, two per ``retrieval_step`` (the
 user's fields, then the candidates). With weights 1 and one row a bag, the
 bag is its row, bit for bit, so the kernel computes what JAX's ``jnp.take``
-computes. Where the table requires a gradient the lookup is an
+computes, ids outside the table included (``[-V, 0)`` wraps, a NaN row
+outside ``[-V, V)``). Where the table requires a gradient the lookup is an
 ``EmbeddingBag`` node, whose backward is the hand-written backward kernel:
 the dense table gradient summed in float32 (JAX's ``jnp.take`` VJP sums a
 bfloat16 table's gradient in bfloat16; ROADMAP.md §3, reference fault 8).
@@ -20,43 +21,48 @@ The keyword ``lookup="plain"`` sends the lookups through both plain
 versions instead, on any device; it exists to check the kernels against
 them on the card and nothing on a user path sets it.
 
+BERT4Rec's lookups (the sequence, and the target, the candidates or the
+label and negatives) run on the same kernels: each step concatenates all
+its ids into one launch of bags of one row and splits the rows afterwards
+(``_rows``), so a ``serve_step``, a ``retrieval_step`` and a training
+step's forward each launch the bag kernel once, and a training step's
+table gradient is one launch of the backward kernel: one float32 sum over
+the sequence's, the label's and the negatives' positions, rounded once.
+
 FM and DIN look their rows up in plain torch (``take_rows``), as the JAX
 code does with ``jnp.take`` outside any Pallas kernel, with ``jnp.take``'s
 indexing: an id in [-V, 0) wraps, one outside [-V, V) gives a NaN row
 rather than raising. The bag kernel could not take them either (widths 10
-and 18 are not multiples of its 4), and their gradient is autograd's. ``loss_fn`` is the JAX package's binary
-cross-entropy for all three.
+and 18 are not multiples of its 4), and their gradient is autograd's.
+``loss_fn`` is the JAX package's binary cross-entropy for the CTR models
+and BERT4Rec's sampled softmax.
 
 The JAX code's ``constrain`` calls are sharding hints and are left out
-until ``distributed/`` is ported. Not ported yet, and refused with
-``NotImplementedError``: BERT4Rec, serving and training (ROADMAP.md §1 item
-10e). Nothing here disables autograd: serving callers run under
-``torch.inference_mode()``.
+until ``distributed/`` is ported. Nothing here disables autograd: serving
+callers run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core import export
+from repro_torch.core.treepath import tree_map
 from repro_torch.kernels.embedding_bag import embedding_bag as _bag_kernel
 from repro_torch.kernels.embedding_bag import embedding_bag_plain_route
-from repro_torch.models.layers import mlp_apply, mlp_params
+from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
+                                       mlp_apply, mlp_params)
 
 #: rows drawn per call when the table is initialised in place, so no
 #: full-size float32 copy of a 48 GB table is ever made
 INIT_CHUNK_ROWS = 1 << 22
 _LOOKUPS = {"kernel": _bag_kernel, "plain": embedding_bag_plain_route}
-
-
-def _not_ported(cfg: RecsysConfig, what: str):
-    return NotImplementedError(
-        f"{cfg.name}: {what} for recsys kind {cfg.kind!r} is not ported yet "
-        f"(ROADMAP.md §1 item 10e); FM, DLRM and DIN are")
 
 
 def _bag(lookup: str):
@@ -328,6 +334,126 @@ def din_retrieval(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# BERT4Rec — bidirectional transformer over item sequences
+# ---------------------------------------------------------------------------
+
+def init_bert4rec(generator: torch.Generator, cfg: RecsysConfig) -> Dict:
+    """BERT4Rec's parameters on the generator's device: the item table
+    ``emb`` (padded_rows(n_items + 1), d) at std 0.02, whose row ``n_items``
+    is the [MASK] token; the positions ``pos`` (seq_len, d); ``blocks``,
+    each leaf stacked on a leading n_blocks axis (``wqkv`` (d, 3d), ``wo``,
+    ``w1`` (d, 4d), ``w2`` at std 1/sqrt(fan_in), ``b1``, ``b2`` 0, the
+    norms' ``ln1_w``/``ln2_w`` 1 and ``ln1_b``/``ln2_b`` 0); ``ln_f_w`` and
+    ``ln_f_b``."""
+    dt = getattr(torch, cfg.dtype)
+    d = cfg.embed_dim
+    dev = generator.device
+
+    def ones(n):
+        return torch.ones((n,), dtype=dt, device=dev)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=dev)
+
+    def block():
+        return {
+            "wqkv": dense_init(generator, d, 3 * d, dt),
+            "wo": dense_init(generator, d, d, dt),
+            "ln1_w": ones(d), "ln1_b": zeros(d),
+            "w1": dense_init(generator, d, 4 * d, dt),
+            "w2": dense_init(generator, 4 * d, d, dt),
+            "b1": zeros(4 * d), "b2": zeros(d),
+            "ln2_w": ones(d), "ln2_b": zeros(d),
+        }
+
+    return {
+        "emb": _table_init(generator, padded_rows(cfg.n_items + 1), d, dt),
+        "pos": embed_init(generator, cfg.seq_len, d, dt),
+        "blocks": tree_map(lambda *leaves: torch.stack(leaves),
+                           *[block() for _ in range(cfg.n_blocks)]),
+        "ln_f_w": ones(d), "ln_f_b": zeros(d),
+    }
+
+
+def _rows(table: torch.Tensor, ids: List[torch.Tensor], lookup: str
+          ) -> List[torch.Tensor]:
+    """The table rows of every id tensor in ``ids``, each (*ids.shape, d),
+    looked up as ONE launch of bags of one row over all the ids
+    concatenated, then split: under grad one ``EmbeddingBag`` node, so the
+    table gradient is one float32 sum over every position, rounded once."""
+    flat = torch.cat([i.reshape(-1).to(torch.int32) for i in ids])[:, None]
+    rows = _bag(lookup)(table, flat).split([i.numel() for i in ids])
+    return [r.reshape(*i.shape, table.shape[1]) for r, i in zip(rows, ids)]
+
+
+def _encode_rows(params: Dict, x: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+    """The blocks over looked-up rows x (B, S, d) -> (B, S, d).
+
+    As in JAX: the scores are a float32 product of the heads (bf16 products
+    are exact in float32), the softmax is float32, its probabilities are
+    cast to the activations' type for ``p @ v``, and the GELU is the tanh
+    approximation (``jax.nn.gelu``'s default). A loop over the blocks'
+    leading axis stands for JAX's ``scan``."""
+    b, s, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    x = x + params["pos"][None, :s, :]
+    blocks = params["blocks"]
+    for i in range(blocks["wqkv"].shape[0]):
+        bp = {k: v[i] for k, v in blocks.items()}
+        y = layer_norm(x, bp["ln1_w"], bp["ln1_b"])
+        q, k, v = (y @ bp["wqkv"]).reshape(b, s, 3, h, dh).unbind(2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        p = torch.softmax(sc / math.sqrt(dh), dim=-1).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, d)
+        x = x + o @ bp["wo"]
+        y = layer_norm(x, bp["ln2_w"], bp["ln2_b"])
+        x = x + (F.gelu(y @ bp["w1"] + bp["b1"], approximate="tanh") @ bp["w2"]
+                 + bp["b2"])
+    return layer_norm(x, params["ln_f_w"], params["ln_f_b"])
+
+
+def bert4rec_encode(params: Dict, seq: torch.Tensor, cfg: RecsysConfig,
+                    lookup: str = "kernel") -> torch.Tensor:
+    """seq (B, S) item ids -> (B, S, d) bidirectional representations."""
+    (x,) = _rows(params["emb"], [seq], lookup)
+    return _encode_rows(params, x, cfg)
+
+
+def bert4rec_loss(params: Dict, batch: Dict, cfg: RecsysConfig,
+                  lookup: str = "kernel") -> Tuple[torch.Tensor, Dict]:
+    """Masked-item prediction with sampled softmax (the full vocabulary is
+    1e6): the last slot's representation against the label and the
+    negatives; one bag launch for the sequence, label and negatives."""
+    x, pos_e, neg_e = _rows(params["emb"], [batch["seq"], batch["label"],
+                                            batch["negatives"]], lookup)
+    rep = _encode_rows(params, x, cfg)[:, -1, :]                    # (B,d)
+    pos_l = torch.sum(rep * pos_e, -1).float()
+    neg_l = torch.einsum("bd,bnd->bn", rep, neg_e).float()          # (B,N)
+    logits = torch.cat([pos_l[:, None], neg_l], dim=1)
+    loss = torch.mean(torch.logsumexp(logits, -1) - logits[:, 0])
+    return loss, {"ce": loss}
+
+
+def bert4rec_retrieval(params: Dict, seq: torch.Tensor, cand_ids: torch.Tensor,
+                       cfg: RecsysConfig, lookup: str = "kernel") -> torch.Tensor:
+    """(B, S) history vs N candidates: embedding-space batched dot (B, N),
+    one bag launch for the history and the candidates."""
+    x, cand = _rows(params["emb"], [seq, cand_ids], lookup)
+    rep = _encode_rows(params, x, cfg)[:, -1, :]
+    return (rep @ cand.T).float()
+
+
+def bert4rec_pointwise(params: Dict, seq: torch.Tensor, target: torch.Tensor,
+                       cfg: RecsysConfig, lookup: str = "kernel") -> torch.Tensor:
+    """Online-serving form: one (user seq, target item) score per row (B,),
+    one bag launch for the sequences and the targets."""
+    x, te = _rows(params["emb"], [seq, target], lookup)
+    rep = _encode_rows(params, x, cfg)[:, -1, :]
+    return torch.sum(rep * te, dim=-1).float()
+
+
+# ---------------------------------------------------------------------------
 # Unified dispatch
 # ---------------------------------------------------------------------------
 
@@ -342,9 +468,8 @@ def init_model(cfg: RecsysConfig, generator: torch.Generator,
     if generator.device.type != dev.type:
         raise ValueError(f"draw on {dev.type} with a {dev.type} generator, not "
                          f"{generator.device.type}: the table is drawn in place")
-    inits = {"fm": init_fm, "dlrm": init_dlrm, "din": init_din}
-    if cfg.kind not in inits:
-        raise _not_ported(cfg, "init_model")
+    inits = {"fm": init_fm, "dlrm": init_dlrm, "din": init_din,
+             "bert4rec": init_bert4rec}
     return inits[cfg.kind](generator, cfg)
 
 
@@ -356,25 +481,26 @@ def params_from_numpy(tree, device="cuda"):
     return export.to_torch(tree, device)
 
 
-def _logits(params: Dict, batch: Dict, cfg: RecsysConfig, lookup: str,
-            what: str) -> torch.Tensor:
+def _logits(params: Dict, batch: Dict, cfg: RecsysConfig, lookup: str
+            ) -> torch.Tensor:
     """The CTR models' logits (B,) float32 of a batch; ``lookup`` picks
     DLRM's lookup route (FM and DIN index plainly)."""
     if cfg.kind == "fm":
         return fm_forward(params, batch["ids"], cfg)
     if cfg.kind == "dlrm":
         return dlrm_forward(params, batch["dense"], batch["ids"], cfg, lookup)
-    if cfg.kind == "din":
-        return din_forward(params, batch["hist"], batch["hist_mask"], batch["target"], cfg)
-    raise _not_ported(cfg, what)
+    return din_forward(params, batch["hist"], batch["hist_mask"], batch["target"], cfg)
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: RecsysConfig,
             lookup: str = "kernel") -> Tuple[torch.Tensor, Dict]:
     """Binary cross-entropy of the CTR models, the JAX formula: the stable
     ``max(x, 0) - x y + log1p(exp(-|x|))`` on float32 logits, averaged;
-    metrics ``bce`` and ``acc``. BERT4Rec's sampled softmax is not ported."""
-    logits = _logits(params, batch, cfg, lookup, "loss_fn")
+    metrics ``bce`` and ``acc``. BERT4Rec's is its sampled softmax
+    (``bert4rec_loss``, metric ``ce``) on {"seq", "label", "negatives"}."""
+    if cfg.kind == "bert4rec":
+        return bert4rec_loss(params, batch, cfg, lookup)
+    logits = _logits(params, batch, cfg, lookup)
     y = batch["label"].float()
     loss = torch.mean(torch.clamp(logits, min=0) - logits * y
                       + torch.log1p(torch.exp(-logits.abs())))
@@ -385,8 +511,11 @@ def loss_fn(params: Dict, batch: Dict, cfg: RecsysConfig,
 def serve_step(params: Dict, batch: Dict, cfg: RecsysConfig,
                lookup: str = "kernel") -> torch.Tensor:
     """Scores of a request batch (B,): DLRM {"dense" (B, 13), "ids" (B, 26)},
-    FM {"ids" (B, F)}, DIN {"hist" (B, S), "hist_mask" (B, S), "target" (B,)}."""
-    return _logits(params, batch, cfg, lookup, "serve_step")
+    FM {"ids" (B, F)}, DIN {"hist" (B, S), "hist_mask" (B, S), "target" (B,)},
+    BERT4Rec {"seq" (B, S), "target" (B,)}."""
+    if cfg.kind == "bert4rec":
+        return bert4rec_pointwise(params, batch["seq"], batch["target"], cfg, lookup)
+    return _logits(params, batch, cfg, lookup)
 
 
 def retrieval_step(params: Dict, batch: Dict, cfg: RecsysConfig,
@@ -394,7 +523,7 @@ def retrieval_step(params: Dict, batch: Dict, cfg: RecsysConfig,
     """One query context vs N candidates: DLRM {"dense" (1, 13), "user_ids"
     (1, 25), "candidates" (N,)} -> (N,); FM {"user_ids" (1, F-1),
     "candidates"} -> (1, N); DIN {"hist" (1, S), "hist_mask" (1, S),
-    "candidates"} -> (N,)."""
+    "candidates"} -> (N,); BERT4Rec {"seq" (B, S), "candidates"} -> (B, N)."""
     if cfg.kind == "fm":
         return fm_retrieval(params, batch["user_ids"], batch["candidates"], cfg)
     if cfg.kind == "dlrm":
@@ -403,4 +532,4 @@ def retrieval_step(params: Dict, batch: Dict, cfg: RecsysConfig,
     if cfg.kind == "din":
         return din_retrieval(params, batch["hist"], batch["hist_mask"],
                              batch["candidates"], cfg)
-    raise _not_ported(cfg, "retrieval_step")
+    return bert4rec_retrieval(params, batch["seq"], batch["candidates"], cfg, lookup)

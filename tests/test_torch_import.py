@@ -52,7 +52,9 @@ def test_slice_modules_are_all_there():
               "repro_torch.launch", "repro_torch.launch.world",
               "repro_torch.launch.serve", "repro_torch.serving.cluster",
               "repro_torch.serving.rollout", "repro_torch.serving.fabric",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.configs.bert4rec",
+              "repro_torch.configs.meshgraphnet", "repro_torch.data.graph",
+              "repro_torch.models.gnn"):
         assert m in mods, m
 
 
@@ -97,6 +99,13 @@ def test_the_lm_path_alone_loads_no_jax_and_no_repro(module):
 def test_the_dlrm_path_alone_loads_no_jax_and_no_repro(module):
     """Each entry module of the DLRM serving path, imported alone in a
     fresh process."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.gnn", "repro_torch.data.graph"])
+def test_the_gnn_path_alone_loads_no_jax_and_no_repro(module):
+    """Each entry module of the GNN path, imported alone in a fresh
+    process."""
     assert _alone(module) == []
 
 

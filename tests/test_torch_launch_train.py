@@ -7,8 +7,9 @@ seeds), and parameter trees of the same names, shapes and dtypes; ``python
 -m repro_torch.launch.train`` runs ``--arch sm-cnn`` and ``--arch
 qwen3-0.6b`` for 3 steps on the CPU and prints the JAX launcher's lines
 with a finite loss; the JAX launcher's flags are all there; a checkpoint
-directory resumes; BERT4Rec, the gnn family and a card that is not there
-raise.
+directory resumes; BERT4Rec and the gnn family build the JAX launcher's
+batches and trees and train through ``main``; a card that is not there
+raises.
 """
 import ast
 import math
@@ -31,10 +32,11 @@ torch.set_num_threads(2)
 
 
 def _shapes(tree):
-    """{path: (shape, dtype name)} of a nested dict of arrays or tensors."""
+    """{path: (shape, dtype name)} of nested dicts and lists of arrays or
+    tensors."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
             out.update({f"{k}/{p}": s for p, s in _shapes(v).items()})
         else:
             out[k] = (tuple(v.shape), str(v.dtype).replace("torch.", ""))
@@ -100,24 +102,40 @@ def test_cli_takes_the_jax_launchers_flags_and_device(tmp_path, capsys):
     assert "resumed at step 2" in second and "final:" in second
 
 
-def test_recsys_family_is_not_ported_yet(monkeypatch):
-    """BERT4Rec (the recsys kind still to port) and the gnn family raise,
-    naming ROADMAP item 10e; neither is registered, so the launcher is
-    handed their configs (``tests/test_torch_rec_train.py`` trains
-    dlrm-mlperf, fm and din)."""
-    import dataclasses
-    import types
+@pytest.mark.parametrize("arch,family,metric", [("bert4rec", "recsys", "ce"),
+                                                ("meshgraphnet", "gnn", "mse")])
+def test_bert4rec_and_gnn_build_the_jax_launchers_batches_and_tree(arch, family, metric):
+    """``build`` for BERT4Rec (the recsys branch) and the gnn family (200
+    nodes, 800 edges, 16 features a graph, seed i at step i): the JAX
+    launcher's config, the same batches, a parameter tree of the same names,
+    shapes and dtypes, and a finite loss with its metric."""
+    jcfg, jparams, _, jdata = jax_train.build(arch, False, 4, 16)
+    cfg, params, loss, data = train.build(arch, False, 4, 16, device="cpu")
+    assert cfg.name == jcfg.name and cfg.family == jcfg.family == family
+    assert _shapes(params) == _shapes(jax.tree.map(np.asarray, jparams))
+    for _ in range(2):
+        want, got = next(jdata), next(data)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    value, metrics = loss(params, {k: torch.from_numpy(np.asarray(v))
+                                   for k, v in next(data).items()})
+    assert value.dim() == 0 and math.isfinite(value.item()) and set(metrics) == {metric}
 
-    from repro.configs import get_config as jax_get_config
-    from repro_torch.configs import RecsysConfig
-    bert4rec = RecsysConfig(**dataclasses.asdict(jax_get_config("bert4rec")))
-    gnn = types.SimpleNamespace(name="meshgraphnet", family="gnn")
-    monkeypatch.setattr(train, "get_config",
-                        lambda arch: {"bert4rec": bert4rec, "meshgraphnet": gnn}[arch])
-    with pytest.raises(NotImplementedError, match="10e"):
-        train.build("bert4rec", False, 4, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="10e"):
-        train.build("meshgraphnet", True, 4, 16, device="cpu")
+
+@pytest.mark.parametrize("arch,family,metric", [("bert4rec", "recsys", "ce"),
+                                                ("meshgraphnet", "gnn", "mse")])
+def test_bert4rec_and_gnn_main_train_on_the_cpu(arch, family, metric, capsys):
+    """``main`` prints the JAX launcher's ``arch=`` line (its parameter
+    count at the reduced config) and a finite final loss with the metric."""
+    _, jparams, _, _ = jax_train.build(arch, False, 16, 64)
+    n = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(jparams))
+    train.main(["--arch", arch, "--steps", "3", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == f"arch={arch} family={family} params={n:,}"
+    assert lines[-1].startswith("final: {") and f"'{metric}'" in lines[-1]
+    final = ast.literal_eval(lines[-1][len("final: "):])
+    assert math.isfinite(final["loss"]) and final["loss"] > 0
 
 
 def test_cuda_without_a_card_raises():

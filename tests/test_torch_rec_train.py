@@ -33,7 +33,7 @@ from repro.core import export as jax_export
 from repro.launch import train as jax_train
 from repro.models import recsys as jax_rec
 from repro.training import optimizer as jax_opt, train_loop as jax_loop
-from repro_torch.configs import RecsysConfig, get_config, reduced
+from repro_torch.configs import get_config, reduced
 from repro_torch.core import export
 from repro_torch.core.treepath import tree_leaves
 from repro_torch.data import recsys as data
@@ -331,8 +331,3 @@ def test_launch_main_trains_on_the_cpu(arch, capsys):
     assert lines[0] == f"arch={arch} family=recsys params={n:,}"
     assert lines[-1].startswith("final: {") and "'bce'" in lines[-1]
 
-
-def test_bert4rec_training_still_raises():
-    cfg = reduced(RecsysConfig(**dataclasses.asdict(jax_get_config("bert4rec"))))
-    with pytest.raises(NotImplementedError, match="10e"):
-        rec.loss_fn({}, {}, cfg)

@@ -284,18 +284,6 @@ def test_dlrm_tree_round_trips_through_export_both_ways():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(c), err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch", ["bert4rec"])
-def test_unported_kinds_raise(arch):
-    """BERT4Rec is the one recsys kind not ported (FM and DIN are held by
-    tests/test_torch_rec_train.py)."""
-    cfg = reduced(_port_cfg(jax_get_config(arch)))
-    with pytest.raises(NotImplementedError, match="10e"):
-        rec.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    for step in (rec.serve_step, rec.retrieval_step, rec.loss_fn):
-        with pytest.raises(NotImplementedError, match="10e"):
-            step({}, {}, cfg)
-
-
 def test_unknown_lookup_raises():
     _, cfg, _, tp = _dlrm()
     with pytest.raises(ValueError, match="lookup"):
