@@ -1,35 +1,71 @@
-"""Architecture registry: ``get_config("sm-cnn")`` resolves here.
+"""Architecture registry: ``get_config(arch)`` resolves here.
 
-The paper's own text-pair model, qwen3-0.6b of the LM family, dlrm-mlperf,
-fm, din and bert4rec of the recsys family and meshgraphnet of the GNN
-family are ported so far; the other architectures register here as their
-models are ported.
+Every architecture of the JAX package's registry registers its full config
+and its shape set, so ``roofline.analysis.model_flops`` covers each
+(arch x shape) cell. ``ARCHS`` lists the ones whose models are ported so
+far: the paper's own text-pair model, qwen3-0.6b of the LM family,
+dlrm-mlperf, fm, din and bert4rec of the recsys family and meshgraphnet of
+the GNN family. The MoE and larger dense LM configs are data only: the
+models refuse them until their layers are ported (ROADMAP.md §1 items 10a,
+10b, 10d).
 """
 from __future__ import annotations
 
 import importlib
+from typing import List, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
     CRITEO_VOCABS, GNN_SHAPES, GNNConfig, LM_SHAPES, LMConfig, MoESpec,
-    RECSYS_SHAPES, RecsysConfig, ShapeSpec, TextPairConfig, reduced,
+    RECSYS_SHAPES, RecsysConfig, ShapeSpec, TEXTPAIR_SHAPES, TextPairConfig, reduced,
 )
 
 _MODULES = {
-    "bert4rec": "repro_torch.configs.bert4rec",
-    "din": "repro_torch.configs.din",
-    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
-    "fm": "repro_torch.configs.fm",
-    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "fm": "repro_torch.configs.fm",
+    "dlrm-mlperf": "repro_torch.configs.dlrm_mlperf",
+    "din": "repro_torch.configs.din",
     "sm-cnn": "repro_torch.configs.sm_cnn",
 }
-#: every architecture ported so far
-ARCHS = tuple(sorted(_MODULES))
+
+ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "sm-cnn")
+#: every architecture whose model is ported so far (the training
+#: launcher's ``--arch`` choices)
+ARCHS = ("bert4rec", "din", "dlrm-mlperf", "fm", "meshgraphnet", "qwen3-0.6b", "sm-cnn")
 
 
 def get_config(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"known: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch]).CONFIG
 
+
+def get_shapes(arch: str) -> Tuple[ShapeSpec, ...]:
+    return tuple(importlib.import_module(_MODULES[arch]).SHAPES)
+
+
+def shape_applicable(cfg, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell is runnable, and if not, why (skip note)."""
+    if getattr(cfg, "family", "") == "lm" and shape.kind == "long_decode":
+        if not cfg.sub_quadratic:
+            return False, ("pure full-attention arch: 512k-token KV decode is "
+                           "skipped per assignment rule (needs sub-quadratic "
+                           "attention); see DESIGN.md §Arch-applicability")
+    return True, ""
+
+
+def cells(include_inapplicable: bool = False) -> List[Tuple[str, ShapeSpec]]:
+    """All assigned (arch, shape) cells (40 incl. skipped long_500k rows)."""
+    out = []
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in get_shapes(arch):
+            ok, _ = shape_applicable(cfg, shape)
+            if ok or include_inapplicable:
+                out.append((arch, shape))
+    return out

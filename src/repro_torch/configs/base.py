@@ -39,6 +39,15 @@ class ShapeSpec:
     batch: int = 0
     n_candidates: int = 0
 
+    def describe(self) -> str:
+        parts = [f"{self.name}[{self.kind}]"]
+        for f_ in dataclasses.fields(self):
+            v = getattr(self, f_.name)
+            if f_.name in ("name", "kind") or not v:
+                continue
+            parts.append(f"{f_.name}={v}")
+        return " ".join(parts)
+
 
 # ---------------------------------------------------------------------------
 # LM transformers (dense + MoE)
@@ -79,6 +88,11 @@ class LMConfig:
     # chunk size (q-chunk for "chunked", kv-chunk for "flash")
     attn_chunk: int = 512
     family: str = "lm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """All assigned LM archs use full (GQA) attention -> no long_500k."""
+        return False
 
     @property
     def vocab_padded(self) -> int:
@@ -251,6 +265,12 @@ class TextPairConfig:
         p += j * self.n_hidden + self.n_hidden
         p += self.n_hidden * 2 + 2
         return p
+
+
+TEXTPAIR_SHAPES = (
+    ShapeSpec("pair_train", "pair_train", batch=256),
+    ShapeSpec("pair_serve", "pair_serve", batch=64),
+)
 
 
 def reduced(cfg):

@@ -35,7 +35,9 @@ requires one raises.
 ``launches`` counts the forward kernel's launches and ``bwd_launches`` the
 backward's (one a call of its C entry, which runs its three kernels), so a
 run can show that its path went through them; ``reset_launches`` and
-``reset_bwd_launches`` set them to 0.
+``reset_bwd_launches`` set them to 0. Under a ``roofline.counts`` counter a
+call counts as ``analysis.embedding_bag_work`` and its gradient as
+``analysis.embedding_bag_bwd_work`` on either route.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis, counts
 
 #: TPU kernel this replaces (file:line of its wrapper; body ``_kernel`` at
 #: :26, ``pallas_call`` at :56)
@@ -165,21 +168,32 @@ def _forward(table: torch.Tensor, ids: torch.Tensor,
     """The forward on checked inputs: the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors."""
     global launches
-    if table.device.type == "cpu":
-        return embedding_bag_plain(table, ids, weights)
-    if table.device.type != "cuda":
-        raise ValueError(f"no kernel for device {table.device}")
-    if table.shape[1] % KERNEL_VEC:
-        raise ValueError(f"the CUDA kernel is compiled for widths that are a "
-                         f"multiple of {KERNEL_VEC}, not {table.shape[1]}")
-    if table.data_ptr() % 16:
-        raise ValueError("table must start on a 16-byte boundary")
-    if weights is not None:
-        weights = weights.float().contiguous()
-    with _on_device(table):
-        out = _launch(table, ids, weights)
-    launches += 1
-    return out
+    with counts.kernel(lambda: _work(table, ids, weights)):
+        if table.device.type == "cpu":
+            return embedding_bag_plain(table, ids, weights)
+        if table.device.type != "cuda":
+            raise ValueError(f"no kernel for device {table.device}")
+        if table.shape[1] % KERNEL_VEC:
+            raise ValueError(f"the CUDA kernel is compiled for widths that are a "
+                             f"multiple of {KERNEL_VEC}, not {table.shape[1]}")
+        if table.data_ptr() % 16:
+            raise ValueError("table must start on a 16-byte boundary")
+        if weights is not None:
+            weights = weights.float().contiguous()
+        with _on_device(table):
+            out = _launch(table, ids, weights)
+        launches += 1
+        return out
+
+
+def _work(table: torch.Tensor, ids: torch.Tensor, weights: Optional[torch.Tensor]):
+    return analysis.embedding_bag_work(ids, weights is not None, table.shape[1], table.dtype)
+
+
+def _bwd_work(grad_out: torch.Tensor, ids: torch.Tensor, weights: Optional[torch.Tensor],
+              n_rows: int):
+    return analysis.embedding_bag_bwd_work(ids, weights is not None, grad_out.shape[1],
+                                           n_rows, grad_out.dtype)
 
 
 # ------------------------------------------------------------------ gradient --
@@ -307,21 +321,22 @@ def embedding_bag_bwd(grad_out: torch.Tensor, ids: torch.Tensor,
     tensors, the plain version on CPU tensors."""
     global bwd_launches
     _check_bwd(grad_out, ids, weights, n_rows)
-    if grad_out.device.type == "cpu":
-        return embedding_bag_bwd_plain(grad_out, ids, weights, n_rows)
-    if grad_out.device.type != "cuda":
-        raise ValueError(f"no kernel for device {grad_out.device}")
-    if grad_out.shape[1] % KERNEL_VEC:
-        raise ValueError(f"the CUDA kernel is compiled for widths that are a "
-                         f"multiple of {KERNEL_VEC}, not {grad_out.shape[1]}")
-    if grad_out.data_ptr() % 16:
-        raise ValueError("grad_out must start on a 16-byte boundary")
-    if weights is not None:
-        weights = weights.float().contiguous()
-    with _on_device(grad_out):
-        grad = _launch_bwd(grad_out, ids, weights, n_rows)
-    bwd_launches += 1
-    return grad
+    with counts.kernel(lambda: _bwd_work(grad_out, ids, weights, n_rows)):
+        if grad_out.device.type == "cpu":
+            return embedding_bag_bwd_plain(grad_out, ids, weights, n_rows)
+        if grad_out.device.type != "cuda":
+            raise ValueError(f"no kernel for device {grad_out.device}")
+        if grad_out.shape[1] % KERNEL_VEC:
+            raise ValueError(f"the CUDA kernel is compiled for widths that are a "
+                             f"multiple of {KERNEL_VEC}, not {grad_out.shape[1]}")
+        if grad_out.data_ptr() % 16:
+            raise ValueError("grad_out must start on a 16-byte boundary")
+        if weights is not None:
+            weights = weights.float().contiguous()
+        with _on_device(grad_out):
+            grad = _launch_bwd(grad_out, ids, weights, n_rows)
+        bwd_launches += 1
+        return grad
 
 
 class EmbeddingBag(torch.autograd.Function):
@@ -336,7 +351,8 @@ class EmbeddingBag(torch.autograd.Function):
         ctx.n_rows, ctx.plain = table.shape[0], plain
         ctx.save_for_backward(ids, weights)
         if plain:
-            return embedding_bag_plain(table, ids, weights)
+            with counts.kernel(lambda: _work(table, ids, weights)):
+                return embedding_bag_plain(table, ids, weights)
         return _forward(table, ids, weights)
 
     @staticmethod
@@ -346,7 +362,8 @@ class EmbeddingBag(torch.autograd.Function):
         grad_out = grad_out.contiguous()   # autograd may hand over a strided gradient
         if ctx.plain:
             _check_bwd(grad_out, ids, weights, ctx.n_rows)
-            grad = embedding_bag_bwd_plain(grad_out, ids, weights, ctx.n_rows)
+            with counts.kernel(lambda: _bwd_work(grad_out, ids, weights, ctx.n_rows)):
+                grad = embedding_bag_bwd_plain(grad_out, ids, weights, ctx.n_rows)
         else:
             grad = embedding_bag_bwd(grad_out, ids, weights, ctx.n_rows)
         return grad, None, None, None
@@ -381,4 +398,5 @@ def embedding_bag_plain_route(table: torch.Tensor, ids: torch.Tensor,
     _refuse_weight_grad(weights)
     if torch.is_grad_enabled() and table.requires_grad:
         return EmbeddingBag.apply(table, ids, weights, True)
-    return embedding_bag_plain(table, ids, weights)
+    with counts.kernel(lambda: _work(table, ids, weights)):
+        return embedding_bag_plain(table, ids, weights)

@@ -65,6 +65,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis, counts
 
 #: TPU kernel this replaces (file:line of its wrapper; body ``_kernel`` at
 #: :24, ``pallas_call`` at :77)
@@ -401,10 +402,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_fwd_plain(q, k, v)
-        else:
-            out, lse = _launch(q, k, v, with_lse=True)
+        with counts.kernel(lambda: analysis.attention_work(*_dims(q, k), q.dtype, lse=True)):
+            if q.device.type == "cpu":
+                out, lse = flash_attention_fwd_plain(q, k, v)
+            else:
+                out, lse = _launch(q, k, v, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -412,10 +414,17 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()   # autograd may hand over a strided gradient
-        if q.device.type == "cpu":
-            return flash_attention_bwd_plain(q, k, v, out, lse, dout)
-        return _launch_bwd(q, k, v, out, lse, dout)
+        with counts.kernel(lambda: analysis.attention_bwd_work(*_dims(q, k), q.dtype)):
+            dout = dout.contiguous()   # autograd may hand over a strided gradient
+            if q.device.type == "cpu":
+                return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+            return _launch_bwd(q, k, v, out, lse, dout)
+
+
+def _dims(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """(B, S, H, Hkv, d) of a call."""
+    b, s, h, d = q.shape
+    return b, s, h, k.shape[2], d
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -423,13 +432,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     the CUDA kernel on CUDA tensors, the plain version on CPU tensors. Where
     grad is enabled and an input requires it, through ``FlashAttention``,
     whose backward is the CUDA backward kernel (the plain backward on CPU
-    tensors)."""
+    tensors). Under a ``roofline.counts`` counter either route counts as
+    ``analysis.attention_work`` (with the lse where it goes through
+    ``FlashAttention``), its backward as ``analysis.attention_bwd_work``."""
     _check(q, k, v)
     if q.device.type != "cpu":
         _check_kernel(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    return _launch(q, k, v)
+    with counts.kernel(lambda: analysis.attention_work(*_dims(q, k), q.dtype)):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v)
+        return _launch(q, k, v)

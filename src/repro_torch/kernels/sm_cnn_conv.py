@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis, counts
 
 #: TPU kernel this replaces (file:line of its wrapper; body ``_kernel`` at :27)
 REPLACES = "src/repro/kernels/sm_cnn_conv.py:46"
@@ -176,22 +177,27 @@ def _launch(x_emb: torch.Tensor, filters: torch.Tensor, bias: torch.Tensor,
 def conv_tanh_maxpool(x_emb: torch.Tensor, filters: torch.Tensor,
                       bias: torch.Tensor, width: int) -> torch.Tensor:
     """(B, S, d), (w*d, F), (F,) -> (B, F) in the input's type: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor. Under a
+    ``roofline.counts`` counter either route counts as
+    ``analysis.conv_tanh_maxpool_work``."""
     global launches
     _check(x_emb, filters, bias, width)
-    if x_emb.device.type == "cpu":
-        return conv_tanh_maxpool_plain(x_emb, filters, bias, width)
-    if x_emb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x_emb.device}")
-    if width not in KERNEL_WIDTHS:
-        raise ValueError(f"the CUDA kernel is compiled for filter widths "
-                         f"{KERNEL_WIDTHS}, not {width}")
-    index = x_emb.device.index
-    if index is None or index == torch.cuda.current_device():
-        out = _launch(x_emb, filters, bias, width)
-    else:   # the kernel launches on the runtime's current device
-        with torch.cuda.device(index):
+    b, s, d = x_emb.shape
+    with counts.kernel(lambda: analysis.conv_tanh_maxpool_work(
+            b, s, d, width, filters.shape[1], x_emb.dtype)):
+        if x_emb.device.type == "cpu":
+            return conv_tanh_maxpool_plain(x_emb, filters, bias, width)
+        if x_emb.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x_emb.device}")
+        if width not in KERNEL_WIDTHS:
+            raise ValueError(f"the CUDA kernel is compiled for filter widths "
+                             f"{KERNEL_WIDTHS}, not {width}")
+        index = x_emb.device.index
+        if index is None or index == torch.cuda.current_device():
             out = _launch(x_emb, filters, bias, width)
-    with _counting:
-        launches += 1
-    return out
+        else:   # the kernel launches on the runtime's current device
+            with torch.cuda.device(index):
+                out = _launch(x_emb, filters, bias, width)
+        with _counting:
+            launches += 1
+        return out

@@ -54,7 +54,12 @@ def test_slice_modules_are_all_there():
               "repro_torch.serving.rollout", "repro_torch.serving.fabric",
               "repro_torch.launch.train", "repro_torch.configs.bert4rec",
               "repro_torch.configs.meshgraphnet", "repro_torch.data.graph",
-              "repro_torch.models.gnn"):
+              "repro_torch.models.gnn", "repro_torch.roofline",
+              "repro_torch.roofline.hw", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.counts", "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.moonshot_v1_16b_a3b",
+              "repro_torch.configs.deepseek_coder_33b",
+              "repro_torch.configs.granite_3_2b"):
         assert m in mods, m
 
 
@@ -106,6 +111,14 @@ def test_the_dlrm_path_alone_loads_no_jax_and_no_repro(module):
 def test_the_gnn_path_alone_loads_no_jax_and_no_repro(module):
     """Each entry module of the GNN path, imported alone in a fresh
     process."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.roofline.hw",
+                                    "repro_torch.roofline.analysis",
+                                    "repro_torch.roofline.counts"])
+def test_the_roofline_alone_loads_no_jax_and_no_repro(module):
+    """Each module of the roofline, imported alone in a fresh process."""
     assert _alone(module) == []
 
 

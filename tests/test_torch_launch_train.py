@@ -9,7 +9,8 @@ qwen3-0.6b`` for 3 steps on the CPU and prints the JAX launcher's lines
 with a finite loss; the JAX launcher's flags are all there; a checkpoint
 directory resumes; BERT4Rec and the gnn family build the JAX launcher's
 batches and trees and train through ``main``; a card that is not there
-raises.
+raises; ``--arch`` offers only the ported architectures, while the
+registry also holds the configs whose models are not ported.
 """
 import ast
 import math
@@ -143,3 +144,18 @@ def test_cuda_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train.build("qwen3-0.6b", False, 2, 8)
+
+
+def test_arch_offers_only_the_ported_architectures(capsys):
+    """The MoE configs register for the roofline, but ``--arch`` offers only
+    ``ARCHS`` and a model built from them still refuses them."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import transformer as tfm
+    offered = "{" + ",".join(ARCHS) + "}"   # the usage line's choices
+    for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b"):
+        assert arch not in ARCHS
+        with pytest.raises(SystemExit):
+            train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+        assert offered in capsys.readouterr().err
+        with pytest.raises(NotImplementedError, match="MoE layers"):
+            tfm.init_lm(get_config(arch), torch.Generator().manual_seed(0), "cpu")
