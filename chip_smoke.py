@@ -113,6 +113,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             decode; prefill tokens/s, decode ms per step, busy shares and
             the attention kernel's share of a prefill's device time; the
             8 x 2048 prefill read against its bound
+  lm-moe-check  deepseek-moe-16b (MHA: the attention kernel at G=1) on the
+            card, full width cut to 2 layers where a model runs: (a) the
+            kernel against its plain version at H=16, Hkv=16, d=128 for
+            (2, 130) and (8, 2048), float32 and bfloat16, then its times at
+            8 x 2048 bfloat16 with the plain version's, SDPA's and the
+            bound; (b) moe_apply against the dense mixture (every expert on
+            every token) at capacity factor 16, float32 and float64, and
+            route's ties going to the lower expert index as on the CPU; (c)
+            one group of 2048 tokens at the config's capacity factor 1.25:
+            the output equals the dense mixture over the kept (token,
+            choice) pairs only, a token with every choice dropped gets
+            zero, the drop share; (d) float64 with plain attention at
+            capacity 16: decode at position S after a prefill of S == forward
+            over S+1 tokens (rtol=atol=2e-2); TF32 must be off
+  lm-moe    deepseek-moe-16b at full width in bfloat16 (33.76 GB of weights
+            from --seed), the lm phase's schedule and checks: init_lm's
+            seconds and peak, prefill 8 x 2048 (28 attention launches
+            each), 32 greedy decode steps (none), prefill 1 x 32768; the
+            8 x 2048 prefill read against its bound with its dropped
+            (token, choice) pairs counted
   attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
             against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
             float32 and bfloat16 (randn inputs and incoming gradient), for
@@ -224,8 +244,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             do not fit one card); reduced float32 forward, forward_batched
             and loss_fn gradients, each aggregator, card == CPU
 
-The attn-kernel, lm-check, lm, bag-kernel, rec-check and rec phases run
-under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
+The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, bag-kernel, rec-check
+and rec phases run under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -324,6 +344,21 @@ LM_LONG = 32768
 #: lm-check in float32: prefill flash vs chunked at this (B, S), and decode
 #: at position S against forward over S+1 tokens
 CHECK_B, CHECK_S = 2, 130
+#: lm-moe-check and lm-moe: deepseek-moe-16b, multi-head (the attention
+#: kernel at G = H / Hkv = 1). The check cuts it to MOE_CHECK_LAYERS layers:
+#: (a) the kernel against its plain version at MOE_ATTN_SHAPES in both types
+#: and at lm-moe's 1 x LM_LONG in bfloat16 (on its first and last
+#: ATTN_SLICE_ROWS query rows, as attn-kernel holds it at G=2); (b) moe_apply
+#: against the dense mixture and (d) decode against forward at capacity
+#: factor MOE_CHECK_CF, where no slot drops, at MOE_TOL in float32 and
+#: float64 ((d) in float64 only); (c) one group of the config's size at its
+#: own capacity factor, the tokens sharing a direction of MOE_SKEW times
+#: their own scale, as a residual stream's do, so that the load is uneven
+#: and slots drop
+MOE_ARCH = "deepseek-moe-16b"
+MOE_CHECK_LAYERS, MOE_CHECK_CF, MOE_SKEW = 2, 16.0, 0.5
+MOE_ATTN_SHAPES = ((2, 130), (8, 2048))
+MOE_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "float64": dict(rtol=1e-10, atol=1e-12)}
 #: attn-bwd: the backward kernel against the plain backward at qwen3-0.6b's
 #: H=16, Hkv=8, d=128: (B, S) from one token to 1 x 1024, and S around the
 #: 64-key tiles at B=1. Tolerances: max abs error within atol + rtol |want|
@@ -2047,9 +2082,7 @@ def phase_attn_kernel(torch, cfg) -> dict:
     and last ATTN_SLICE_ROWS query rows against all keys; and SDPA against
     the kernel at each.
     """
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.roofline import analysis
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -2083,47 +2116,69 @@ def phase_attn_kernel(torch, cfg) -> dict:
 
     timings = {}
     for b, s, dtype in ATTN_TIMED:
-        q, k, v = inputs(b, s, dtype)
-        # the yardstick's (B, H, S, d) layouts are made once, outside the timing
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-
-        fns = {"kernel": lambda: FA.flash_attention(q, k, v), "library": library}
-        got = FA.flash_attention(q, k, v)
-        if s <= PLAIN_MAX_S:
-            fns["plain"] = lambda: FA.flash_attention_plain(q, k, v)
-            err = _attn_agrees(torch, got, FA.flash_attention_plain(q, k, v), dtype,
-                               f"kernel vs plain B={b} S={s}")
-        else:
-            n = ATTN_SLICE_ROWS
-            err = max(_attn_agrees(torch, got[:, :n], FA.flash_attention_plain(
-                          q[:, :n], k, v), dtype,
-                          f"kernel vs plain B={b} S={s} query rows 0..{n - 1}"),
-                      _attn_agrees(torch, got[:, s - n:], FA.flash_attention_plain(
-                          q[:, s - n:], k, v, q_start=s - n), dtype,
-                          f"kernel vs plain B={b} S={s} query rows {s - n}..{s - 1}"))
-        max_err[dtype] = max(max_err[dtype], err)
-        lib_err = _attn_agrees(torch, library().transpose(1, 2), got, dtype,
-                               f"SDPA vs kernel B={b} S={s}")
-        del got
-        iters = 20 if s <= PLAIN_MAX_S else 2
-        t = _time_alternating(torch, fns, iters=iters)
-        dev_ms = _queued_ms(torch, fns["kernel"], iters)
-        bd = analysis.bound(*analysis.attention_work(b, s, h, hkv, d, dtype), dtype)
-        timings[(b, s, dtype)] = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms)
-        plain = f"{t['plain']:.5f}" if "plain" in t else "not run (scores too large)"
-        log(f"attn-kernel: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
-            f"kernel_device_ms={dev_ms:.5f} "
-            f"plain_ms={plain} library_ms={t['library']:.5f} (SDPA causal GQA, "
-            f"max_abs_err vs kernel {lib_err:.3e}) "
-            + _bound_text(bd, t["kernel"], f"attn-kernel: B={b} S={s} {dtype}", dev_ms)
-            + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
-        del q, k, v, qt, kt, vt, fns
+        timings[(b, s, dtype)] = t = _time_attention(torch, *inputs(b, s, dtype), dtype)
+        max_err[dtype] = max(max_err[dtype], t["max_err"])
         torch.cuda.empty_cache()
     return {"max_err": max_err, "timings": timings, "routes": routes}
+
+
+def _kernel_vs_plain(torch, q, k, v, got, dtype: str, what: str) -> float:
+    """Holds the kernel's output ``got`` against the plain version on the
+    same inputs; past PLAIN_MAX_S, where the plain scores would not fit, on
+    the first and last ATTN_SLICE_ROWS query rows, each against all keys.
+    Returns the max absolute error."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, s, h, d = q.shape
+    shape = f"{what}kernel vs plain B={b} S={s} H={h} Hkv={k.shape[2]} d={d}"
+    if s <= PLAIN_MAX_S:
+        return _attn_agrees(torch, got, FA.flash_attention_plain(q, k, v), dtype, shape)
+    n = ATTN_SLICE_ROWS
+    return max(_attn_agrees(torch, got[:, :n], FA.flash_attention_plain(q[:, :n], k, v),
+                            dtype, f"{shape} query rows 0..{n - 1}"),
+               _attn_agrees(torch, got[:, s - n:], FA.flash_attention_plain(
+                   q[:, s - n:], k, v, q_start=s - n), dtype,
+                   f"{shape} query rows {s - n}..{s - 1}"))
+
+
+def _time_attention(torch, q, k, v, dtype: str) -> dict:
+    """The attention kernel at one timed shape: held against its plain
+    version (past PLAIN_MAX_S on its first and last ATTN_SLICE_ROWS query
+    rows) and SDPA against the kernel; then the kernel's, the plain
+    version's and SDPA's times, the kernel's back to back, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.roofline import analysis
+
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    shape = f"B={b} S={s} H={h} Hkv={hkv}"
+    # the yardstick's (B, H, S, d) layouts are made once, outside the timing
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    fns = {"kernel": lambda: FA.flash_attention(q, k, v), "library": library}
+    if s <= PLAIN_MAX_S:
+        fns["plain"] = lambda: FA.flash_attention_plain(q, k, v)
+    got = FA.flash_attention(q, k, v)
+    err = _kernel_vs_plain(torch, q, k, v, got, dtype, "")
+    lib_err = _attn_agrees(torch, library().transpose(1, 2), got, dtype,
+                           f"SDPA vs kernel {shape}")
+    del got
+    iters = 20 if s <= PLAIN_MAX_S else 2
+    t = _time_alternating(torch, fns, iters=iters)
+    dev_ms = _queued_ms(torch, fns["kernel"], iters)
+    bd = analysis.bound(*analysis.attention_work(b, s, h, hkv, d, dtype), dtype)
+    plain = f"{t['plain']:.5f}" if "plain" in t else "not run (scores too large)"
+    log(f"attn-kernel: {shape} {dtype} kernel_ms={t['kernel']:.5f} "
+        f"kernel_device_ms={dev_ms:.5f} "
+        f"plain_ms={plain} library_ms={t['library']:.5f} (SDPA causal GQA, "
+        f"max_abs_err vs kernel {lib_err:.3e}) "
+        + _bound_text(bd, t["kernel"], f"attn-kernel: {shape} {dtype}", dev_ms)
+        + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
+    return dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms, max_err=err)
 
 
 # ---------------------------------------------------------------- lm-check --
@@ -2184,33 +2239,45 @@ def phase_lm_check(torch, cfg, seed: int) -> None:
 
 # ---------------------------------------------------------------------- lm --
 
-def phase_lm(torch, cfg, seed: int) -> dict:
-    """qwen3-0.6b's serving path at full width in bfloat16: prefill of
-    8 x 2048 tokens, the cache copied into a 2048+32 cache, 32 greedy decode
-    steps, then a prefill of 1 x 32768. The attention kernel's launch count
-    is set to 0 just before and read just after, and must be 28 per
-    prefill; decode launches it never. The 8 x 2048 prefill is then
-    counted once more and read against its bound."""
+def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
+    """An LM's serving path at full width in bfloat16 (qwen3-0.6b as "lm",
+    deepseek-moe-16b as "lm-moe"): prefill of 8 x 2048 tokens, the cache
+    copied into a 2048+32 cache, 32 greedy decode steps, then a prefill of
+    1 x 32768. The attention kernel's launch count is set to 0 just before
+    and read just after, and must be one a layer per prefill; decode
+    launches it never. The 8 x 2048 prefill is then counted once more and
+    read against its bound, an MoE model's with its dropped slots counted."""
+    import contextlib
     import dataclasses
 
     from repro_torch.configs import LM_SHAPES
     from repro_torch.data import lm as lm_data
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
 
     sync = torch.cuda.synchronize
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()              # what earlier phases still hold
     t0 = time.perf_counter()
     params = tfm.init_lm(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+    sync()
+    setup_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     toks = torch.from_numpy(next(lm_data.token_batches(
         cfg.vocab_size, LM_BATCH, LM_SEQ, seed=seed))["tokens"]).cuda()
     long_toks = torch.from_numpy(next(lm_data.token_batches(
         cfg.vocab_size, 1, LM_LONG, seed=seed + 1))["tokens"]).cuda()
-    sync()
-    log(f"lm: cfg={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size} {cfg.dtype} params={n_params} "
-        f"({n_params * 2 / 1e9:.3f} GB); setup {time.perf_counter() - t0:.3f} s")
+    ffn = (f"d_ff={cfg.d_ff}" if cfg.moe is None else
+           f"moe={cfg.moe.n_routed}x{cfg.moe.d_expert} top-{cfg.moe.top_k} "
+           f"shared={cfg.moe.n_shared} capacity_factor={cfg.moe.capacity_factor} "
+           f"group={cfg.moe.group_size}")
+    log(f"{name}: cfg={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} {ffn} "
+        f"vocab={cfg.vocab_size} {cfg.dtype} params={n_params} ({n_bytes / 1e9:.3f} GB); "
+        f"init_lm {setup_s:.3f} s, its peak allocated {init_peak / 1e9:.3f} GB "
+        f"({held / 1e9:.3f} GB held before it, so {(init_peak - held) / 1e9:.3f} GB its own)")
     tfm.prefill(params, toks[:, :128], cfg)           # warm-up: handles, first launches
     sync()
 
@@ -2267,18 +2334,19 @@ def phase_lm(torch, cfg, seed: int) -> dict:
     kv_bytes = cfg.n_layers * cfg.n_kv_heads * cfg.d_head * 2 * 2
     med8, best_long = statistics.median(prefill_s), min(long_s)
     med_step = statistics.median(step_s)
-    log(f"lm: prefill B={LM_BATCH} S={LM_SEQ}: {','.join(f'{x * 1e3:.3f}' for x in prefill_s)} "
+    log(f"{name}: prefill B={LM_BATCH} S={LM_SEQ}: "
+        f"{','.join(f'{x * 1e3:.3f}' for x in prefill_s)} "
         f"ms, median {med8 * 1e3:.3f} ms, {LM_BATCH * LM_SEQ / med8:.1f} tokens/s; "
         f"KV cache {LM_BATCH * LM_SEQ * kv_bytes / 1e9:.3f} GB ({kv_bytes} B a token); "
         f"peak allocated {peak8 / 1e9:.3f} GB")
-    log(f"lm: decode B={LM_BATCH} from position {LM_SEQ}, {LM_DECODE} greedy steps: "
+    log(f"{name}: decode B={LM_BATCH} from position {LM_SEQ}, {LM_DECODE} greedy steps: "
         f"median {med_step * 1e3:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
         f"{max(step_s) * 1e3:.3f}), {LM_BATCH / med_step:.1f} tokens/s; first tokens of "
         f"row 0: {gen_toks[0, :8].tolist()}")
-    log(f"lm: prefill B=1 S={LM_LONG}: {','.join(f'{x * 1e3:.3f}' for x in long_s)} ms, "
+    log(f"{name}: prefill B=1 S={LM_LONG}: {','.join(f'{x * 1e3:.3f}' for x in long_s)} ms, "
         f"best {best_long * 1e3:.3f} ms, {LM_LONG / best_long:.1f} tokens/s; KV cache "
         f"{LM_LONG * kv_bytes / 1e9:.3f} GB; peak allocated {peak_long / 1e9:.3f} GB")
-    log(f"lm: flash_attention launches={launches} over {n_full} prefill calls "
+    log(f"{name}: flash_attention launches={launches} over {n_full} prefill calls "
         f"(decode launched it {decode_launches} times)")
     check(launches > 0, "the LM path launched the attention kernel no time")
     check(launches == cfg.n_layers * n_full,
@@ -2288,14 +2356,25 @@ def phase_lm(torch, cfg, seed: int) -> dict:
     del long_logits, long_cache
     torch.cuda.empty_cache()
     prefill_32k = {s_.name: s_ for s_ in LM_SHAPES}["prefill_32k"]
-    _step_roofline(torch, cfg.name,
-                   dataclasses.replace(prefill_32k, seq_len=LM_SEQ, global_batch=LM_BATCH),
-                   lambda: tfm.prefill(params, toks, cfg), med8 * 1e3,
-                   f"lm: prefill B={LM_BATCH} S={LM_SEQ}")
+    with (moe.count_drops() if cfg.moe is not None else contextlib.nullcontext()) as drops:
+        roof = _step_roofline(
+            torch, cfg.name,
+            dataclasses.replace(prefill_32k, seq_len=LM_SEQ, global_batch=LM_BATCH),
+            lambda: tfm.prefill(params, toks, cfg), med8 * 1e3,
+            f"{name}: prefill B={LM_BATCH} S={LM_SEQ}")
+    out = {"launches": launches, "prefill_ms": med8 * 1e3, "decode_ms": med_step * 1e3,
+           "long_ms": best_long * 1e3, "peak": peak8, "init_peak": init_peak,
+           "share": roof["share"]}
+    if drops is not None:
+        out["drop_share"] = drops.share
+        log(f"{name}: prefill B={LM_BATCH} S={LM_SEQ}: {drops.dropped} of {drops.routed} "
+            f"(token, choice) pairs dropped over {cfg.n_layers} layers at capacity factor "
+            f"{cfg.moe.capacity_factor} ({moe._capacity(cfg.moe, cfg.moe.group_size)} slots "
+            f"an expert a group of {cfg.moe.group_size}): drop share {drops.share:.5f}")
 
     # busy shares, outside the counted run: one B=8 prefill, then 8 decode
     # steps redone on the last 8 positions with the tokens they had
-    log(f"lm: prefill B={LM_BATCH} S={LM_SEQ} "
+    log(f"{name}: prefill B={LM_BATCH} S={LM_SEQ} "
         f"{_busy_share(torch, lambda: tfm.prefill(params, toks, cfg), 'flash_attention')}")
     pos0 = LM_SEQ + LM_DECODE - 8
 
@@ -2305,10 +2384,144 @@ def phase_lm(torch, cfg, seed: int) -> dict:
                             torch.full((LM_BATCH,), pos0 + i, dtype=torch.int32,
                                        device="cuda"), cfg)
 
-    log(f"lm: 8 decode steps B={LM_BATCH} {_busy_share(torch, eight_steps, 'flash_attention')}")
+    log(f"{name}: 8 decode steps B={LM_BATCH} "
+        f"{_busy_share(torch, eight_steps, 'flash_attention')}")
     del params, cache
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return out
+
+
+# ------------------------------------------------------------ lm-moe-check --
+
+def _moe_agrees(torch, got, want, dtype: str, what: str) -> float:
+    err = (got - want).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **MOE_TOL[dtype])
+    log(f"lm-moe-check: {what} {dtype}: max_abs_err={err:.3e} "
+        f"(rtol={MOE_TOL[dtype]['rtol']} atol={MOE_TOL[dtype]['atol']}; output max "
+        f"{want.abs().max().item():.4f}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{what} {dtype}: max_abs_err {err}")
+    return err
+
+
+def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
+    """deepseek-moe-16b's path on the card at full width, cut to
+    MOE_CHECK_LAYERS layers where a model runs: (a) the attention kernel at
+    the model's H=16, Hkv=16 (G=1), d=128 against its plain version in both
+    types, and at 1 x LM_LONG in bfloat16 past PLAIN_MAX_S on its first
+    and last query rows, then timed at 8 x 2048 in bfloat16; (b)
+    ``moe_apply`` against the dense mixture at capacity factor
+    MOE_CHECK_CF, and ``route``'s ties
+    (the lower expert index first, as on the CPU); (c) one group at the
+    config's capacity factor: every dropped (token, choice) pair adds
+    nothing, the drop share; (d) decode at position S after a prefill of S
+    against forward over S+1 in float64 with plain attention at capacity
+    factor MOE_CHECK_CF: no slot drops, so the one-token decode routes as
+    the full pass does, and the two passes differ by float64 sums (the
+    layers' float32 norms and scores aside, as in JAX) where a top-6 choice
+    among 64 experts could flip on a near tie in a lower precision."""
+    import dataclasses
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for matmul: the router's float32 product would round its inputs")
+    h, hkv, d, spec = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.moe
+    check(h == hkv, f"{cfg.name} is not multi-head: G={h // hkv}")
+    gen = torch.Generator("cuda").manual_seed(seed + 31)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # (a) the kernel at G=1, at both prefill shapes of lm-moe
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checks = [(b, s, dtype) for b, s in MOE_ATTN_SHAPES for dtype in max_err]
+    checks.append((1, LM_LONG, "bfloat16"))
+    for b, s, dtype in checks:
+        q, k, v = (randn(b, s, n, d, dtype=getattr(torch, dtype)) for n in (h, hkv, hkv))
+        err = _kernel_vs_plain(torch, q, k, v, FA.flash_attention(q, k, v), dtype, "G=1 ")
+        max_err[dtype] = max(max_err[dtype], err)
+        del q, k, v
+    torch.cuda.empty_cache()
+    timing = _time_attention(torch, *(randn(LM_BATCH, LM_SEQ, n, d, dtype=torch.bfloat16)
+                                      for n in (h, hkv, hkv)), "bfloat16")
+    torch.cuda.empty_cache()
+
+    # (b) moe_apply == the dense mixture where no slot drops; ties
+    cfg16 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS, attn_impl="chunked",
+                                moe=dataclasses.replace(spec, capacity_factor=MOE_CHECK_CF))
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        p = moe.moe_params(gen, cfg16, dt)
+        x = randn(CHECK_B, CHECK_S, cfg.d_model, dtype=dt)
+        with moe.count_drops() as drops:
+            y, aux = moe.moe_apply(p, x, cfg16)
+        check(drops.dropped == 0 and bool(torch.isfinite(aux)), "slots dropped at capacity 16")
+        _moe_agrees(torch, y, moe.moe_apply_dense(p, x, cfg16.moe), dtype,
+                    f"moe_apply vs the dense mixture B={CHECK_B} S={CHECK_S} capacity "
+                    f"factor {MOE_CHECK_CF} (aux {aux.item():.6f})")
+        del p, x, y
+    # router columns repeating 16 times, small dyadic entries: exact logits
+    base = torch.randint(-4, 5, (cfg.d_model, 4), generator=gen, device="cuda").float() / 8
+    router = base[:, torch.arange(spec.n_routed, device="cuda") % 4]
+    x = torch.randint(-2, 3, (1, 64, cfg.d_model), generator=gen, device="cuda").float()
+    _, idx, _ = moe.route(router, x, spec)
+    probs = torch.softmax(x @ router, dim=-1).gather(-1, idx)
+    tied = probs[..., 1:] == probs[..., :-1]
+    ok = (torch.equal(idx.cpu(), moe.route(router.cpu(), x.cpu(), spec)[1])
+          and bool((idx[..., 1:] > idx[..., :-1])[tied].all()))
+    log(f"lm-moe-check: route ties: {int(tied.sum())} tied neighbours among the top "
+        f"{spec.top_k} of 64 tokens, each at the higher expert index; card == CPU "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok and bool(tied.any()), "route breaks ties unlike jax.lax.top_k")
+
+    # (c) dropped slots add nothing, at the config's capacity factor
+    p = moe.moe_params(gen, cfg, torch.float64)
+    del p["shared"]
+    x = (randn(1, spec.group_size, cfg.d_model)
+         + MOE_SKEW * randn(cfg.d_model)).to(torch.float64)
+    with moe.count_drops() as drops:
+        y, _ = moe.moe_apply(p, x, cfg)
+    c = moe._capacity(spec, spec.group_size)
+    _, idx, _ = moe.route(p["router"], x, spec)
+    _, keep = moe.slots(idx, spec.n_routed, c)
+    none_kept = ~keep[0].any(-1)
+    check(drops.dropped == int((~keep).sum()) > 0, "no slot dropped: (c) would hold nothing")
+    _moe_agrees(torch, y, moe.moe_apply_dense(p, x, spec, keep[0]), "float64",
+                f"moe_apply vs the dense mixture over kept pairs, one group of "
+                f"{spec.group_size} at capacity factor {spec.capacity_factor} ({c} slots; "
+                f"{drops.dropped} of {drops.routed} pairs dropped, share {drops.share:.5f}; "
+                f"{int(none_kept.sum())} tokens with none kept)")
+    check(bool((y[0][none_kept] == 0).all()), "a token with every choice dropped got output")
+    del p, x, y
+    torch.cuda.empty_cache()
+
+    # (d) decode == forward, float64, plain attention
+    cfg64 = dataclasses.replace(cfg16, dtype="float64")
+    params = tfm.init_lm(cfg64, gen, "cuda")
+    toks = torch.from_numpy(next(lm_data.token_batches(
+        cfg.vocab_size, CHECK_B, CHECK_S + 1, seed=seed))["tokens"]).cuda()
+    full, _ = tfm.forward(params, toks, cfg64)
+    lg_prefill, pcache = tfm.prefill(params, toks[:, :CHECK_S], cfg64)
+    cache = tfm.init_cache(cfg64, CHECK_B, CHECK_S + 8)
+    for key in ("k", "v"):
+        cache[key][:, :, :CHECK_S] = pcache[key]
+    pos = torch.full((CHECK_B,), CHECK_S, dtype=torch.int32, device="cuda")
+    lg, _ = tfm.decode_step(params, cache, toks[:, CHECK_S], pos, cfg64)
+    err = (lg - full[:, -1]).abs().max().item()
+    err_p = (lg_prefill - full[:, -2]).abs().max().item()
+    ok = (torch.allclose(lg, full[:, -1], rtol=2e-2, atol=2e-2)
+          and torch.allclose(lg_prefill, full[:, -2], rtol=2e-2, atol=2e-2))
+    log(f"lm-moe-check: float64 {MOE_CHECK_LAYERS} layers, capacity factor {MOE_CHECK_CF}: "
+        f"decode at position {CHECK_S} vs forward over {CHECK_S + 1} tokens: "
+        f"max_abs_err={err:.3e}; prefill's last logits vs forward: {err_p:.3e} "
+        f"(rtol=atol=2e-2) {'ok' if ok else 'FAIL'}")
+    check(ok, f"MoE decode after prefill disagrees with forward: {err}, {err_p}")
+    del params, full, lg_prefill, pcache, cache, lg
+    torch.cuda.empty_cache()
+    return {"max_err": max_err, "timing": timing}
 
 
 # ---------------------------------------------------------------- attn-bwd --
@@ -3879,6 +4092,13 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         lm = phase_lm(torch, lm_cfg, args.seed)
         phases["lm"] = time.perf_counter() - t
+        moe_cfg = get_config(MOE_ARCH)
+        t = time.perf_counter()
+        moe_check = phase_lm_moe_check(torch, moe_cfg, args.seed)
+        phases["lm-moe-check"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lm_moe = phase_lm(torch, moe_cfg, args.seed, "lm-moe")
+        phases["lm-moe"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
     attn_bwd = phase_attn_bwd(torch, lm_cfg)
@@ -3923,6 +4143,7 @@ def main(argv=None) -> int:
     t32 = kern["timings"][(256, "float32")]
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     tfa32 = attn["timings"][(LM_BATCH, LM_SEQ, "float32")]
+    tg1 = moe_check["timing"]
     tbg = bag["timings"]["serve_bulk"]
     tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
@@ -3957,6 +4178,14 @@ def main(argv=None) -> int:
         "plain_ms_with_lse_b4": tbw["fwd_lse_plain"],
         "library_ms_with_lse_b4": tbw["fwd_lse_library"],
         "lse_max_abs_err": attn_bwd["lse_err"]["bfloat16"],
+        "launches_moe": lm_moe["launches"],
+        "max_abs_err_g1": moe_check["max_err"]["bfloat16"],
+        "max_abs_err_g1_float32": moe_check["max_err"]["float32"],
+        "ms_g1": tg1["kernel"], "device_ms_g1": tg1["device_ms"],
+        "plain_ms_g1": tg1["plain"], "bound_ms_g1": tg1["bound_ms"],
+        "library_ms_g1": tg1["library"],
+        "shape_g1": f"B={LM_BATCH} S={LM_SEQ} H={moe_cfg.n_heads} Hkv={moe_cfg.n_kv_heads} "
+                    f"d={moe_cfg.d_head}",
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,

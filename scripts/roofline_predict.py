@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Count, on the CPU, the FLOPs of each step that ``chip_smoke.py`` reads
-against its bound, and print the counted-to-model FLOP ratio (the useful
+against its bound, and print the model-to-counted FLOP ratio (the useful
 ratio ``repro_torch.roofline.analysis.build_roofline`` reports).
 
   PYTHONPATH=src python3 scripts/roofline_predict.py

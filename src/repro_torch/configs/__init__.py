@@ -2,12 +2,14 @@
 
 Every architecture of the JAX package's registry registers its full config
 and its shape set, so ``roofline.analysis.model_flops`` covers each
-(arch x shape) cell. ``ARCHS`` lists the ones whose models are ported so
-far: the paper's own text-pair model, qwen3-0.6b of the LM family,
+(arch x shape) cell. ``ARCHS`` lists the ones the training launcher
+offers: the paper's own text-pair model, qwen3-0.6b of the LM family,
 dlrm-mlperf, fm, din and bert4rec of the recsys family and meshgraphnet of
-the GNN family. The MoE and larger dense LM configs are data only: the
-models refuse them until their layers are ported (ROADMAP.md §1 items 10a,
-10b, 10d).
+the GNN family. The MoE configs (deepseek-moe-16b, moonshot-v1-16b-a3b)
+build and serve through ``models.transformer`` (``models/moe.py``), with
+the bfloat16 KV cache; their training and the int8 KV cache are not ported
+(ROADMAP.md §1 item 10a). The larger dense LM configs are data only until
+their attention widths are ported (item 10d).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM: dense, GQA + RoPE (+qk_norm), a loop over stacked layers.
+"""Decoder-only LM: dense or MoE, GQA + RoPE (+qk_norm), a loop over stacked
+layers.
 
 The port of the JAX package's ``models/transformer.py``, with its names,
 parameter tree and layouts:
@@ -18,7 +19,9 @@ tensors, never copies. With ``attn_impl="flash"`` every full-sequence layer
 runs its attention on the CUDA kernel of ``kernels/flash_attention.py`` (the
 plain version on CPU tensors); ``"chunked"`` runs ``layers.causal_attention``
 in plain torch. Decode attention is plain torch, as the JAX package leaves
-it to XLA.
+it to XLA. An MoE config (``cfg.moe``) puts ``models/moe.py``'s gather
+formulation in place of the dense FFN, in every pass; ``forward`` returns
+the sum of the layers' load-balance losses, which ``loss_fn`` adds.
 
 Training differentiates ``forward`` with autograd. Under ``"flash"`` the
 attention's gradient is the attention module's own backward
@@ -29,14 +32,13 @@ layers are not rematerialised (``cfg.remat`` is the JAX package's
 ``jax.checkpoint``; here every layer's activations are kept), so a training
 step runs the attention forward once a layer and its backward once.
 
-Not ported yet, and refused with ``NotImplementedError``: MoE layers
-(``cfg.moe``, ROADMAP.md §1 item 10b) and the int8 KV cache
+Not ported yet, and refused with ``NotImplementedError``: the int8 KV cache
 (``cfg.kv_quant``, ROADMAP.md §1 item 10a). Nothing here disables autograd:
 serving callers run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +47,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.core import export
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.training.train_loop import value_and_grad
 
 
@@ -53,10 +56,6 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (models/moe.py) are not ported yet "
-            f"(ROADMAP.md §1 item 10b)")
     if cfg.kv_quant:
         raise NotImplementedError(
             f"{cfg.name}: the int8 KV cache (kv_quant) is not ported yet "
@@ -91,6 +90,15 @@ def _head(params: Dict) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
+def _ffn(cfg: LMConfig, lp: Dict, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN on its normed input: (y, moe_aux); moe_aux is None
+    for a dense layer."""
+    if cfg.moe is not None:
+        return moe.moe_apply(lp["moe"], h, cfg)
+    return L.swiglu_apply(lp["mlp"], h), None
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -99,34 +107,54 @@ def init_layer(generator: torch.Generator, cfg: LMConfig) -> Dict:
     _check_supported(cfg)
     dt = _dtype(cfg)
     ones = torch.ones((cfg.d_model,), dtype=dt, device=generator.device)
-    return {
+    p = {
         "attn": L.attn_params(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.d_head, cfg.qk_norm, dt),
         "attn_norm": ones,
         "mlp_norm": ones.clone(),
-        "mlp": L.swiglu_params(generator, cfg.d_model, cfg.d_ff, dt),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_params(generator, cfg, dt)
+    else:
+        p["mlp"] = L.swiglu_params(generator, cfg.d_model, cfg.d_ff, dt)
+    return p
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int):
+    """An empty tree of ``tree``'s leaves with a leading axis of ``n``."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
+
+
+def _set_layer(stacked, tree, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _set_layer(stacked[k], v, i)
+    else:
+        stacked[i] = tree
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict:
     """Random parameters with the JAX init's distributions (embeddings at
-    std 0.02, dense layers at std 1/sqrt(fan_in), norms at 1), drawn from
-    ``generator`` on its own device and then moved to ``device``. The layers
-    are stacked on a leading L axis."""
+    std 0.02, dense layers at std 1/sqrt(fan_in), norms at 1; an MoE
+    layer's as ``moe.moe_params``), drawn from ``generator`` on its own
+    device and then moved to ``device``. The layers are stacked on a
+    leading L axis: each stacked leaf is allocated once and filled layer by
+    layer, so the draw holds the weights plus one layer's tree."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
-    params = {
-        "embed": L.embed_init(generator, cfg.vocab_padded, cfg.d_model, dt),
-        "layers": _stack([init_layer(generator, cfg) for _ in range(cfg.n_layers)]),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=generator.device),
-    }
+    params = {"embed": L.embed_init(generator, cfg.vocab_padded, cfg.d_model, dt)}
+    layers = None
+    for i in range(cfg.n_layers):
+        layer = init_layer(generator, cfg)
+        if layers is None:
+            layers = _stacked_like(layer, cfg.n_layers)
+        _set_layer(layers, layer, i)
+        del layer
+    params["layers"] = layers
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=generator.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_padded, dt)
     return export.to_torch(params, dev)
@@ -145,30 +173,36 @@ def params_from_numpy(tree, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _block(cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One transformer block over the full sequence: (x, k, v)."""
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One transformer block over the full sequence: (x, k, v, moe_aux),
+    moe_aux None for a dense layer."""
     h = L.rms_norm(x, lp["attn_norm"])
     q, k, v = L.qkv_project(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                             cfg.d_head, positions, cfg.rope_theta)
     o = _attend(cfg, q, k, v)
     b, s, _, _ = o.shape
     x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-    x = x + L.swiglu_apply(lp["mlp"], L.rms_norm(x, lp["mlp_norm"]))
-    return x, k, v
+    y, aux = _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))
+    return x + y, k, v, aux
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), moe_aux); moe_aux is 0 (dense)."""
+    """tokens (B, S) -> (logits (B, S, V), moe_aux): the sum of the layers'
+    load-balance losses (float32; 0 for a dense model)."""
     _check_supported(cfg)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
+    auxes = []
     for i in range(cfg.n_layers):
-        x, _, _ = _block(cfg, x, _layer(params["layers"], i), positions)
+        x, _, _, aux = _block(cfg, x, _layer(params["layers"], i), positions)
+        if aux is not None:
+            auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"])
     logits = x @ _head(params)
-    return (_mask_padded_vocab(logits, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    aux = (torch.sum(torch.stack(auxes)) if auxes
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return _mask_padded_vocab(logits, cfg), aux
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: LMConfig,
@@ -214,7 +248,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
              "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
     for i in range(cfg.n_layers):
-        x, k, v = _block(cfg, x, _layer(params["layers"], i), positions)
+        x, k, v, _ = _block(cfg, x, _layer(params["layers"], i), positions)
         cache["k"][i] = k
         cache["v"][i] = v
     x = L.rms_norm(x[:, -1:, :], params["final_norm"])
@@ -262,7 +296,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         cache["v"][li, batch_ix, pos] = v[:, 0]
         o = L.decode_attention(q, cache["k"][li], cache["v"][li], kv_len=pos + 1)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
-        x = x + L.swiglu_apply(lp["mlp"], L.rms_norm(x, lp["mlp_norm"]))
+        x = x + _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))[0]
     x = L.rms_norm(x, params["final_norm"])
     logits = _mask_padded_vocab((x @ _head(params))[:, 0, :], cfg)
     return logits, cache

@@ -274,6 +274,7 @@ class Roofline:
     n_collectives: Dict[str, int]
     model_flops: float
     model_bytes: float
+    #: the model-to-counted FLOP ratio: model_flops over the counted FLOPs
     useful_ratio: float
     bottleneck: str
     step_s: float

@@ -147,9 +147,13 @@ def test_cuda_without_a_card_raises():
 
 
 def test_arch_offers_only_the_ported_architectures(capsys):
-    """The MoE configs register for the roofline, but ``--arch`` offers only
-    ``ARCHS`` and a model built from them still refuses them."""
-    from repro_torch.configs import ARCHS, get_config
+    """The MoE configs register for the roofline and their models serve,
+    but MoE training is not ported: ``--arch`` offers only ``ARCHS``. Their
+    reduced configs build and run ``forward``; with the int8 KV cache,
+    which is not ported, a model still refuses them."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config, reduced
     from repro_torch.models import transformer as tfm
     offered = "{" + ",".join(ARCHS) + "}"   # the usage line's choices
     for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b"):
@@ -157,5 +161,11 @@ def test_arch_offers_only_the_ported_architectures(capsys):
         with pytest.raises(SystemExit):
             train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
         assert offered in capsys.readouterr().err
-        with pytest.raises(NotImplementedError, match="MoE layers"):
-            tfm.init_lm(get_config(arch), torch.Generator().manual_seed(0), "cpu")
+        cfg = reduced(get_config(arch))
+        params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        logits, aux = tfm.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
+        assert tuple(logits.shape) == (1, 8, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all()) and math.isfinite(float(aux))
+        with pytest.raises(NotImplementedError, match="int8 KV cache"):
+            tfm.init_lm(dataclasses.replace(get_config(arch), kv_quant=True),
+                        torch.Generator().manual_seed(0), "cpu")

@@ -367,8 +367,16 @@ def test_options_not_ported_raise(change, error):
 
 
 def test_moe_config_raises():
+    """The name is historical: an MoE config once raised here. It now
+    builds and runs (``models/moe.py``; its parity is
+    ``tests/test_torch_moe.py``); with the int8 KV cache, which is not
+    ported, it still raises."""
     from repro_torch.configs import MoESpec
     cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b")),
                               moe=MoESpec(n_routed=8, top_k=2, n_shared=1, d_expert=32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init_lm(cfg, torch.Generator(), "cpu")
+    params = tfm.init_lm(cfg, torch.Generator(), "cpu")
+    assert "moe" in params["layers"] and "mlp" not in params["layers"]
+    logits, aux = tfm.forward(params, _t(_tokens(cfg)), cfg)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        tfm.init_lm(dataclasses.replace(cfg, kv_quant=True), torch.Generator(), "cpu")
