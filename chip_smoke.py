@@ -116,7 +116,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   lm-moe-check  deepseek-moe-16b (MHA: the attention kernel at G=1) on the
             card, full width cut to 2 layers where a model runs: (a) the
             kernel against its plain version at H=16, Hkv=16, d=128 for
-            (2, 130) and (8, 2048), float32 and bfloat16, then its times at
+            (2, 130) and (8, 2048), float32 and bfloat16, and on the first
+            and last 256 query rows of lm-moe's 1 x 32768 and lm-moonshot's
+            1 x 16384 prefills in bfloat16, then its times at
             8 x 2048 bfloat16 with the plain version's, SDPA's and the
             bound; (b) moe_apply against the dense mixture (every expert on
             every token) at capacity factor 16, float32 and float64, and
@@ -126,13 +128,30 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             choice) pairs only, a token with every choice dropped gets
             zero, the drop share; (d) float64 with plain attention at
             capacity 16: decode at position S after a prefill of S == forward
-            over S+1 tokens (rtol=atol=2e-2); TF32 must be off
+            over S+1 tokens (rtol=atol=2e-2); (e) the int8 KV cache's
+            quantize and dequantize on the card == on the CPU, bit for bit,
+            bfloat16 and float32; (f) (d)'s model with the prefill's cache
+            quantized to int8 and decode under kv_quant == forward (top-1
+            identical, atol 0.15: tests/test_arch_smoke.py's bound); TF32
+            must be off
   lm-moe    deepseek-moe-16b at full width in bfloat16 (33.76 GB of weights
             from --seed), the lm phase's schedule and checks: init_lm's
             seconds and peak, prefill 8 x 2048 (28 attention launches
             each), 32 greedy decode steps (none), prefill 1 x 32768; the
             8 x 2048 prefill read against its bound with its dropped
-            (token, choice) pairs counted
+            (token, choice) pairs counted; then, as the JAX launcher serves
+            a model past 5e9 parameters, the int8 KV cache at decode_32k's
+            32,768 positions: B=8, the 8 x 2048 prefill's cache quantized
+            into its first 2048 positions, 32 greedy steps (no attention
+            launch), each reading and masking all 32,768 positions; step
+            ms, tokens/s, the cache's GB, peak, busy share, the greedy
+            tokens that equal the bf16 decode's, the step's roofline at
+            decode_32k (B=8) and its share of the int8 cache's own bytes
+  lm-moonshot  moonshot-v1-16b-a3b at full width in bfloat16 (57.78 GB of
+            weights, 48 layers, deepseek's widths), lm-moe's schedule and
+            checks with the long prefill cut to 1 x 16384 and the int8
+            decode at B=2 (MOE_LM_RUNS), whose peak must leave 4 GB of the
+            card unreserved
   attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
             against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
             float32 and bfloat16 (randn inputs and incoming gradient), for
@@ -244,8 +263,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             do not fit one card); reduced float32 forward, forward_batched
             and loss_fn gradients, each aggregator, card == CPU
 
-The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, bag-kernel, rec-check
-and rec phases run under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
+The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot,
+bag-kernel, rec-check and rec phases run under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -347,7 +366,7 @@ CHECK_B, CHECK_S = 2, 130
 #: lm-moe-check and lm-moe: deepseek-moe-16b, multi-head (the attention
 #: kernel at G = H / Hkv = 1). The check cuts it to MOE_CHECK_LAYERS layers:
 #: (a) the kernel against its plain version at MOE_ATTN_SHAPES in both types
-#: and at lm-moe's 1 x LM_LONG in bfloat16 (on its first and last
+#: and at each long prefill of MOE_LM_RUNS in bfloat16 (on its first and last
 #: ATTN_SLICE_ROWS query rows, as attn-kernel holds it at G=2); (b) moe_apply
 #: against the dense mixture and (d) decode against forward at capacity
 #: factor MOE_CHECK_CF, where no slot drops, at MOE_TOL in float32 and
@@ -359,6 +378,22 @@ MOE_ARCH = "deepseek-moe-16b"
 MOE_CHECK_LAYERS, MOE_CHECK_CF, MOE_SKEW = 2, 16.0, 0.5
 MOE_ATTN_SHAPES = ((2, 130), (8, 2048))
 MOE_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "float64": dict(rtol=1e-10, atol=1e-12)}
+#: a model past KV_QUANT_PARAMS parameters decodes on the int8 KV cache, as
+#: the JAX launcher serves it (src/repro/launch/specs.py:179): lm-moe and
+#: lm-moonshot run it at decode_32k's context at their MOE_LM_RUNS rows,
+#: which must leave INT8_SPARE bytes of the card unreserved; (f) of
+#: lm-moe-check holds it to tests/test_arch_smoke.py's INT8_ATOL
+KV_QUANT_PARAMS, INT8_SPARE, INT8_ATOL = 5e9, 4e9, 0.15
+#: lm-moonshot: moonshot-v1-16b-a3b (57.78 GB of bf16 weights), its long
+#: prefill cut to 1 x MOONSHOT_LONG: at 1 x 32768 its bf16 cache (12.9 GB)
+#: and the prefill's working memory at that length (~17 GB in lm-moe) would
+#: not fit beside the weights
+MOONSHOT_ARCH, MOONSHOT_LONG = "moonshot-v1-16b-a3b", 16384
+#: the G=1 LM phases: (phase, arch, long prefill's length, int8 decode's
+#: rows at decode_32k's context: deepseek's 31.0 GB of int8 cache beside its
+#: 33.8 GB of weights, moonshot's 13.3 GB beside 57.8 GB)
+MOE_LM_RUNS = (("lm-moe", MOE_ARCH, LM_LONG, 8),
+               ("lm-moonshot", MOONSHOT_ARCH, MOONSHOT_LONG, 2))
 #: attn-bwd: the backward kernel against the plain backward at qwen3-0.6b's
 #: H=16, Hkv=8, d=128: (B, S) from one token to 1 x 1024, and S around the
 #: 64-key tiles at B=1. Tolerances: max abs error within atol + rtol |want|
@@ -2239,14 +2274,18 @@ def phase_lm_check(torch, cfg, seed: int) -> None:
 
 # ---------------------------------------------------------------------- lm --
 
-def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
+def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
+             int8_rows: int = 0) -> dict:
     """An LM's serving path at full width in bfloat16 (qwen3-0.6b as "lm",
-    deepseek-moe-16b as "lm-moe"): prefill of 8 x 2048 tokens, the cache
-    copied into a 2048+32 cache, 32 greedy decode steps, then a prefill of
-    1 x 32768. The attention kernel's launch count is set to 0 just before
-    and read just after, and must be one a layer per prefill; decode
-    launches it never. The 8 x 2048 prefill is then counted once more and
-    read against its bound, an MoE model's with its dropped slots counted."""
+    deepseek-moe-16b as "lm-moe", moonshot-v1-16b-a3b as "lm-moonshot"):
+    prefill of 8 x 2048 tokens, the cache copied into a 2048+32 cache, 32
+    greedy decode steps, then a prefill of 1 x ``long_len``. The attention
+    kernel's launch count is set to 0 just before and read just after, and
+    must be one a layer per prefill; decode launches it never. The 8 x 2048
+    prefill is then counted once more and read against its bound, an MoE
+    model's with its dropped slots counted. A model past KV_QUANT_PARAMS
+    parameters then decodes on the int8 KV cache at ``int8_rows`` rows
+    (``_int8_decode``)."""
     import contextlib
     import dataclasses
 
@@ -2268,7 +2307,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
     toks = torch.from_numpy(next(lm_data.token_batches(
         cfg.vocab_size, LM_BATCH, LM_SEQ, seed=seed))["tokens"]).cuda()
     long_toks = torch.from_numpy(next(lm_data.token_batches(
-        cfg.vocab_size, 1, LM_LONG, seed=seed + 1))["tokens"]).cuda()
+        cfg.vocab_size, 1, long_len, seed=seed + 1))["tokens"]).cuda()
     ffn = (f"d_ff={cfg.d_ff}" if cfg.moe is None else
            f"moe={cfg.moe.n_routed}x{cfg.moe.d_expert} top-{cfg.moe.top_k} "
            f"shared={cfg.moe.n_shared} capacity_factor={cfg.moe.capacity_factor} "
@@ -2302,6 +2341,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
     tok = logits.argmax(-1)
     pos = torch.full((LM_BATCH,), LM_SEQ, dtype=torch.int32, device="cuda")
     step_s, generated = [], [tok]
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(LM_DECODE):
         t = time.perf_counter()
         logits, cache = tfm.decode_step(params, cache, tok, pos, cfg)
@@ -2311,6 +2351,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
         check(bool(torch.isfinite(logits).all()), "decode logits not finite")
         generated.append(tok)
         pos = pos + 1
+    peak_decode = torch.cuda.max_memory_allocated()
     decode_launches = FA.launches - cfg.n_layers * n_full
     long_s = []
     for _ in range(2):
@@ -2325,9 +2366,9 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
     # ---- end of the counted run ----
 
     check(tuple(long_logits.shape) == (1, cfg.vocab_padded)
-          and bool(torch.isfinite(long_logits).all()), "32k prefill logits not finite")
-    check(tuple(long_cache["k"].shape) == (cfg.n_layers, 1, LM_LONG, cfg.n_kv_heads,
-                                           cfg.d_head), "32k cache shape")
+          and bool(torch.isfinite(long_logits).all()), "long prefill logits not finite")
+    check(tuple(long_cache["k"].shape) == (cfg.n_layers, 1, long_len, cfg.n_kv_heads,
+                                           cfg.d_head), "long prefill's cache shape")
     gen_toks = torch.stack(generated, 1)
     check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
           "a greedy token outside the vocabulary")
@@ -2342,10 +2383,15 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
     log(f"{name}: decode B={LM_BATCH} from position {LM_SEQ}, {LM_DECODE} greedy steps: "
         f"median {med_step * 1e3:.3f} ms/step (min {min(step_s) * 1e3:.3f}, max "
         f"{max(step_s) * 1e3:.3f}), {LM_BATCH / med_step:.1f} tokens/s; first tokens of "
-        f"row 0: {gen_toks[0, :8].tolist()}")
-    log(f"{name}: prefill B=1 S={LM_LONG}: {','.join(f'{x * 1e3:.3f}' for x in long_s)} ms, "
-        f"best {best_long * 1e3:.3f} ms, {LM_LONG / best_long:.1f} tokens/s; KV cache "
-        f"{LM_LONG * kv_bytes / 1e9:.3f} GB; peak allocated {peak_long / 1e9:.3f} GB")
+        f"row 0: {gen_toks[0, :8].tolist()}; peak allocated {peak_decode / 1e9:.3f} GB")
+    cut = ("" if long_len == LM_LONG else
+           f" (prefill_32k's {LM_LONG} cut to {long_len}: at {LM_LONG} its bf16 cache, "
+           f"{LM_LONG * kv_bytes / 1e9:.3f} GB, and the prefill's working memory would not "
+           f"fit beside {n_bytes / 1e9:.3f} GB of weights)")
+    log(f"{name}: prefill B=1 S={long_len}{cut}: "
+        f"{','.join(f'{x * 1e3:.3f}' for x in long_s)} ms, "
+        f"best {best_long * 1e3:.3f} ms, {long_len / best_long:.1f} tokens/s; KV cache "
+        f"{long_len * kv_bytes / 1e9:.3f} GB; peak allocated {peak_long / 1e9:.3f} GB")
     log(f"{name}: flash_attention launches={launches} over {n_full} prefill calls "
         f"(decode launched it {decode_launches} times)")
     check(launches > 0, "the LM path launched the attention kernel no time")
@@ -2386,9 +2432,137 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm") -> dict:
 
     log(f"{name}: 8 decode steps B={LM_BATCH} "
         f"{_busy_share(torch, eight_steps, 'flash_attention')}")
+    if cfg.n_params() > KV_QUANT_PARAMS:
+        check(0 < int8_rows <= LM_BATCH, f"{name}: int8 decode rows {int8_rows}")
+        out["int8"] = _int8_decode(torch, cfg, params, cache, gen_toks, name, int8_rows)
     del params, cache
     torch.cuda.empty_cache()
     return out
+
+
+def _int8_decode(torch, cfg, params, cache: dict, gen_toks, name: str, b: int) -> dict:
+    """The int8 KV cache (``cfg.kv_quant``) at decode_32k's context, as the
+    JAX launcher serves a model past KV_QUANT_PARAMS parameters: a cache of
+    decode_32k's positions at ``b`` rows, whose peak must leave INT8_SPARE
+    bytes of the card unreserved; positions [0, LM_SEQ) of ``cache``,
+    the bf16 decode cache (the 8 x 2048 prefill's cache there), quantized
+    layer by layer with the port's ``_kv_quantize`` into an int8 prefix,
+    ``cache`` emptied, then the prefix written into the int8 cache's first
+    LM_SEQ positions; LM_DECODE greedy steps from position LM_SEQ, the attention
+    kernel's count set to 0 before and read after (decode never launches
+    it). Each step's decode attention reads and masks every position, as
+    JAX's does. ``gen_toks`` are the bf16 decode's tokens from the same
+    prefill, its first column the prefill's own: the int8 decode starts
+    from that column, and how many of its tokens equal the bf16 decode's is
+    printed, not gated (random weights)."""
+    import dataclasses
+
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import hw
+
+    sync = torch.cuda.synchronize
+    decode_32k = {s_.name: s_ for s_ in LM_SHAPES}["decode_32k"]
+    s = decode_32k.seq_len
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    # a row: int8 K and V and their float32 scales; bf16 K and V
+    row_bytes = cfg.n_layers * s * cfg.n_kv_heads * (cfg.d_head + 4) * 2
+    bf16_row = cfg.n_layers * s * cfg.n_kv_heads * cfg.d_head * 2 * 2
+    log(f"{name}: int8 KV cache (kv_quant: the JAX launcher's above "
+        f"{KV_QUANT_PARAMS:.0e} parameters, src/repro/launch/specs.py:179; "
+        f"{cfg.n_params()} here) at decode_32k's {s} positions, B={b}: "
+        f"{b * row_bytes / 1e9:.3f} GB ({row_bytes // s} B a token: int8 K/V and float32 "
+        f"scales; bf16 would take {bf16_row / 1e9:.3f} GB a row)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    prefix = tfm.init_cache(cfgq, b, LM_SEQ)
+    for li in range(cfg.n_layers):
+        for key in ("k", "v"):
+            prefix[key][li], prefix[f"{key}_scale"][li] = tfm._kv_quantize(
+                cache[key][li, :b, :LM_SEQ])
+    cache.clear()
+    torch.cuda.empty_cache()
+    qcache = tfm.init_cache(cfgq, b, s)
+    for key, t_ in prefix.items():
+        qcache[key][:, :, :LM_SEQ] = t_
+    del prefix, t_
+    sync()
+    quant_s = time.perf_counter() - t
+
+    # ---- the int8 decode, counted ----
+    FA.reset_launches()
+    tok = gen_toks[:b, 0]
+    pos = torch.full((b,), LM_SEQ, dtype=torch.int32, device="cuda")
+    step_s, generated = [], [tok]
+    for _ in range(LM_DECODE):
+        t = time.perf_counter()
+        logits, qcache = tfm.decode_step(params, qcache, tok, pos, cfgq)
+        tok = logits.argmax(-1)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(logits).all()), "int8 decode logits not finite")
+        generated.append(tok)
+        pos = pos + 1
+    launches = FA.launches
+    peak = torch.cuda.max_memory_allocated()
+    # ---- end of the counted run ----
+
+    check(launches == 0, f"the int8 decode launched the attention kernel {launches} times")
+    spare = torch.cuda.get_device_properties(0).total_memory - torch.cuda.max_memory_reserved()
+    log(f"{name}: int8 decode B={b}: peak reserved {torch.cuda.max_memory_reserved() / 1e9:.3f} "
+        f"GB, {spare / 1e9:.3f} GB of the card left")
+    check(spare >= INT8_SPARE, f"{name}: B={b} leaves {spare / 1e9:.3f} GB of the card, "
+                               f"under {INT8_SPARE / 1e9:.0f} GB")
+    q_toks = torch.stack(generated, 1)
+    check(bool(((q_toks >= 0) & (q_toks < cfg.vocab_size)).all()),
+          "an int8 decode token outside the vocabulary")
+    end = LM_SEQ + LM_DECODE
+    check(all(bool((qcache[k][:, :, :end] > 0).all()) and not bool(qcache[k][:, :, end:].any())
+              for k in ("k_scale", "v_scale")),
+          f"the int8 cache's scales are not set on exactly its first {end} positions")
+    same = int((q_toks[:, 1:] == gen_toks[:b, 1:]).sum())
+    med = statistics.median(step_s)
+    log(f"{name}: int8 decode B={b} from position {LM_SEQ} on a {s}-position cache (every "
+        f"step reads and masks all {s}), {LM_DECODE} greedy steps: median {med * 1e3:.3f} "
+        f"ms/step (min {min(step_s) * 1e3:.3f}, max {max(step_s) * 1e3:.3f}), "
+        f"{b / med:.1f} tokens/s; the prefill's cache quantized in {quant_s:.3f} s; peak "
+        f"allocated {peak / 1e9:.3f} GB; flash_attention launches {launches}; greedy "
+        f"tokens equal to the bf16 decode's from the same prefill: {same} of "
+        f"{b * LM_DECODE} (not gated: random weights, {cfg.n_layers} layers)")
+
+    pos0 = end - 8
+
+    def eight_steps():
+        for i in range(8):
+            tfm.decode_step(params, qcache, q_toks[:, LM_DECODE - 8 + i],
+                            torch.full((b,), pos0 + i, dtype=torch.int32, device="cuda"), cfgq)
+
+    log(f"{name}: 8 int8 decode steps B={b} "
+        f"{_busy_share(torch, eight_steps, 'flash_attention')}")
+    last = torch.full((b,), end - 1, dtype=torch.int32, device="cuda")
+    roof = _step_roofline(
+        torch, cfg.name, dataclasses.replace(decode_32k, global_batch=b),
+        lambda: tfm.decode_step(params, qcache, q_toks[:, LM_DECODE - 1], last, cfgq),
+        med * 1e3, f"{name}: int8 decode B={b}")
+    # reference fault 10: model_bytes reads the cache at 2 B an element
+    # under kv_quant too (parity keeps it); the int8 cache's own bytes beside
+    weights = cfg.n_params() * 2.0
+    own_ms = (weights + b * row_bytes) / hw.HBM_BW * 1e3
+    own_share = own_ms / (med * 1e3)
+    log(f"{name}: int8 decode B={b}: model_bytes reads the cache at 2 B an element "
+        f"(reference fault 10): {weights / 1e9:.3f} GB of weights + {b * bf16_row / 1e9:.3f} "
+        f"GB, bound {roof['bound_ms']:.5f} ms, share {roof['share']:.4f}; the int8 cache's "
+        f"own bytes, {weights / 1e9:.3f} + {b * row_bytes / 1e9:.3f} GB at "
+        f"{hw.HBM_BW / 1e12:.2f} TB/s: bound {own_ms:.5f} ms, share {own_share:.4f}")
+    check(own_share <= SHARE_CAP,
+          f"{name}: share {own_share:.4f} of the int8 cache's bound is past {SHARE_CAP}")
+    del qcache
+    torch.cuda.empty_cache()
+    return {"rows": b, "decode_ms": med * 1e3, "peak": peak, "share": roof["share"],
+            "own_share": own_share, "same_tokens": same}
 
 
 # ------------------------------------------------------------ lm-moe-check --
@@ -2407,8 +2581,9 @@ def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
     """deepseek-moe-16b's path on the card at full width, cut to
     MOE_CHECK_LAYERS layers where a model runs: (a) the attention kernel at
     the model's H=16, Hkv=16 (G=1), d=128 against its plain version in both
-    types, and at 1 x LM_LONG in bfloat16 past PLAIN_MAX_S on its first
-    and last query rows, then timed at 8 x 2048 in bfloat16; (b)
+    types, and at each long prefill of MOE_LM_RUNS (1 x its length) in
+    bfloat16 past PLAIN_MAX_S on its first and last query rows, then timed
+    at 8 x 2048 in bfloat16; (b)
     ``moe_apply`` against the dense mixture at capacity factor
     MOE_CHECK_CF, and ``route``'s ties
     (the lower expert index first, as on the CPU); (c) one group at the
@@ -2421,6 +2596,7 @@ def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
     among 64 experts could flip on a near tie in a lower precision."""
     import dataclasses
 
+    from repro_torch.configs import get_config
     from repro_torch.data import lm as lm_data
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import moe
@@ -2430,15 +2606,19 @@ def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
           "TF32 is on for matmul: the router's float32 product would round its inputs")
     h, hkv, d, spec = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.moe
     check(h == hkv, f"{cfg.name} is not multi-head: G={h // hkv}")
+    for _, arch, _, _ in MOE_LM_RUNS:
+        c = get_config(arch)
+        check((c.n_heads, c.n_kv_heads, c.d_head) == (h, hkv, d),
+              f"{arch}'s attention is not {cfg.name}'s: the check would miss its shapes")
     gen = torch.Generator("cuda").manual_seed(seed + 31)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # (a) the kernel at G=1, at both prefill shapes of lm-moe
+    # (a) the kernel at G=1, at every prefill shape of lm-moe and lm-moonshot
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checks = [(b, s, dtype) for b, s in MOE_ATTN_SHAPES for dtype in max_err]
-    checks.append((1, LM_LONG, "bfloat16"))
+    checks += [(1, s, "bfloat16") for s in sorted({run[2] for run in MOE_LM_RUNS})]
     for b, s, dtype in checks:
         q, k, v = (randn(b, s, n, d, dtype=getattr(torch, dtype)) for n in (h, hkv, hkv))
         err = _kernel_vs_plain(torch, q, k, v, FA.flash_attention(q, k, v), dtype, "G=1 ")
@@ -2519,7 +2699,49 @@ def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
         f"max_abs_err={err:.3e}; prefill's last logits vs forward: {err_p:.3e} "
         f"(rtol=atol=2e-2) {'ok' if ok else 'FAIL'}")
     check(ok, f"MoE decode after prefill disagrees with forward: {err}, {err_p}")
-    del params, full, lg_prefill, pcache, cache, lg
+    del cache, lg
+
+    # (e) the int8 cache's quantizer on the card == on the CPU, bit for bit:
+    # rows across scales, an all-zero row (the 1e-8 floor), rows at absmax
+    # 127 (scale 1) holding every half from -126.5 to 0.5 (half to even)
+    x = randn(2, LM_SEQ, hkv, d) * torch.exp(3 * randn(2, LM_SEQ, hkv, 1))
+    x[0, 0, 0] = 0.0
+    x[0, 1, 0] = torch.arange(-127, 1, device="cuda", dtype=torch.float32) + 0.5
+    x[0, 1, 0, 0] = 127.0
+    x[0, 1, 1] = -x[0, 1, 0]
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        q, scale = tfm._kv_quantize(xd)
+        q_cpu, scale_cpu = tfm._kv_quantize(xd.cpu())
+        ok = torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)
+        for out in (torch.bfloat16, torch.float32):
+            ok = ok and torch.equal(tfm._kv_dequantize(q, scale, out).cpu(),
+                                    tfm._kv_dequantize(q_cpu, scale_cpu, out))
+        ok = (ok and q[0, 1, 0, 1:4].tolist() == [-126, -124, -124]
+              and scale[0, 1, 0].item() == 1.0 and not bool(q[0, 0, 0].any()))
+        log(f"lm-moe-check: int8 KV quantize/dequantize {str(dtype)[6:]} on "
+            f"{x.numel() // d} rows of {d}: int8 values, scales and dequantized values card "
+            f"== CPU bit for bit, halves to even {'ok' if ok else 'FAIL'}")
+        check(ok, f"the int8 KV quantizer differs between the card and the CPU ({dtype})")
+    del x, xd, q, scale
+
+    # (f) (d)'s model, the prefill's cache quantized to int8, decode under
+    # kv_quant == forward: tests/test_arch_smoke.py's int8 bound
+    cfgq = dataclasses.replace(cfg64, kv_quant=True)
+    qcache = tfm.init_cache(cfgq, CHECK_B, CHECK_S + 8)
+    for key in ("k", "v"):
+        rows, scale = tfm._kv_quantize(pcache[key])
+        qcache[key][:, :, :CHECK_S] = rows
+        qcache[f"{key}_scale"][:, :, :CHECK_S] = scale
+    lg, _ = tfm.decode_step(params, qcache, toks[:, CHECK_S], pos, cfgq)
+    err = (lg - full[:, -1]).abs().max().item()
+    top1 = torch.equal(lg.argmax(-1), full[:, -1].argmax(-1))
+    ok = top1 and torch.allclose(lg, full[:, -1], rtol=0.0, atol=INT8_ATOL)
+    log(f"lm-moe-check: float64 {MOE_CHECK_LAYERS} layers, int8 KV cache: decode at position "
+        f"{CHECK_S} vs forward over {CHECK_S + 1} tokens: max_abs_err={err:.3e} (atol "
+        f"{INT8_ATOL}), top-1 identical {top1} {'ok' if ok else 'FAIL'}")
+    check(ok, f"int8-cache decode disagrees with forward: {err}, top-1 {top1}")
+    del params, full, lg_prefill, pcache, qcache, lg
     torch.cuda.empty_cache()
     return {"max_err": max_err, "timing": timing}
 
@@ -4096,9 +4318,12 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         moe_check = phase_lm_moe_check(torch, moe_cfg, args.seed)
         phases["lm-moe-check"] = time.perf_counter() - t
-        t = time.perf_counter()
-        lm_moe = phase_lm(torch, moe_cfg, args.seed, "lm-moe")
-        phases["lm-moe"] = time.perf_counter() - t
+        moe_runs = {}
+        for name, arch, long_len, rows in MOE_LM_RUNS:
+            t = time.perf_counter()
+            moe_runs[name] = phase_lm(torch, get_config(arch), args.seed, name, long_len, rows)
+            phases[name] = time.perf_counter() - t
+        lm_moe, lm_moonshot = moe_runs["lm-moe"], moe_runs["lm-moonshot"]
     # training differentiates: outside inference_mode
     t = time.perf_counter()
     attn_bwd = phase_attn_bwd(torch, lm_cfg)
@@ -4178,7 +4403,7 @@ def main(argv=None) -> int:
         "plain_ms_with_lse_b4": tbw["fwd_lse_plain"],
         "library_ms_with_lse_b4": tbw["fwd_lse_library"],
         "lse_max_abs_err": attn_bwd["lse_err"]["bfloat16"],
-        "launches_moe": lm_moe["launches"],
+        "launches_moe": lm_moe["launches"], "launches_moonshot": lm_moonshot["launches"],
         "max_abs_err_g1": moe_check["max_err"]["bfloat16"],
         "max_abs_err_g1_float32": moe_check["max_err"]["float32"],
         "ms_g1": tg1["kernel"], "device_ms_g1": tg1["device_ms"],

@@ -7,9 +7,9 @@ offers: the paper's own text-pair model, qwen3-0.6b of the LM family,
 dlrm-mlperf, fm, din and bert4rec of the recsys family and meshgraphnet of
 the GNN family. The MoE configs (deepseek-moe-16b, moonshot-v1-16b-a3b)
 build and serve through ``models.transformer`` (``models/moe.py``), with
-the bfloat16 KV cache; their training and the int8 KV cache are not ported
-(ROADMAP.md §1 item 10a). The larger dense LM configs are data only until
-their attention widths are ported (item 10d).
+the bfloat16 KV cache or, under ``kv_quant``, the int8 one; their training
+is not ported (ROADMAP.md §1 item 10f). The larger dense LM configs are
+data only until their attention widths are ported (item 10d).
 """
 from __future__ import annotations
 

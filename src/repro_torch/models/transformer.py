@@ -10,7 +10,9 @@ parameter tree and layouts:
   make_train_step  f(params, opt_state, batch) -> (params, opt_state, metrics)
   prefill      full pass that also materializes the KV cache:
                (last-position logits (B, V), {k, v: (L, B, S, Hkv, Dh)})
-  init_cache   a zero cache {k, v: (L, B, max_len, Hkv, Dh)}
+  init_cache   a zero cache {k, v: (L, B, max_len, Hkv, Dh)}; with
+               ``cfg.kv_quant`` int8 k, v and float32 k_scale, v_scale
+               (L, B, max_len, Hkv)
   decode_step  one new token per row against the cache
 
 Layer parameters are stacked on a leading L axis, as in JAX; ``lax.scan``
@@ -32,9 +34,14 @@ layers are not rematerialised (``cfg.remat`` is the JAX package's
 ``jax.checkpoint``; here every layer's activations are kept), so a training
 step runs the attention forward once a layer and its backward once.
 
-Not ported yet, and refused with ``NotImplementedError``: the int8 KV cache
-(``cfg.kv_quant``, ROADMAP.md §1 item 10a). Nothing here disables autograd:
-serving callers run under ``torch.inference_mode()``.
+The int8 KV cache (``cfg.kv_quant``) is JAX's, KIVI-style: each new
+(token, head) row is stored as int8 with its float32 absmax scale
+(``_kv_quantize``), and each decode step dequantizes the layer's whole
+cache to the model's dtype (``_kv_dequantize``) before the plain decode
+attention, in JAX's order of float32 operations, so the values are JAX's
+to the bit. ``forward`` and ``prefill`` ignore it, as in JAX: a prefill's
+cache is in the model's dtype. Nothing here disables autograd: serving
+callers run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -53,13 +60,6 @@ from repro_torch.training.train_loop import value_and_grad
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_supported(cfg: LMConfig) -> None:
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache (kv_quant) is not ported yet "
-            f"(ROADMAP.md §1 item 10a)")
 
 
 def _attend(cfg: LMConfig, q, k, v):
@@ -104,7 +104,6 @@ def _ffn(cfg: LMConfig, lp: Dict, h: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def init_layer(generator: torch.Generator, cfg: LMConfig) -> Dict:
-    _check_supported(cfg)
     dt = _dtype(cfg)
     ones = torch.ones((cfg.d_model,), dtype=dt, device=generator.device)
     p = {
@@ -142,7 +141,6 @@ def init_lm(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict:
     device and then moved to ``device``. The layers are stacked on a
     leading L axis: each stacked leaf is allocated once and filled layer by
     layer, so the draw holds the weights plus one layer's tree."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     params = {"embed": L.embed_init(generator, cfg.vocab_padded, cfg.d_model, dt)}
@@ -190,7 +188,6 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), moe_aux): the sum of the layers'
     load-balance losses (float32; 0 for a dense model)."""
-    _check_supported(cfg)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
     auxes = []
@@ -240,7 +237,6 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     Returns (last-position logits (B, V), cache {k,v: (L, B, S, Hkv, Dh)});
     the final norm and the head run on the last position only.
     """
-    _check_supported(cfg)
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
@@ -262,12 +258,38 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict:
-    _check_supported(cfg)
+    """A zero cache. With ``cfg.kv_quant``: int8 ``k``, ``v`` and float32
+    ``k_scale``, ``v_scale`` (L, B, max_len, Hkv), ``dtype`` ignored."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    dt = dtype or _dtype(cfg)
     dev = resolve_device(device)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
+    dt = dtype or _dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., dh) -> (int8 rows, per-row float32 scale). KIVI-style
+    per-(token, head) absmax scaling; rounds half to even, as ``jnp.round``.
+    127 is a tensor on ``x``'s device: CUDA's division by a Python scalar
+    multiplies by its reciprocal, which can differ from the quotient in the
+    last bit."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1), 1e-8) / torch.full(
+        (), 127.0, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
+    """(q.float() * scale) in float32, then ``dt``: the float32 product is
+    made in place on the int8 rows' float32 copy, which holds one copy of
+    the layer's cache in float32 rather than two."""
+    return q.float().mul_(scale[..., None]).to(dt)
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
@@ -275,16 +297,18 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     """One decode step.
 
     tokens: (B,) new token ids; pos: (B,) their positions.
-    cache: {k,v: (L, B, S, Hkv, Dh)}. Returns (logits (B, V), cache).
+    cache: ``init_cache``'s {k,v: (L, B, S, Hkv, Dh)}, with k_scale,
+    v_scale under ``cfg.kv_quant``. Returns (logits (B, V), cache).
 
     Unlike the JAX function, which returns a new cache, this one writes each
-    layer's new K/V rows into ``cache`` IN PLACE and returns the same dict:
+    layer's new K/V rows (quantized, and their scales, under
+    ``cfg.kv_quant``) into ``cache`` IN PLACE and returns the same dict:
     the caller's cache is changed, and a cache from before the step is not
     kept. Row b attends to its positions ``< pos[b] + 1``.
     """
-    _check_supported(cfg)
     b = tokens.shape[0]
-    x = params["embed"][tokens.long()][:, None, :].to(_dtype(cfg))   # (B,1,d)
+    dt = _dtype(cfg)
+    x = params["embed"][tokens.long()][:, None, :].to(dt)   # (B,1,d)
     pos = pos.long()
     batch_ix = torch.arange(b, device=x.device)
     for li in range(cfg.n_layers):
@@ -292,9 +316,18 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         h = L.rms_norm(x, lp["attn_norm"])
         q, k, v = L.qkv_project(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.d_head, pos[:, None], cfg.rope_theta)
-        cache["k"][li, batch_ix, pos] = k[:, 0]
-        cache["v"][li, batch_ix, pos] = v[:, 0]
-        o = L.decode_attention(q, cache["k"][li], cache["v"][li], kv_len=pos + 1)
+        if cfg.kv_quant:
+            for key, new in (("k", k), ("v", v)):
+                rows, scale = _kv_quantize(new[:, 0])
+                cache[key][li, batch_ix, pos] = rows
+                cache[f"{key}_scale"][li, batch_ix, pos] = scale
+            k_read = _kv_dequantize(cache["k"][li], cache["k_scale"][li], dt)
+            v_read = _kv_dequantize(cache["v"][li], cache["v_scale"][li], dt)
+        else:
+            cache["k"][li, batch_ix, pos] = k[:, 0]
+            cache["v"][li, batch_ix, pos] = v[:, 0]
+            k_read, v_read = cache["k"][li], cache["v"][li]
+        o = L.decode_attention(q, k_read, v_read, kv_len=pos + 1)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
         x = x + _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))[0]
     x = L.rms_norm(x, params["final_norm"])

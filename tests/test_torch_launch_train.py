@@ -149,8 +149,9 @@ def test_cuda_without_a_card_raises():
 def test_arch_offers_only_the_ported_architectures(capsys):
     """The MoE configs register for the roofline and their models serve,
     but MoE training is not ported: ``--arch`` offers only ``ARCHS``. Their
-    reduced configs build and run ``forward``; with the int8 KV cache,
-    which is not ported, a model still refuses them."""
+    reduced configs build and run ``forward``, and a decode step on the
+    int8 KV cache, as the JAX launcher serves a model above 5e9
+    parameters."""
     import dataclasses
 
     from repro_torch.configs import ARCHS, get_config, reduced
@@ -166,6 +167,11 @@ def test_arch_offers_only_the_ported_architectures(capsys):
         logits, aux = tfm.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
         assert tuple(logits.shape) == (1, 8, cfg.vocab_padded)
         assert bool(torch.isfinite(logits).all()) and math.isfinite(float(aux))
-        with pytest.raises(NotImplementedError, match="int8 KV cache"):
-            tfm.init_lm(dataclasses.replace(get_config(arch), kv_quant=True),
-                        torch.Generator().manual_seed(0), "cpu")
+        assert get_config(arch).n_params() > 5e9
+        cfgq = dataclasses.replace(cfg, kv_quant=True)
+        cache = tfm.init_cache(cfgq, 1, 8, device="cpu")
+        assert cache["v"].dtype == torch.int8 and cache["v_scale"].dtype == torch.float32
+        logits, cache = tfm.decode_step(params, cache, torch.zeros((1,), dtype=torch.long),
+                                        torch.zeros((1,), dtype=torch.int32), cfgq)
+        assert tuple(logits.shape) == (1, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all()) and bool((cache["v_scale"][:, 0, 0] > 0).all())

@@ -356,8 +356,7 @@ def test_params_from_numpy_keeps_bfloat16():
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"kv_quant": True}, NotImplementedError),
-    ({"attn_impl": "dense"}, ValueError),
+    pytest.param({"attn_impl": "dense"}, ValueError, id="change1-ValueError"),
 ])
 def test_options_not_ported_raise(change, error):
     jcfg, cfg = _cfgs()
@@ -367,10 +366,9 @@ def test_options_not_ported_raise(change, error):
 
 
 def test_moe_config_raises():
-    """The name is historical: an MoE config once raised here. It now
-    builds and runs (``models/moe.py``; its parity is
-    ``tests/test_torch_moe.py``); with the int8 KV cache, which is not
-    ported, it still raises."""
+    """The name is historical: an MoE config once raised here, and then its
+    int8 KV cache. Both now build and run (``models/moe.py``, its parity
+    ``tests/test_torch_moe.py``; the cache's ``tests/test_torch_kv_int8.py``)."""
     from repro_torch.configs import MoESpec
     cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b")),
                               moe=MoESpec(n_routed=8, top_k=2, n_shared=1, d_expert=32))
@@ -378,5 +376,12 @@ def test_moe_config_raises():
     assert "moe" in params["layers"] and "mlp" not in params["layers"]
     logits, aux = tfm.forward(params, _t(_tokens(cfg)), cfg)
     assert bool(torch.isfinite(logits).all()) and float(aux) > 0
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tfm.init_lm(dataclasses.replace(cfg, kv_quant=True), torch.Generator(), "cpu")
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    assert export.flatten_named(tfm.init_lm(cfgq, torch.Generator(), "cpu")).keys() == \
+        export.flatten_named(params).keys()
+    cache = tfm.init_cache(cfgq, 2, 16, device="cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.float32
+    lg, cache = tfm.decode_step(params, cache, torch.tensor([1, 2]),
+                                torch.tensor([0, 3], dtype=torch.int32), cfgq)
+    assert tuple(lg.shape) == (2, cfg.vocab_padded) and bool(torch.isfinite(lg).all())
+    assert bool((cache["k_scale"][:, [0, 1], [0, 3]] > 0).all())
