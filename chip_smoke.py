@@ -152,6 +152,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             checks with the long prefill cut to 1 x 16384 and the int8
             decode at B=2 (MOE_LM_RUNS), whose peak must leave 4 GB of the
             card unreserved
+  attn-d64  the bfloat16 attention kernel at head width 64 (granite-3-2b's
+            H=32, Hkv=8) against its plain version: attn-kernel's shapes
+            and diagonal lengths, G = 1, 2, 4, 8 at S from 1 to 257 around
+            the 64-key tiles, 8 x 2048 and the first and last 256 query
+            rows of 1 x 32768 (bfloat16 tolerances); the d=64 route's
+            registers, spills and shared memory; a float32 call and a call
+            that needs the gradient at d=64 raise ValueError with no launch
+            (neither is compiled at that width); times at 8 x 2048 and
+            1 x 32768 beside the plain version (8 x 2048), SDPA and the bound
+  lm-granite-check  granite-3-2b at full width cut to 2 layers, bfloat16:
+            prefill through the d=64 kernel (2 launches) == chunked plain
+            torch at (2, 130), logits and cache; decode at position S ==
+            forward over S+1 tokens; top-1 tokens equal, the padded
+            vocabulary masked, no lm_head (tied embeddings)
+  lm-granite  granite-3-2b at full width in bfloat16 (5.07 GB of weights,
+            40 layers, d_head 64), the lm phase's schedule and checks:
+            prefill 8 x 2048 with its bound, 32 greedy decode steps,
+            prefill 1 x 32768; 40 attention launches a prefill, none in
+            decode (its 2.5e9 parameters are under KV_QUANT_PARAMS, so the
+            bfloat16 cache)
   attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
             against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
             float32 and bfloat16 (randn inputs and incoming gradient), for
@@ -263,8 +283,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             do not fit one card); reduced float32 forward, forward_batched
             and loss_fn gradients, each aggregator, card == CPU
 
-The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot,
-bag-kernel, rec-check and rec phases run under torch.inference_mode(); attn-bwd, lm-train, bag-bwd, rec-train,
+The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot, attn-d64,
+lm-granite-check, lm-granite, bag-kernel, rec-check and rec phases run
+under torch.inference_mode() (attn-d64's gradient refusal outside it);
+attn-bwd, lm-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -394,6 +416,31 @@ MOONSHOT_ARCH, MOONSHOT_LONG = "moonshot-v1-16b-a3b", 16384
 #: 33.8 GB of weights, moonshot's 13.3 GB beside 57.8 GB)
 MOE_LM_RUNS = (("lm-moe", MOE_ARCH, LM_LONG, 8),
                ("lm-moonshot", MOONSHOT_ARCH, MOONSHOT_LONG, 2))
+#: granite-3-2b: GQA at d_head 64 (H=32, Hkv=8: G=4), the bfloat16 forward
+#: kernel's other width. attn-d64 holds it against its plain version at
+#: ATTN_SHAPES and ATTN_DIAGONAL_S at granite's heads, at each G of
+#: D64_GROUPS (H=32, Hkv=32/G) for B=2 and S in D64_GROUP_S (one token, one
+#: key either side of a 64-key tile's edge, ragged lengths past one and two
+#: blocks), and at lm-granite's two prefills, which it times
+GRANITE_ARCH = "granite-3-2b"
+D64_GROUPS = (1, 2, 4, 8)
+D64_GROUP_S = (1, 63, 64, 65, 130, 257)
+#: lm-granite-check: granite at full width cut to GRANITE_CHECK_LAYERS
+#: layers, in bfloat16 on the card, at (CHECK_B, CHECK_S). Its logits
+#: (std ~0.9: tied embeddings at std 0.02 over d_model 2048, the largest
+#: near 4) and the cache's k and v (std ~1) are bfloat16, spaced 2^-6 =
+#: 0.016 in [2, 4). Two right answers differ here: the kernel rounds the
+#: unnormalised probabilities to bfloat16 and divides the float32 sums at
+#: the end, as SDPA does, where chunked (and decode) round the normalised
+#: ones, as the reference does; decode and forward also sum every product
+#: in another order. A CPU model of both (its own bf16 products, the
+#: kernel's rounding written out in torch) differs by up to 0.039 in the
+#: logits and the layer-1 cache at |want| 0.3 to 1, which GRANITE_TOL (2^-4
+#: + 2^-4 |want|: 0.0625 near 0) holds with room; a wrong weight, head, key
+#: mask or layout moves them by a tenth of their std and more. Top-1 tokens
+#: must be identical
+GRANITE_CHECK_LAYERS = 2
+GRANITE_TOL = dict(rtol=2 ** -4, atol=2 ** -4)
 #: attn-bwd: the backward kernel against the plain backward at qwen3-0.6b's
 #: H=16, Hkv=8, d=128: (B, S) from one token to 1 x 1024, and S around the
 #: 64-key tiles at B=1. Tolerances: max abs error within atol + rtol |want|
@@ -2746,6 +2793,157 @@ def phase_lm_moe_check(torch, cfg, seed: int) -> dict:
     return {"max_err": max_err, "timing": timing}
 
 
+# ---------------------------------------------------------- attn-d64, granite --
+
+def _refusal(fn):
+    """The message of the ValueError ``fn()`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase_attn_d64(torch, cfg) -> dict:
+    """The bfloat16 attention kernel at head width 64 against its plain
+    version on the card: at granite-3-2b's H=32, Hkv=8 for ATTN_SHAPES and
+    ATTN_DIAGONAL_S, at each G of D64_GROUPS for S in D64_GROUP_S, and at
+    lm-granite's prefills (8 x 2048; 1 x 32768 on the first and last
+    ATTN_SLICE_ROWS query rows), which are then timed beside the plain
+    version (8 x 2048), SDPA and the bound. Randn inputs, each check at
+    ATTN_TOLERANCE and ATTN_REL_TOLERANCE for bfloat16. The float32 kernel
+    and the backward are not compiled at d=64: a float32 call and a call
+    that needs the gradient must raise ValueError with no launch."""
+    from repro_torch.kernels import flash_attention as FA
+
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    check(d == 64, f"{cfg.name}'s head width is {d}, not 64")
+    gen = torch.Generator(device="cuda").manual_seed(6464)
+
+    def inputs(b, s, heads, kv_heads, dtype=torch.bfloat16, grad=False):
+        return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda")
+                     .to(dtype).requires_grad_(grad) for n in (heads, kv_heads, kv_heads))
+
+    info = FA.route_info(torch.bfloat16, d)
+    log(f"attn-d64: bfloat16 route at d={d}: stage {info['stage']} ({info['design']}), "
+        f"{info['registers']} registers and {info['local_bytes']} local (spill) bytes a "
+        f"thread, shared memory {info['static_smem']} B static + {info['dynamic_smem']} B "
+        f"dynamic a block, {info['threads']} threads a block, {info['blocks_per_sm']} blocks "
+        f"resident on an SM")
+    check(info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0,
+          f"the d=64 kernel spills or fits no block: {info}")
+
+    max_err = 0.0
+    checks = [(b, s, h, hkv) for b, s in ATTN_SHAPES]
+    checks += [(2, s, h, hkv) for s in ATTN_DIAGONAL_S]
+    checks += [(2, s, h, h // g) for g in D64_GROUPS for s in D64_GROUP_S]
+    for b, s, heads, kv_heads in checks:
+        q, k, v = inputs(b, s, heads, kv_heads)
+        err = _kernel_vs_plain(torch, q, k, v, FA.flash_attention(q, k, v), "bfloat16",
+                               f"d=64 G={heads // kv_heads} ")
+        max_err = max(max_err, err)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    before = FA.launches
+    f32 = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, hkv, torch.float32)))
+    with torch.inference_mode(False), torch.enable_grad():
+        grad = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, hkv, grad=True)))
+    torch.cuda.synchronize()
+    ok = f32 is not None and grad is not None and FA.launches == before
+    log(f"attn-d64: float32 at d=64 refused ({f32}); a call that needs the gradient at "
+        f"d=64 refused ({grad}); launches {FA.launches - before} {'ok' if ok else 'FAIL'}")
+    check(ok, "a float32 or grad-enabled call at d=64 was not refused before a launch")
+
+    timings = {}
+    for b, s in ((LM_BATCH, LM_SEQ), (1, LM_LONG)):
+        timings[(b, s)] = t = _time_attention(torch, *inputs(b, s, h, hkv), "bfloat16")
+        max_err = max(max_err, t["max_err"])
+        torch.cuda.empty_cache()
+    return {"max_err": max_err, "timings": timings, "route": info}
+
+
+def _granite_agrees(torch, got, want, what: str, top1: bool = False) -> float:
+    """Holds bfloat16 ``got`` against ``want`` at GRANITE_TOL (and, for
+    logits, the same top-1 token in every row: ``got``'s is a token on
+    which ``want`` peaks, so where bfloat16 rounds two of ``want``'s
+    logits to the same top value either is its top-1); returns the max
+    absolute error. Prints each row's top-1 lead over its runner-up in
+    ``want``, the margin a rounding would have to cross to flip the token."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    ok = math.isfinite(err) and torch.allclose(g, w, **GRANITE_TOL)
+    text = ""
+    if top1:
+        lead = w.topk(2, dim=-1).values
+        picked = w.gather(-1, g.argmax(-1, keepdim=True))[:, 0]
+        same = torch.equal(picked, lead[:, 0])
+        ok = ok and same
+        text = (f", top-1 identical {same} (leads "
+                f"{', '.join(f'{x:.4f}' for x in (lead[:, 0] - lead[:, 1]).tolist())})")
+    log(f"lm-granite-check: {what}: max_abs_err={err:.3e} (rtol {GRANITE_TOL['rtol']} atol "
+        f"{GRANITE_TOL['atol']}){text} {'ok' if ok else 'FAIL'}")
+    check(ok, f"granite: {what} disagree: max_abs_err {err}")
+    return err
+
+
+def phase_lm_granite_check(torch, cfg, seed: int) -> None:
+    """granite-3-2b's serving path at full width cut to GRANITE_CHECK_LAYERS
+    layers, in bfloat16 on the card (weights from ``seed``): (a) prefill
+    through the d=64 kernel ("flash", one launch a layer) against plain
+    torch ("chunked") at (CHECK_B, CHECK_S): last logits and the cache;
+    (b) decode at position S after that prefill against forward over S+1
+    tokens, and the prefill's last logits against forward's; at GRANITE_TOL
+    with top-1 tokens equal. The padded vocabulary columns (49,155 to
+    49,280) read -1e30 and the tied head leaves no lm_head."""
+    import dataclasses
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+
+    cfg2 = dataclasses.replace(cfg, n_layers=GRANITE_CHECK_LAYERS)
+    check(cfg2.dtype == "bfloat16" and cfg2.tie_embeddings and cfg2.d_head == 64,
+          f"{cfg.name} is not bfloat16 with tied embeddings at d_head 64")
+    params = tfm.init_lm(cfg2, torch.Generator("cuda").manual_seed(seed), "cuda")
+    check("lm_head" not in params, "a tied config built an lm_head")
+    toks = torch.from_numpy(next(lm_data.token_batches(
+        cfg.vocab_size, CHECK_B, CHECK_S + 1, seed=seed))["tokens"]).cuda()
+    prompt = toks[:, :CHECK_S]
+
+    before = FA.launches
+    flash_l, flash_c = tfm.prefill(params, prompt, cfg2)
+    torch.cuda.synchronize()
+    launched = FA.launches - before
+    check(launched == GRANITE_CHECK_LAYERS,
+          f"the flash prefill launched the kernel {launched} times, not one a layer")
+    chunk_l, chunk_c = tfm.prefill(params, prompt,
+                                   dataclasses.replace(cfg2, attn_impl="chunked"))
+    check(FA.launches - before == launched, "the chunked prefill launched the kernel")
+    pad = flash_l[:, cfg.vocab_size:].float()
+    check(tuple(flash_l.shape) == (CHECK_B, cfg.vocab_padded) and bool((pad <= -1e29).all()),
+          f"padded vocabulary columns {cfg.vocab_size}..{cfg.vocab_padded} not masked")
+    _granite_agrees(torch, flash_l, chunk_l, f"bfloat16 prefill B={CHECK_B} S={CHECK_S} "
+                    f"flash (the d=64 kernel, {launched} launches) vs chunked: last logits",
+                    top1=True)
+    for key in ("k", "v"):
+        _granite_agrees(torch, flash_c[key], chunk_c[key], f"prefill cache {key}")
+    del chunk_l, chunk_c
+
+    full, _ = tfm.forward(params, toks, cfg2)
+    cache = tfm.init_cache(cfg2, CHECK_B, CHECK_S + 8)
+    for key in ("k", "v"):
+        cache[key][:, :, :CHECK_S] = flash_c[key]
+    pos = torch.full((CHECK_B,), CHECK_S, dtype=torch.int32, device="cuda")
+    lg, _ = tfm.decode_step(params, cache, toks[:, CHECK_S], pos, cfg2)
+    _granite_agrees(torch, lg, full[:, -1], f"bfloat16 decode at position {CHECK_S} vs "
+                    f"forward over {CHECK_S + 1} tokens", top1=True)
+    _granite_agrees(torch, flash_l, full[:, -2], "prefill's last logits vs forward's",
+                    top1=True)
+    del params, flash_l, flash_c, full, cache, lg
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- attn-bwd --
 
 def _grad_agrees(torch, got, want, dtype: str, what: str) -> float:
@@ -4324,6 +4522,16 @@ def main(argv=None) -> int:
             moe_runs[name] = phase_lm(torch, get_config(arch), args.seed, name, long_len, rows)
             phases[name] = time.perf_counter() - t
         lm_moe, lm_moonshot = moe_runs["lm-moe"], moe_runs["lm-moonshot"]
+        granite_cfg = get_config(GRANITE_ARCH)
+        t = time.perf_counter()
+        attn64 = phase_attn_d64(torch, granite_cfg)
+        phases["attn-d64"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_lm_granite_check(torch, granite_cfg, args.seed)
+        phases["lm-granite-check"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lm_granite = phase_lm(torch, granite_cfg, args.seed, "lm-granite", LM_LONG, 0)
+        phases["lm-granite"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
     attn_bwd = phase_attn_bwd(torch, lm_cfg)
@@ -4369,6 +4577,7 @@ def main(argv=None) -> int:
     tfa = attn["timings"][(LM_BATCH, LM_SEQ, "bfloat16")]
     tfa32 = attn["timings"][(LM_BATCH, LM_SEQ, "float32")]
     tg1 = moe_check["timing"]
+    t64 = attn64["timings"][(LM_BATCH, LM_SEQ)]
     tbg = bag["timings"]["serve_bulk"]
     tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
@@ -4411,6 +4620,12 @@ def main(argv=None) -> int:
         "library_ms_g1": tg1["library"],
         "shape_g1": f"B={LM_BATCH} S={LM_SEQ} H={moe_cfg.n_heads} Hkv={moe_cfg.n_kv_heads} "
                     f"d={moe_cfg.d_head}",
+        "max_abs_err_d64": attn64["max_err"], "ms_d64": t64["kernel"],
+        "device_ms_d64": t64["device_ms"], "plain_ms_d64": t64["plain"],
+        "bound_ms_d64": t64["bound_ms"], "library_ms_d64": t64["library"],
+        "shape_d64": f"B={LM_BATCH} S={LM_SEQ} H={granite_cfg.n_heads} "
+                     f"Hkv={granite_cfg.n_kv_heads} d={granite_cfg.d_head}",
+        "launches_granite": lm_granite["launches"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,

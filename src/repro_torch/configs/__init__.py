@@ -8,8 +8,12 @@ dlrm-mlperf, fm, din and bert4rec of the recsys family and meshgraphnet of
 the GNN family. The MoE configs (deepseek-moe-16b, moonshot-v1-16b-a3b)
 build and serve through ``models.transformer`` (``models/moe.py``), with
 the bfloat16 KV cache or, under ``kv_quant``, the int8 one; their training
-is not ported (ROADMAP.md §1 item 10f). The larger dense LM configs are
-data only until their attention widths are ported (item 10d).
+is not ported (ROADMAP.md §1 item 10f). granite-3-2b (d_head 64, tied
+embeddings) serves through ``models.transformer`` too, in bfloat16 on the
+attention kernel's d=64 instance; it is not in ``ARCHS`` because its
+training is not ported (the float32 and backward kernels take d_head 128
+only, item 10d). deepseek-coder-33b is data only until the attention kernel
+takes its G=7 (item 10d).
 """
 from __future__ import annotations
 

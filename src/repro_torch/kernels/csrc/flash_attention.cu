@@ -20,8 +20,12 @@
 // 67 TFLOP/s on the CUDA cores and 0.833 ms in 3xTF32 on the tensor cores
 // (three TF32 products at 495 TFLOP/s), against 0.060 ms (bfloat16) or
 // 0.120 ms (float32) for the bytes: bound by operations, and by more the
-// longer the sequence. Products on masked pairs of the diagonal tiles are
-// overhead above that bound.
+// longer the sequence. granite-3-2b's prefill of B=8, S=2048 (H=32, Hkv=8,
+// d=64) has the same H * d, so the same 1.375e11 operations and 0.139 ms,
+// against 0.050 ms for the bytes; but twice the scores, 5.4e8
+// exponentials, which take ~0.13 ms at 16 ex2 a clock on 132 SMs, beside
+// the products and outside the bound's count. Products on masked pairs of
+// the diagonal tiles are overhead above that bound.
 //
 // Both routes share the block shape. One block per (q tile, KV head, batch
 // row); a block's 128 rows are BQ = 128 / G query positions x the G query
@@ -38,9 +42,10 @@
 // each row's natural log-sum-exp of its scaled scores, m + log(max(l,
 // 1e-30)) with m in scaled units, is written to lse (B, H, S) float32, once,
 // by the lane that holds the row's full sum; with lse null (serving) nothing
-// more is written. Both run on the caller's stream, allocate nothing, and are
-// compiled for d = 128 only (qwen3-0.6b's head width); the wrapper refuses
-// other widths.
+// more is written. Both run on the caller's stream and allocate nothing.
+// The bfloat16 route is compiled for d = 64 (granite-3-2b's head width) and
+// d = 128 (qwen3-0.6b's and the MoE configs'), a template on d; the float32
+// route for d = 128 only. The wrapper refuses other widths.
 //
 // bfloat16 route, the serving path: stage 2 of the tensor-core design,
 // wgmma + TMA, warp-specialised (stage 1, mma.sync + cp.async with 8 warps
@@ -53,8 +58,9 @@
 //     an "empty" one the consumers arrive on. Warpgroups 1 and 2 (setmaxnreg
 //     232) are the consumers of rows 0..63 and 64..127; a row's max and sum
 //     stay inside a quad of lanes, and the scores never touch shared memory;
-//   * S = Q K^T by 8 wgmma m64n64k16 a tile, Q and K read by shared-memory
-//     descriptors; O += P V by 4 wgmma m64n128k16 with P from registers and
+//   * S = Q K^T by d / 16 wgmma m64n64k16 a tile (8 at d = 128, 4 at 64),
+//     Q and K read by shared-memory descriptors; O += P V by 4 wgmma
+//     m64n128k16 (d = 128) or m64n64k16 (d = 64) with P from registers and
 //     V by descriptor (N-major, transposed by the instruction). Both are
 //     bfloat16 products with float32 sums, exactly the reference's
 //     arithmetic (ref.flash_attention_ref: float32 scores, P cast to v's
@@ -62,12 +68,12 @@
 //   * P stays in registers: the float32 accumulator of S, scaled and
 //     exponentiated, packed to bfloat16 pairs, is the A operand of the P V
 //     product (the accumulator and A fragments share m16n8's layout);
-//   * the TMA boxes are 64 dims (128 bytes) wide, loaded with the 128-byte
-//     swizzle that the descriptors name, so wgmma reads without bank
-//     conflicts; a Q box is 64 dims x G heads x 128 / G positions, the
-//     block's rows in order. Keys and rows past S arrive as zeros (TMA's
-//     out-of-bounds fill); the causal mask hides such keys from every
-//     stored row;
+//   * the TMA boxes are 64 dims (128 bytes) wide, d / 64 of them a tile,
+//     loaded with the 128-byte swizzle that the descriptors name, so wgmma
+//     reads without bank conflicts; a Q box is 64 dims x G heads x 128 / G
+//     positions, the block's rows in order. Keys and rows past S arrive as
+//     zeros (TMA's out-of-bounds fill); the causal mask hides such keys
+//     from every stored row;
 //   * a consumer runs a tile as S, its softmax, then P V, waiting for each
 //     product; the two consumers and the producer's loads overlap each
 //     other as the hardware schedules them (issuing S of tile t ahead of
@@ -85,8 +91,11 @@
 //   * the output goes through the consumer's own rows of the Q tile in
 //     shared memory (Q is read out by then), so it leaves in 16-byte stores,
 //     once, in bfloat16.
-// Shared memory: Q 32 KB + 2 stages x (K 16 KB + V 16 KB) = 96 KB; one
-// block of 384 threads an SM.
+// Shared memory: at d = 128 Q 32 KB + 2 stages x (K 16 KB + V 16 KB) = 96
+// KB, at d = 64 half of that, 48 KB; one block of 384 threads an SM. At d =
+// 64 a stage holds half the bytes for the same 64 keys; the ring keeps its
+// 2 stages and 64-key tiles (a deeper ring or 128-key tiles is later
+// work).
 //
 // float32 route: 3xTF32 on the tensor cores, wgmma + TMA, warp-specialised
 // like the bfloat16 route. float32 is held to 2e-5 (max abs and error
@@ -138,7 +147,6 @@
 
 namespace {
 
-constexpr int D = 128;          // head width
 constexpr int ROWS = 128;       // query rows per block: BQ positions x G heads
 constexpr int BK = 64;          // keys a tile of the bfloat16 route (float32: TF_BK)
 constexpr float MASK = -1e30f;
@@ -163,6 +171,7 @@ constexpr int WG_THREADS = 128;                    // a warpgroup
 
 // ----------------------------------------------------------- float32 route --
 
+constexpr int TF_D = 128;                          // head width
 constexpr int TF_THREADS = 384;                    // a splitter + 2 consumer warpgroups
 constexpr int TF_BK = 32;                          // keys a tile
 constexpr int TF_STAGES = 2;                       // the raw K/V ring
@@ -312,11 +321,11 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // Q's A fragments: hi (Split::big) in registers, lo written over the raw
   // value, which the Q lo pass reads by descriptor
-  uint32_t qh[D / 8][4];
+  uint32_t qh[TF_D / 8][4];
   mbar_wait(bar_q, 0);
   int q_bad = 0;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < TF_D / 8; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       unsigned char* at = smem + TF_Q + sw_off(ROWS, r0 + 8 * (e & 1), 8 * kk + t4 + 4 * (e >> 1));
@@ -352,14 +361,14 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk)
+      for (int kk = 0; kk < TF_D / 8; ++kk)
         wgmma_m64n32k8_tf32_ss(
             sc, gmma_desc(q_rows + (kk >> 2) * ROWS * 128 + (kk & 3) * 32, 16, 1024),
             kdesc(k_hic, kk), kk > 0);
       if (q_bad) {                                  // hi_c: 0 at Q's inf and NaN
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 8; ++kk) {
+        for (int kk = 0; kk < TF_D / 8; ++kk) {
           wgmma_wait<0>();                          // a is free again
           fence_regs(sc);
           uint32_t a[4];
@@ -374,10 +383,10 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
       } else {
 #pragma unroll
-        for (int kk = 0; kk < D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_lo, kk));
+        for (int kk = 0; kk < TF_D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_lo, kk));
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_hi, kk));
+      for (int kk = 0; kk < TF_D / 8; ++kk) wgmma_m64n32k8_tf32_rs(sc, qh[kk], kdesc(k_hi, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -420,7 +429,7 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[0] = l[0] * corr0 + sum0;
       l[1] = l[1] * corr1 + sum1;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < TF_D / 8; ++n) {
         acc[4 * n] *= corr0;
         acc[4 * n + 1] *= corr0;
         acc[4 * n + 2] *= corr1;
@@ -455,15 +464,15 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (pos0 < S) lse[lrow + (size_t)(r0 & (G - 1)) * S + pos0] = m[0] + logf(l0);
     if (pos1 < S) lse[lrow + (size_t)((r0 + 8) & (G - 1)) * S + pos1] = m[1] + logf(l1);
   }
-  const size_t q_row = (size_t)H * D;
-  float* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * D + 2 * t4;
+  const size_t q_row = (size_t)H * TF_D;
+  float* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * TF_D + 2 * t4;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < TF_D / 8; ++n) {
     if (pos0 < S)
-      *reinterpret_cast<float2*>(ob + (size_t)pos0 * q_row + (r0 & (G - 1)) * D + 8 * n) =
+      *reinterpret_cast<float2*>(ob + (size_t)pos0 * q_row + (r0 & (G - 1)) * TF_D + 8 * n) =
           make_float2(acc[4 * n] / l0, acc[4 * n + 1] / l0);
     if (pos1 < S)
-      *reinterpret_cast<float2*>(ob + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * D + 8 * n) =
+      *reinterpret_cast<float2*>(ob + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * TF_D + 8 * n) =
           make_float2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
   }
 }
@@ -501,36 +510,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 constexpr int WS_THREADS = 3 * WG_THREADS;         // producer + 2 consumer warpgroups
 constexpr int WS_STAGES = 2;                       // the K/V ring
-constexpr int HALF_Q = ROWS * 128;                 // 64 dims of the 128 q rows: 16 KB
-constexpr int HALF_KV = BK * 128;                  // 64 dims of 64 keys: 8 KB
-// from a 1024-byte aligned base: Q (dims 0..63, then 64..127), then each
-// stage's K (two halves) and V (two halves), then the barriers
-constexpr int WS_Q = 0;
-constexpr int WS_KV = 2 * HALF_Q;
-constexpr int WS_STAGE_BYTES = 4 * HALF_KV;
-constexpr int WS_BAR = WS_KV + WS_STAGES * WS_STAGE_BYTES;
-constexpr int WS_SMEM_BYTES = WS_BAR + 8 * (1 + 3 * WS_STAGES) + 1024;   // + alignment slack
+constexpr int BOX_Q = ROWS * 128;                  // 64 dims of the 128 q rows: 16 KB
+constexpr int BOX_KV = BK * 128;                   // 64 dims of 64 keys: 8 KB
 
-// S = Q K^T for one tile, issued and committed: 8 steps of 16 dims, 4 in
-// each 64-dim half, 32 bytes apart (Q and K K-major)
+// The shared memory of the bfloat16 route at head width D, in boxes of 64
+// dims (128 bytes a row): from a 1024-byte aligned base Q (D / 64 boxes),
+// then each stage's K (D / 64 boxes) and V (D / 64 boxes), then the
+// barriers. d=128: 96 KB; d=64: 48 KB.
+template <int D>
+struct WsSmem {
+  static_assert(D == 64 || D == 128, "the bfloat16 route takes head widths 64 and 128");
+  static constexpr int BOXES = D / 64;
+  static constexpr int Q = 0;
+  static constexpr int KV = BOXES * BOX_Q;
+  static constexpr int STAGE = 2 * BOXES * BOX_KV;
+  static constexpr int BAR = KV + WS_STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * WS_STAGES) + 1024;   // + alignment slack
+};
+
+// S = Q K^T for one tile, issued and committed: D / 16 steps of 16 dims, 4
+// in each 64-dim box, 32 bytes apart (Q and K K-major)
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_rows, uint32_t kv) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n64k16_ss(sc, gmma_desc(q_rows + (kk >> 2) * HALF_Q + (kk & 3) * 32, 16, 1024),
-                       gmma_desc(kv + (kk >> 2) * HALF_KV + (kk & 3) * 32, 16, 1024), kk > 0);
+    wgmma_m64n64k16_ss(sc, gmma_desc(q_rows + (kk >> 2) * BOX_Q + (kk & 3) * 32, 16, 1024),
+                       gmma_desc(kv + (kk >> 2) * BOX_KV + (kk & 3) * 32, 16, 1024), kk > 0);
   wgmma_commit();
 }
 
 // O += P V for one tile, issued and committed: 4 steps of 16 keys, 2 KB of
-// V rows apart; V is N-major, its two 64-dim halves HALF_KV apart, its
-// 8-key groups 1 KB apart
-__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&pa)[BK / 16][4],
+// V rows apart, each an m64nDk16; V (after K's D / 64 boxes) is N-major,
+// its 64-dim boxes BOX_KV apart, its 8-key groups 1 KB apart
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t kv) {
+  const uint32_t v = kv + (D / 64) * BOX_KV;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_m64n128k16_rs(acc, pa[kk], gmma_desc(kv + 2 * HALF_KV + kk * 16 * 128, HALF_KV, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t desc = gmma_desc(v + kk * 16 * 128, BOX_KV, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs(acc, pa[kk], desc);
+    else
+      wgmma_m64n64k16_rs(acc, pa[kk], desc);
+  }
   wgmma_commit();
 }
 
@@ -579,9 +604,10 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   l[1] = l[1] * corr[1] + sum1;
 }
 
-__device__ __forceinline__ void rescale(float (&acc)[64], const float (&corr)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
     acc[4 * n] *= corr[0];
     acc[4 * n + 1] *= corr[0];
     acc[4 * n + 2] *= corr[1];
@@ -601,26 +627,29 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (
   }
 }
 
-// One block per (q tile, KV head, batch row), 3 warpgroups. Warpgroup 0 is
-// the producer: one thread issues the TMA loads (Q once, then K and V of
-// each tile into a 2-stage ring with full/empty barriers) and the group
-// gives up registers. Warpgroups 1 and 2 are consumers of rows 0..63 and
-// 64..127: S = Q K^T by 8 wgmma m64n64k16 (Q and K by descriptor), the
-// softmax in registers, O += P V by 4 wgmma m64n128k16 with P from
-// registers and V by descriptor (N-major). The accumulator layout of a
-// warpgroup is m16n8's for each of its warps: warp w holds rows 16 w + g
-// and 16 w + g + 8, columns 8 i + 2 t, 8 i + 2 t + 1 in d[4 i .. 4 i + 3].
+// One block per (q tile, KV head, batch row), 3 warpgroups, at head width
+// D (64 or 128). Warpgroup 0 is the producer: one thread issues the TMA
+// loads (Q once, then K and V of each tile into a 2-stage ring with
+// full/empty barriers), D / 64 boxes of 64 dims each, and the group gives
+// up registers. Warpgroups 1 and 2 are consumers of rows 0..63 and 64..127:
+// S = Q K^T by D / 16 wgmma m64n64k16 (Q and K by descriptor), the softmax
+// in registers, O += P V by 4 wgmma m64nDk16 with P from registers and V
+// by descriptor (N-major). The accumulator layout of a warpgroup is
+// m16n8's for each of its warps: warp w holds rows 16 w + g and 16 w + g +
+// 8, columns 8 i + 2 t, 8 i + 2 t + 1 in d[4 i .. 4 i + 3].
+template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   const __grid_constant__ CUtensorMap tm_k,
                                   const __grid_constant__ CUtensorMap tm_v,
                                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                                   int S, int H, int g_shift, float scale, float scale_log2) {
+  using L = WsSmem<D>;
   extern __shared__ __align__(1024) unsigned char ws_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(ws_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
   unsigned char* smem = ws_raw + (base - raw);
-  const uint32_t bar_q = base + WS_BAR;
+  const uint32_t bar_q = base + L::BAR;
   const uint32_t bar_k = bar_q + 8;                 // full: K of stage s landed
   const uint32_t bar_v = bar_k + 8 * WS_STAGES;     // full: V of stage s landed
   const uint32_t bar_e = bar_v + 8 * WS_STAGES;     // empty: both consumers done with s
@@ -650,19 +679,23 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       // Q: a box of 64 dims x G heads x BQ positions is the 128 rows in
       // order r = position * G + head, 128 bytes a row
-      mbar_expect_tx(bar_q, 2 * HALF_Q);
-      tma_load_4d(base + WS_Q, &tm_q, bar_q, 0, kvh * G, q0, b);
-      tma_load_4d(base + WS_Q + HALF_Q, &tm_q, bar_q, 64, kvh * G, q0, b);
+      mbar_expect_tx(bar_q, L::BOXES * BOX_Q);
+#pragma unroll
+      for (int x = 0; x < L::BOXES; ++x)
+        tma_load_4d(base + L::Q + x * BOX_Q, &tm_q, bar_q, 64 * x, kvh * G, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % WS_STAGES;
         if (t >= WS_STAGES) mbar_wait(bar_e + 8 * s, ((t / WS_STAGES) - 1) & 1);
-        const uint32_t kv = base + WS_KV + s * WS_STAGE_BYTES;
-        mbar_expect_tx(bar_k + 8 * s, 2 * HALF_KV);   // keys past S arrive as zeros
-        tma_load_4d(kv, &tm_k, bar_k + 8 * s, 0, kvh, t * BK, b);
-        tma_load_4d(kv + HALF_KV, &tm_k, bar_k + 8 * s, 64, kvh, t * BK, b);
-        mbar_expect_tx(bar_v + 8 * s, 2 * HALF_KV);
-        tma_load_4d(kv + 2 * HALF_KV, &tm_v, bar_v + 8 * s, 0, kvh, t * BK, b);
-        tma_load_4d(kv + 3 * HALF_KV, &tm_v, bar_v + 8 * s, 64, kvh, t * BK, b);
+        const uint32_t kv = base + L::KV + s * L::STAGE;
+        mbar_expect_tx(bar_k + 8 * s, L::BOXES * BOX_KV);   // keys past S arrive as zeros
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x)
+          tma_load_4d(kv + x * BOX_KV, &tm_k, bar_k + 8 * s, 64 * x, kvh, t * BK, b);
+        mbar_expect_tx(bar_v + 8 * s, L::BOXES * BOX_KV);
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x)
+          tma_load_4d(kv + (L::BOXES + x) * BOX_KV, &tm_v, bar_v + 8 * s, 64 * x, kvh, t * BK,
+                      b);
       }
     }
     return;
@@ -676,11 +709,11 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int pos0 = q0 + (row0 >> g_shift), pos1 = q0 + ((row0 + 8) >> g_shift);
   const int wg_first = q0 + ((64 * c) >> g_shift);
   const int wg_last = q0 + ((64 * c + 63) >> g_shift);
-  const uint32_t q_rows = base + WS_Q + c * 64 * 128;
+  const uint32_t q_rows = base + L::Q + c * 64 * 128;
 
-  float acc[64], sc[32];
+  float acc[D / 2], sc[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = 0.f;
   float m[2] = {MASK, MASK}, l[2] = {0.f, 0.f}, corr[2];   // rows row0, row0 + 8
@@ -688,14 +721,14 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // tiles holding a key at or before this group's last position; the rest
   // are masked for every row of the group
   const int n_own = min(n_tiles, (wg_last / BK) + 1);
-  auto stage_at = [&](int t) { return base + WS_KV + (t % WS_STAGES) * WS_STAGE_BYTES; };
+  auto stage_at = [&](int t) { return base + L::KV + (t % WS_STAGES) * L::STAGE; };
   auto phase_of = [&](int t) { return (uint32_t)((t / WS_STAGES) & 1); };
   mbar_wait(bar_q, 0);
 
   for (int t = 0; t < n_own; ++t) {
     mbar_wait(bar_k + 8 * (t % WS_STAGES), phase_of(t));
     fence_regs(sc);
-    issue_qk(sc, q_rows, stage_at(t));
+    issue_qk<D>(sc, q_rows, stage_at(t));
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile(sc, m, l, corr, t * BK + 2 * t4, t * BK + BK - 1 > wg_first, pos0, pos1,
@@ -704,7 +737,7 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     pack_p(pa, sc);
     mbar_wait(bar_v + 8 * (t % WS_STAGES), phase_of(t));
     fence_regs(acc);
-    issue_pv(acc, pa, stage_at(t));
+    issue_pv<D>(acc, pa, stage_at(t));
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(bar_e + 8 * (t % WS_STAGES));
@@ -716,7 +749,7 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // out: acc / l in bf16, through this warp's own 16 rows of the Q tile
-  // (both 64-dim halves, in the same swizzled layout), then 16-byte stores
+  // (each 64-dim box, in the same swizzled layout), then 16-byte stores
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   if (lse != nullptr && t4 == 0) {   // m is in raw score units here: the natural lse
@@ -726,27 +759,30 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int half = (n >> 3) * HALF_Q, ch = n & 7;
-    *reinterpret_cast<uint32_t*>(smem + half + row0 * 128 + ((ch ^ (row0 & 7)) << 4) + 4 * t4) =
+    const int box = (n >> 3) * BOX_Q, ch = n & 7;
+    *reinterpret_cast<uint32_t*>(smem + box + row0 * 128 + ((ch ^ (row0 & 7)) << 4) + 4 * t4) =
         pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(smem + half + (row0 + 8) * 128 + ((ch ^ (row0 & 7)) << 4) +
+    *reinterpret_cast<uint32_t*>(smem + box + (row0 + 8) * 128 + ((ch ^ (row0 & 7)) << 4) +
                                  4 * t4) = pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
   }
   __syncwarp();
+  // a row's D / 8 chunks of 16 bytes, the warp's 16 rows, 32 lanes at a time
+  constexpr int CHUNKS = D / 8;
   const size_t q_row = (size_t)H * D;
   __nv_bfloat16* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * D;
 #pragma unroll
-  for (int i = 0; i < 16 * 16 / 32; ++i) {
+  for (int i = 0; i < 16 * CHUNKS / 32; ++i) {
     const int cidx = i * 32 + lane;
-    const int r = 64 * c + 16 * warp + cidx / 16, ch = cidx % 16;
+    const int r = 64 * c + 16 * warp + cidx / CHUNKS, ch = cidx % CHUNKS;
     const int pos = q0 + (r >> g_shift);
     if (pos < S)
       *reinterpret_cast<uint4*>(ob + (size_t)pos * q_row + (r & (G - 1)) * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(smem + (ch >> 3) * HALF_Q + r * 128 +
+          *reinterpret_cast<const uint4*>(smem + (ch >> 3) * BOX_Q + r * 128 +
                                           (((ch & 7) ^ (r & 7)) << 4));
   }
 }
 
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   const cudaError_t ctx = make_context_current();
@@ -756,56 +792,64 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   const int G = H / Hkv, g_shift = log2_of(G);
   const int BQ = ROWS >> g_shift;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(encode, &tq, q, B, S, H, G, BQ) ||
-      !encode_map(encode, &tk, k, B, S, Hkv, 1, BK) ||
-      !encode_map(encode, &tv, v, B, S, Hkv, 1, BK))
+  if (!encode_map(encode, &tq, q, B, S, H, D, G, BQ) ||
+      !encode_map(encode, &tk, k, B, S, Hkv, D, 1, BK) ||
+      !encode_map(encode, &tv, v, B, S, Hkv, D, 1, BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_wgmma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_wgmma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         WS_SMEM_BYTES);
+                                         WsSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  flash_attention_bf16_wgmma_kernel<<<grid, WS_THREADS, WS_SMEM_BYTES, stream>>>(
+  flash_attention_bf16_wgmma_kernel<D><<<grid, WS_THREADS, WsSmem<D>::BYTES, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, g_shift, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype 0: float32 (3xTF32 wgmma), 1: bfloat16 (wgmma), both on the tensor
-// cores. lse is null,
-// or (B, H, S) float32 for each row's log-sum-exp. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue, without
-// launching, for a shape it does not take).
+// dtype 0: float32 (3xTF32 wgmma) at d = 128; 1: bfloat16 (wgmma) at d = 64
+// or 128; both on the tensor cores. lse is null, or (B, H, S) float32 for
+// each row's log-sum-exp. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue, without launching, for a shape it does not take).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int S, int H, int Hkv, int d,
                                    float scale, void* stream) {
-  if (d != D || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 ||
-      B > 65535 || Hkv > 65535)
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 || B > 65535 ||
+      Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch(q, k, v, o, lse, B, S, H, Hkv, scale, st);
-  if (dtype == 1) return (int)launch_bf16(q, k, v, o, lse, B, S, H, Hkv, scale, st);
+  if (dtype == 0 && d == TF_D) return (int)launch(q, k, v, o, lse, B, S, H, Hkv, scale, st);
+  if (dtype == 1 && d == 128)
+    return (int)launch_bf16<128>(q, k, v, o, lse, B, S, H, Hkv, scale, st);
+  if (dtype == 1 && d == 64)
+    return (int)launch_bf16<64>(q, k, v, o, lse, B, S, H, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// What a dtype's route is and what it holds on the card, for the logs:
-// info[0] the design stage (2: wgmma + TMA, 4: 3xTF32 wgmma + TMA), [1]
-// registers and [2] local (spill) bytes a thread, [3] static and [4]
-// dynamic shared memory bytes a block, [5] blocks resident on an SM, [6]
-// threads a block. Returns a cudaError_t.
-extern "C" int flash_attention_route_info(int dtype, int* info) {
+// What the route of a dtype and head width d is and what it holds on the
+// card, for the logs: info[0] the design stage (2: wgmma + TMA, 4: 3xTF32
+// wgmma + TMA), [1] registers and [2] local (spill) bytes a thread, [3]
+// static and [4] dynamic shared memory bytes a block, [5] blocks resident
+// on an SM, [6] threads a block. Returns a cudaError_t
+// (cudaErrorInvalidValue for a dtype and width with no kernel).
+extern "C" int flash_attention_route_info(int dtype, int d, int* info) {
   const void* fn;
   int threads, smem, stage;
-  if (dtype == 0) {
+  if (dtype == 0 && d == TF_D) {
     fn = (const void*)flash_attention_f32_kernel;
     threads = TF_THREADS;
     smem = TF_SMEM;
     stage = 4;
-  } else if (dtype == 1) {
-    fn = (const void*)flash_attention_bf16_wgmma_kernel;
+  } else if (dtype == 1 && d == 128) {
+    fn = (const void*)flash_attention_bf16_wgmma_kernel<128>;
     threads = WS_THREADS;
-    smem = WS_SMEM_BYTES;
+    smem = WsSmem<128>::BYTES;
+    stage = 2;
+  } else if (dtype == 1 && d == 64) {
+    fn = (const void*)flash_attention_bf16_wgmma_kernel<64>;
+    threads = WS_THREADS;
+    smem = WsSmem<64>::BYTES;
     stage = 2;
   } else {
     return (int)cudaErrorInvalidValue;

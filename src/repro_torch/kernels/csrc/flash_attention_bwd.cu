@@ -1146,7 +1146,11 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
   const int kd_keys = f32 ? KF_KEYS : KD_KEYS;
   const int kd_heads = G < kd_rows ? G : kd_rows;
   const int kd_positions = G < kd_rows ? kd_rows >> g_shift : 1;
-  const auto map = f32 ? encode_map_f32 : encode_map;
+  const auto map = [f32](PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* m, const void* p,
+                         int b, int s, int heads, int box_heads, int box_rows) {
+    return f32 ? encode_map_f32(enc, m, p, b, s, heads, box_heads, box_rows)
+               : encode_map(enc, m, p, b, s, heads, D, box_heads, box_rows);
+  };
   CUtensorMap q_dq, do_dq, k_dq, v_dq, q_kd, do_kd, k_kd, v_kd;
   if (!map(encode, &q_dq, q, B, S, H, G, DQ_ROWS >> g_shift) ||
       !map(encode, &do_dq, dout, B, S, H, G, DQ_ROWS >> g_shift) ||

@@ -1,9 +1,9 @@
 // hopper.cuh: the Hopper (sm_90a) building blocks that the wgmma + TMA
 // kernels of this directory share: shared-memory matrix descriptors,
 // mbarrier waits that trap instead of hanging, TMA tensor-map loads and 1-D
-// bulk copies, the two bf16 wgmma forms (both operands from shared memory,
-// or A from registers with B transposed by the instruction), their tf32
-// forms (K-major only), named barriers, and the host-side
+// bulk copies, the bf16 wgmma forms (both operands from shared memory, or A
+// from registers with B transposed by the instruction, at N = 64 and 128),
+// their tf32 forms (K-major only), named barriers, and the host-side
 // tensor-map encoder, found through the CUDA runtime so no library needs
 // -lcuda.
 //
@@ -14,11 +14,11 @@
 // describes.
 //
 // Conventions. Tiles are bf16 rows of 128 bytes (64 values), loaded with
-// the 128-byte swizzle from a 1024-byte aligned base; a tile of 128 values
-// a row is two such halves, one after the other. The accumulator of a
-// 64-row wgmma is m16n8's layout for each warp of the warpgroup: warp w
-// holds rows 16 w + g and 16 w + g + 8 (g = lane / 4), columns 8 i + 2 t
-// and 8 i + 2 t + 1 (t = lane % 4) in d[4 i .. 4 i + 3].
+// the 128-byte swizzle from a 1024-byte aligned base; a tile of D values a
+// row (D = 64 or 128) is D / 64 such boxes, one after the other. The
+// accumulator of a 64-row wgmma is m16n8's layout for each warp of the
+// warpgroup: warp w holds rows 16 w + g and 16 w + g + 8 (g = lane / 4),
+// columns 8 i + 2 t and 8 i + 2 t + 1 (t = lane % 4) in d[4 i .. 4 i + 3].
 
 #pragma once
 
@@ -163,6 +163,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64, float32) += A (64 x 16) * B (16 x 64): bf16 A in registers,
+// bf16 B in shared memory, N-major (the attention forward's P V at d = 64)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 32, float32) = A (64 x 8) * B (8 x 32), plus d if accumulate:
 // tf32 A and B in shared memory, both K-major (tf32 has no transposed form)
 __device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
@@ -275,11 +297,13 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// (B, S, heads, 128) bf16 as a 4-D map, innermost first, read in boxes of
-// 64 dims x box_heads x box_rows positions with the 128-byte swizzle
+// (B, S, heads, width) bf16 as a 4-D map, innermost first, read in boxes of
+// 64 dims x box_heads x box_rows positions with the 128-byte swizzle; width
+// (the head width) is a multiple of 64
 inline bool encode_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
-                       const void* ptr, int B, int S, int heads, int box_heads, int box_rows) {
-  constexpr cuuint64_t width = 128;   // values a row (the head width)
+                       const void* ptr, int B, int S, int heads, int head_width, int box_heads,
+                       int box_rows) {
+  const cuuint64_t width = (cuuint64_t)head_width;   // values a row
   const cuuint64_t dims[4] = {width, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {width * 2, (cuuint64_t)heads * width * 2,
                                  (cuuint64_t)S * heads * width * 2};

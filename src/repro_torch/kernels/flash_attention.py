@@ -17,14 +17,23 @@ The C entry point picks a kernel by dtype:
   kept in registers between them, K/V tiles arriving by TMA into a 2-stage
   ring that a producer warpgroup keeps full for two consumer warpgroups.
   That is stage 2 of the tensor-core design (stage 1 was ``mma.sync`` +
-  ``cp.async``). The work is bound by operations: 1.375e11 at B=8, S=2048
-  (H=16, Hkv=8, d=128), 0.139 ms at the card's 989 TFLOP/s.
+  ``cp.async``). One kernel template, compiled at head widths 64
+  (granite-3-2b's) and 128 (qwen3-0.6b's and the MoE configs'). The work
+  is bound by operations: 1.375e11 at B=8, S=2048 (H=16, Hkv=8, d=128, and
+  as much at granite's H=32, Hkv=8, d=64), 0.139 ms at the card's 989
+  TFLOP/s.
 * float32: the tensor cores too, in 3xTF32. One TF32 product (about three
   decimal digits) cannot meet float32's 2e-5, three can: each operand split
   into a TF32 high and low part, hi*hi + hi*lo + lo*hi summed in float32
   (``csrc/tf32.cuh``). ``wgmma`` + TMA with a warpgroup that loads and
   splits the tiles for two consumer warpgroups; bound by the same 1.375e11
-  operations, 0.833 ms in 3xTF32 at the card's 495 TFLOP/s of TF32.
+  operations, 0.833 ms in 3xTF32 at the card's 495 TFLOP/s of TF32. Head
+  width 128 only.
+
+``KERNEL_HEAD_DIMS`` says which head widths each direction and dtype is
+compiled for. A call at another width raises ``ValueError`` before any
+launch, and so does a call that would need the gradient at a width the
+backward does not take (d=64 today), before the forward runs.
 
 Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). Any
 ``S >= 1`` works: the kernel masks the ragged tail itself, where the Pallas
@@ -75,9 +84,15 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: custom VJP (the TPU kernel itself has no backward)
 BWD_REPLACES = "src/repro/models/layers.py:235"
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
-#: head widths the CUDA kernel is compiled for (qwen3-0.6b's); the plain
-#: version takes any width
-KERNEL_HEAD_DIMS = (128,)
+#: head widths the CUDA kernels are compiled for, by (direction, dtype): the
+#: bfloat16 forward at 64 (granite-3-2b's) and 128 (qwen3-0.6b's), the float32
+#: forward and both backward routes at 128; the plain versions take any width
+KERNEL_HEAD_DIMS = {
+    ("forward", torch.bfloat16): (64, 128),
+    ("forward", torch.float32): (128,),
+    ("backward", torch.bfloat16): (128,),
+    ("backward", torch.float32): (128,),
+}
 #: a block's query rows, positions x the query heads of one KV head: the
 #: kernel takes a group size G = H / Hkv that divides it
 KERNEL_ROWS = 128
@@ -262,18 +277,19 @@ def _bwd_scratch_values(b: int, s: int, h: int, hkv: int) -> int:
     return 2 * b * hkv * (-(-s * (h // hkv) // 128) * 128)
 
 
-def route_info(dtype: torch.dtype) -> dict:
-    """The CUDA kernel that serves ``dtype`` on the current card: its design
-    stage, registers and local (spill) bytes a thread, static and dynamic
-    shared memory a block, blocks resident on an SM and threads a block,
-    from the CUDA runtime (``cudaFuncGetAttributes``,
+def route_info(dtype: torch.dtype, d: int = 128) -> dict:
+    """The CUDA kernel that serves ``dtype`` at head width ``d`` on the
+    current card: its design stage, registers and local (spill) bytes a
+    thread, static and dynamic shared memory a block, blocks resident on an
+    SM and threads a block, from the CUDA runtime (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    _check_head_width(dtype, d, grad=False)
     fn = build.load_library("flash_attention").flash_attention_route_info
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     info = (ctypes.c_int * 7)()
-    err = fn(_DTYPE_CODES[dtype], info)
+    err = fn(_DTYPE_CODES[dtype], d, info)
     if err != 0:
         raise RuntimeError(f"flash_attention_route_info failed: CUDA error {err}")
     keys = ("stage", "registers", "local_bytes", "static_smem", "dynamic_smem",
@@ -307,17 +323,28 @@ def bwd_route_info(dtype: torch.dtype) -> dict:
     return out
 
 
-def _check_kernel(*tensors: torch.Tensor) -> None:
+def _check_head_width(dtype: torch.dtype, d: int, grad: bool) -> None:
+    """Raises ``ValueError`` unless the forward kernel of ``dtype`` is
+    compiled for head width ``d``, and with ``grad`` the backward kernel
+    too (a call that needs the gradient runs both)."""
+    directions = ("forward", "backward") if grad else ("forward",)
+    for direction in directions:
+        widths = KERNEL_HEAD_DIMS[(direction, dtype)]
+        if d not in widths:
+            raise ValueError(f"the CUDA kernel is compiled for head widths {widths} "
+                             f"in the {direction} of {dtype}, not {d}")
+
+
+def _check_kernel(*tensors: torch.Tensor, grad: bool = False) -> None:
     """What the CUDA kernels take beyond ``_check``: q, k, v (and, for the
-    backward, out and dout) on the card, d=128, G dividing 128, B and Hkv
-    within the grid, each tensor on a 16-byte boundary."""
+    backward, out and dout) on the card, a head width ``KERNEL_HEAD_DIMS``
+    lists for the dtype (for the backward too where ``grad``), G dividing
+    128, B and Hkv within the grid, each tensor on a 16-byte boundary."""
     q, k = tensors[0], tensors[1]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, s, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel is compiled for head widths "
-                         f"{KERNEL_HEAD_DIMS}, not {d}")
+    _check_head_width(q.dtype, d, grad)
     if KERNEL_ROWS % (h // k.shape[2]):
         raise ValueError(f"the CUDA kernel takes a number of query heads per KV "
                          f"head that divides {KERNEL_ROWS}, not {h // k.shape[2]}")
@@ -374,7 +401,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
         raise ValueError(f"the backward takes out and dout like q {tuple(q.shape)} "
                          f"{q.dtype} and lse (B, H, S) float32, all contiguous on "
                          f"{q.device}")
-    _check_kernel(q, k, v, out, dout, lse)
+    _check_kernel(q, k, v, out, dout, lse, grad=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # float32 scratch for each row's lse and delta, in the kernels' row order
     scratch = torch.empty(_bwd_scratch_values(b, s, h, hkv), dtype=torch.float32,
@@ -432,14 +459,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     the CUDA kernel on CUDA tensors, the plain version on CPU tensors. Where
     grad is enabled and an input requires it, through ``FlashAttention``,
     whose backward is the CUDA backward kernel (the plain backward on CPU
-    tensors). Under a ``roofline.counts`` counter either route counts as
-    ``analysis.attention_work`` (with the lse where it goes through
-    ``FlashAttention``), its backward as ``analysis.attention_bwd_work``."""
+    tensors). A CUDA call at a head width ``KERNEL_HEAD_DIMS`` does not list
+    for its dtype, or for the backward where grad is needed, raises
+    ``ValueError`` before anything launches. Under a ``roofline.counts``
+    counter either route counts as ``analysis.attention_work`` (with the lse
+    where it goes through ``FlashAttention``), its backward as
+    ``analysis.attention_bwd_work``."""
     _check(q, k, v)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if q.device.type != "cpu":
-        _check_kernel(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+        _check_kernel(q, k, v, grad=grad)   # before any launch, the forward's too
+    if grad:
         return FlashAttention.apply(q, k, v)
     with counts.kernel(lambda: analysis.attention_work(*_dims(q, k), q.dtype)):
         if q.device.type == "cpu":

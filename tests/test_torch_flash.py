@@ -12,8 +12,12 @@ version, by max absolute error and by the error's norm, at d=128 for
 lengths around its 64-key tiles, for 1, 2, 4 and 8 query heads a KV head,
 and at qwen3-0.6b's 8 x 2048 prefill, in both routes (bfloat16 and float32
 in 3xTF32, both wgmma on the tensor cores), and the float32 kernel on
-inputs holding +-inf and NaN; they skip where no card is
-present (``chip_smoke.py`` does the same at qwen3-0.6b's widths). The JAX side is imported by a fixture, so that the
+inputs holding +-inf and NaN; the bfloat16 kernel also at d=64 over the
+same lengths and groups and at granite-3-2b's 8 x 2048 prefill (H=32,
+Hkv=8), and the widths the kernels are not compiled for refused with no
+launch (float32 at d=64, a call needing the gradient at d=64); they skip
+where no card is present (``chip_smoke.py`` does the same at qwen3-0.6b's
+and granite-3-2b's widths). The JAX side is imported by a fixture, so that the
 card-only tests also run on a machine with the port's dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash.py
@@ -52,6 +56,8 @@ CUDA_LENGTHS = [1, 7, 63, 64, 65, 130, 257]
 CUDA_GROUPS = [1, 2, 4, 8]
 CUDA_SHAPES = [(1 if s in (1, 257) else 2, s, 16, 16 // g, 128)
                for g in CUDA_GROUPS for s in CUDA_LENGTHS]
+# the same at d=64, granite-3-2b's head width (the bfloat16 kernel only)
+CUDA_SHAPES_D64 = [(b, s, h, hkv, 64) for b, s, h, hkv, _ in CUDA_SHAPES]
 
 
 def _qkv(b, s, h, hkv, d, seed=0):
@@ -192,6 +198,30 @@ def test_cuda_kernel_matches_plain_at_the_prefill_shape(cuda_device, dtype, tol)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES_D64)
+def test_cuda_bfloat16_kernel_matches_plain_at_d64(cuda_device, b, s, h, hkv, d):
+    _assert_kernel_matches_plain(b, s, h, hkv, d, "bfloat16", 3e-2, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_bfloat16_kernel_matches_plain_at_granite_prefill(cuda_device):
+    """granite-3-2b's prefill of 8 x 2048 (H=32, Hkv=8, d=64: G=4)."""
+    _assert_kernel_matches_plain(8, 2048, 32, 8, 64, "bfloat16", 3e-2, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_d64_route_reports_its_design(cuda_device):
+    """The bfloat16 kernel at d=64 is the d=128 design (wgmma + TMA, three
+    warpgroups) on half the shared memory; float32 has no d=64 route."""
+    d64, d128 = FA.route_info(torch.bfloat16, 64), FA.route_info(torch.bfloat16, 128)
+    assert (d64["stage"], d64["design"], d64["threads"]) == (2, "wgmma + TMA", 384)
+    assert d64["blocks_per_sm"] >= 1 and d64["local_bytes"] == 0
+    assert d64["dynamic_smem"] < d128["dynamic_smem"]
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.route_info(torch.float32, 64)
+
+
+@pytest.mark.cuda
 def test_cuda_routes_report_their_design(cuda_device):
     """Both routes run on the tensor cores with three warpgroups (a TMA
     producer, for float32 also the splitter, and two consumer warpgroups):
@@ -229,11 +259,39 @@ def test_cuda_float32_kernel_follows_plain_on_inf_and_nan(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_an_uncompiled_head_width(cuda_device):
-    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 4, 2, 64))
+    """float32 at d=64: only the bfloat16 kernel is compiled there."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.float32)
+               for a in _qkv(1, 8, 4, 2, 64))
     before = FA.launches
     with pytest.raises(ValueError, match="compiled for head widths"):
         FA.flash_attention(q, k, v)
     assert FA.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_bfloat16_kernel_refuses_an_uncompiled_head_width(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _qkv(1, 8, 4, 2, 32))
+    before = FA.launches
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.flash_attention(q, k, v)
+    assert FA.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_the_gradient_at_d64(cuda_device):
+    """The backward is compiled at d=128 only, so a bfloat16 call at d=64
+    that needs the gradient raises before the forward launches (a training
+    step would otherwise fail only in its backward)."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16).requires_grad_()
+               for a in _qkv(1, 8, 4, 2, 64))
+    before, bwd_before = FA.launches, FA.bwd_launches
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.flash_attention(q, k, v)
+    assert (FA.launches, FA.bwd_launches) == (before, bwd_before)
+    with torch.no_grad():   # the same call without the gradient runs
+        FA.flash_attention(q, k, v)
+    assert FA.launches == before + 1
 
 
 @pytest.mark.cuda

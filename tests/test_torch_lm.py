@@ -83,7 +83,8 @@ def test_config_matches_jax(small):
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                 cfg.d_ff, cfg.vocab_size, cfg.vocab_padded) == \
             (28, 1024, 16, 8, 128, 3072, 151936, 151936)
-        assert FA.KERNEL_HEAD_DIMS == (cfg.d_head,)   # the kernel's one width
+        # every kernel, both directions and types, is compiled at this width
+        assert all(cfg.d_head in dims for dims in FA.KERNEL_HEAD_DIMS.values())
 
 
 def test_token_batches_match_jax():
