@@ -157,9 +157,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             and diagonal lengths, G = 1, 2, 4, 8 at S from 1 to 257 around
             the 64-key tiles, 8 x 2048 and the first and last 256 query
             rows of 1 x 32768 (bfloat16 tolerances); the d=64 route's
-            registers, spills and shared memory; a float32 call and a call
-            that needs the gradient at d=64 raise ValueError with no launch
-            (neither is compiled at that width); times at 8 x 2048 and
+            registers, spills and shared memory; a float32 call at d=64,
+            with or without the gradient, raises ValueError with no launch
+            (float32 is not compiled at that width); times at 8 x 2048 and
             1 x 32768 beside the plain version (8 x 2048), SDPA and the bound
   lm-granite-check  granite-3-2b at full width cut to 2 layers, bfloat16:
             prefill through the d=64 kernel (2 launches) == chunked plain
@@ -187,20 +187,41 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             forward with its lse against without, the plain forward with
             its lse and SDPA's forward with grad on; the float32 backward
             (3xTF32) at 4 x 2048: two calls bit-equal, timed with SDPA's
-            float32 backward, split by kernel, its bound; under the port's
-            counter a forward and backward on the card read the formulas
+            float32 backward, split by kernel, its bound; then the
+            bfloat16 backward at head width 64 (granite-3-2b's H=32,
+            Hkv=8): its kernels' registers, spills and shared memory, the
+            kernel and the forward's lse against plain at the same (B, S)
+            set, and at 4 and 8 x 2048 timed as at d=128 (plain, SDPA, the
+            bound, device ms by kernel); under the port's counter a
+            forward and backward on the card read the formulas
   lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
             layers, the loss and every gradient leaf through the kernels
             ("flash") against plain autograd ("chunked"), every leaf
             nonzero; then the full-width bfloat16 model from
             launch.train.build(full=True) trained 20 steps of 4 x 2048
             through Trainer + adamw; both attention counters set to 0 just
-            before and read just after: 28 forward and 28 backward launches
-            a step; the loss falls; step ms, tokens/s, peak memory, the
-            step's share of its bound, busy share and the attention's share
-            of a step's device time; then python -m
+            before and read just after: 56 forward and 28 backward launches
+            a step (each layer rematerialised: cfg.remat); the loss falls;
+            step ms, tokens/s, peak memory, the step's share of its bound,
+            busy share and the attention's share of a step's device time;
+            then python -m
             repro_torch.launch.train --arch qwen3-0.6b --full --steps 3
             --batch 2 --seq-len 512 --device cuda exiting 0
+  lm-granite-train  granite-3-2b's training path: (a) at full width cut
+            to 2 layers, the bfloat16 loss and every gradient leaf through
+            the d=64 kernels against float32 plain autograd ("chunked") from
+            the same weights, within GRANITE_TRAIN_REL, every leaf nonzero,
+            4 forward and 2 backward launches, remat on and off equal; (b)
+            the full model (40 layers, bfloat16) from
+            launch.train.build(full=True) trained 20 steps of 4 x 2048
+            through Trainer(donate=True) + adamw, both attention counters
+            set to 0 just before and read just after: 80 forward and 40
+            backward launches a step; the loss falls; step ms, tokens/s,
+            peak memory (leaving 4 GB of the card free), busy share, the
+            step's share of its bound (the counter counts remat's second
+            forward, model_flops does not); (c) python -m
+            repro_torch.launch.train --arch granite-3-2b --full --batch 1
+            --seq-len 2048 --steps 2 --device cuda exiting 0
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
             and bfloat16, with and without weights; ids outside the table
@@ -285,8 +306,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 
 The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot, attn-d64,
 lm-granite-check, lm-granite, bag-kernel, rec-check and rec phases run
-under torch.inference_mode() (attn-d64's gradient refusal outside it);
-attn-bwd, lm-train, bag-bwd, rec-train,
+under torch.inference_mode() (attn-d64's float32 gradient refusal outside
+it);
+attn-bwd, lm-train, lm-granite-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -466,7 +488,9 @@ BWD_TIMED_F32 = (4, 2048)
 #: lm-train: float32 gradients through the kernels against "chunked" on
 #: qwen3-0.6b at full width cut to this many layers, at (B, S); then the
 #: full-width bfloat16 model trained through the launcher's build and
-#: Trainer at (B, S) for this many steps; the CLI's run
+#: Trainer at (B, S) for this many steps; the CLI's run. Every LM config
+#: rematerialises its layers (cfg.remat), so a step launches the attention
+#: forward twice a layer and its backward once
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 130
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 20, 1e-3
 TRAIN_CLI = ("--arch", "qwen3-0.6b", "--full", "--steps", "3", "--batch", "2",
@@ -474,6 +498,24 @@ TRAIN_CLI = ("--arch", "qwen3-0.6b", "--full", "--steps", "3", "--batch", "2",
 #: the float32 gradient check: each leaf's error norm over its gradient's,
 #: and the loss's relative error
 TRAIN_GRAD_REL = 1e-4
+#: lm-granite-train (a): granite-3-2b at full width cut to
+#: GRANITE_CHECK_LAYERS layers, its bfloat16 loss and gradients through the
+#: d=64 kernels against float32 plain autograd ("chunked") from the same
+#: bfloat16 weights, at (TRAIN_CHECK_B, TRAIN_CHECK_S): each leaf's error
+#: norm over its gradient's within GRANITE_TRAIN_REL, the loss within
+#: GRANITE_LOSS_REL. A CPU rehearsal of this comparison (the same cut model
+#: and batch, bfloat16 through the plain attention against float32
+#: chunked) gave the loss within 3.2e-6 and every leaf within 0.0134 (wo
+#: worst, 0.0060 at best): bfloat16's rounding, not a fault, which moves a
+#: leaf by a large part of its norm. Remat on and off through the kernels
+#: must agree within GRANITE_REMAT_REL (the same products run again)
+GRANITE_TRAIN_REL, GRANITE_LOSS_REL, GRANITE_REMAT_REL = 0.04, 1e-3, 1e-5
+#: (b): the full model, TRAIN_STEPS steps of TRAIN_B x TRAIN_S through the
+#: Trainer with donated updates, whose peak allocated memory must leave
+#: GRANITE_SPARE bytes of the card; (c) the launcher at full width
+GRANITE_SPARE = 4e9
+GRANITE_CLI = ("--arch", "granite-3-2b", "--full", "--batch", "1", "--seq-len", "2048",
+               "--steps", "2")
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -2811,9 +2853,10 @@ def phase_attn_d64(torch, cfg) -> dict:
     lm-granite's prefills (8 x 2048; 1 x 32768 on the first and last
     ATTN_SLICE_ROWS query rows), which are then timed beside the plain
     version (8 x 2048), SDPA and the bound. Randn inputs, each check at
-    ATTN_TOLERANCE and ATTN_REL_TOLERANCE for bfloat16. The float32 kernel
-    and the backward are not compiled at d=64: a float32 call and a call
-    that needs the gradient must raise ValueError with no launch."""
+    ATTN_TOLERANCE and ATTN_REL_TOLERANCE for bfloat16. The float32
+    kernels are not compiled at d=64: a float32 call, with or without the
+    gradient, must raise ValueError with no launch either way (the bfloat16
+    backward at d=64 is held in attn-bwd)."""
     from repro_torch.kernels import flash_attention as FA
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -2845,15 +2888,18 @@ def phase_attn_d64(torch, cfg) -> dict:
         del q, k, v
     torch.cuda.empty_cache()
 
-    before = FA.launches
+    before = (FA.launches, FA.bwd_launches)
     f32 = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, hkv, torch.float32)))
     with torch.inference_mode(False), torch.enable_grad():
-        grad = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, hkv, grad=True)))
+        grad = _refusal(lambda: FA.flash_attention(
+            *inputs(1, 64, h, hkv, torch.float32, grad=True)))
     torch.cuda.synchronize()
-    ok = f32 is not None and grad is not None and FA.launches == before
-    log(f"attn-d64: float32 at d=64 refused ({f32}); a call that needs the gradient at "
-        f"d=64 refused ({grad}); launches {FA.launches - before} {'ok' if ok else 'FAIL'}")
-    check(ok, "a float32 or grad-enabled call at d=64 was not refused before a launch")
+    launched = (FA.launches - before[0], FA.bwd_launches - before[1])
+    ok = f32 is not None and grad is not None and launched == (0, 0)
+    log(f"attn-d64: float32 at d=64 refused ({f32}); float32 with the gradient at d=64 "
+        f"refused ({grad}); launches (forward, backward) {launched} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "a float32 call at d=64 was not refused before a launch")
 
     timings = {}
     for b, s in ((LM_BATCH, LM_SEQ), (1, LM_LONG)):
@@ -2946,20 +2992,22 @@ def phase_lm_granite_check(torch, cfg, seed: int) -> None:
 
 # ---------------------------------------------------------------- attn-bwd --
 
-def _grad_agrees(torch, got, want, dtype: str, what: str) -> float:
+def _grad_agrees(torch, got, want, dtype: str, what: str, elementwise: bool = True) -> float:
     """Holds a gradient against its reference: max abs error within
-    atol + rtol |want| and, where the gradient is above rounding, the
-    error's norm over the reference's; returns the max absolute error."""
+    atol + rtol |want| (unless not ``elementwise``: then only reported) and,
+    where the gradient is above rounding, the error's norm over the
+    reference's; returns the max absolute error."""
     rtol, atol, rel_tol = BWD_TOLERANCE[dtype]
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     err = diff.max().item()
-    ok = bool((diff <= atol + rtol * w.abs()).all()) and math.isfinite(err)
+    ok = (not elementwise or bool((diff <= atol + rtol * w.abs()).all())) and math.isfinite(err)
     w_norm = torch.linalg.vector_norm(w).item()
     rel = torch.linalg.vector_norm(g - w).item() / w_norm if w_norm else 0.0
     gated = w_norm > RMS_FLOOR * w.numel() ** 0.5
     ok = ok and (not gated or rel <= rel_tol)
-    log(f"attn-bwd: {what} {dtype}: max_abs_err={err:.3e} (atol {atol} + rtol {rtol}) "
+    log(f"attn-bwd: {what} {dtype}: max_abs_err={err:.3e} (atol {atol} + rtol {rtol}"
+        f"{'' if elementwise else ': reported, not gated'}) "
         f"rel_norm_err={rel:.3e} tol={rel_tol}{'' if gated else ' (below rounding: not gated)'} "
         f"{'ok' if ok else 'FAIL'}")
     check(ok, f"attention backward: {what} {dtype} disagree: max_abs_err {err}, "
@@ -2967,7 +3015,108 @@ def _grad_agrees(torch, got, want, dtype: str, what: str) -> float:
     return err
 
 
-def phase_attn_bwd(torch, cfg) -> dict:
+def _bwd_inputs(torch, gen, b, s, h, hkv, d, dtype):
+    """q, k, v, dout of the backward's checks: randn on the card."""
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dt)
+                 for n in (h, hkv, hkv, h))
+
+
+def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
+    """The bfloat16 backward at (b, s, h, hkv, d) as attn-bwd times it: the
+    forward's lse and out against plain, the kernel and SDPA's backward
+    against plain, two calls bit-equal, then the kernel, the plain backward
+    and SDPA's backward in turns, the forward with and without lse, device
+    ms back to back and by kernel, the bound. Errors go into
+    ``max_err[key]`` and ``lse_err[key]``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.roofline import analysis
+
+    dtype = "bfloat16"
+    tag = f"B={b} S={s}" + ("" if d == 128 else f" H={h} Hkv={hkv} d={d}")
+    q, k, v, dout = _bwd_inputs(torch, gen, b, s, h, hkv, d, dtype)
+    out, lse = FA._launch(q, k, v, with_lse=True)
+    # the forward with its lse at the training path's shape, before the
+    # backward comparison takes out and lse as given
+    want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+    e = (lse - want_lse).abs().max().item()
+    check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse {tag} {dtype}: "
+                                     f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
+    lse_err[key] = max(lse_err[key], e)
+    log(f"attn-bwd: forward lse vs plain lse {tag} {dtype}: max_abs_err {e:.3e} "
+        f"(tol {LSE_TOLERANCE[dtype]}) ok")
+    _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain {tag}")
+    del want_out, want_lse
+    # the yardstick: SDPA's backward in (B, H, S, d) layouts made once
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
+
+    fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
+           "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
+           "library": library}
+    got = fns["kernel"]()
+    err = max(_grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain {tag}")
+              for name, g, w in zip(("dq", "dk", "dv"), got,
+                                    fns["plain"]()))
+    max_err[key] = max(max_err[key], err)
+    lib = library()
+    # the yardstick computes the same gradient: at d=128 (G=2) element by
+    # element and by its norm; at d=64 (G=4) by its norm, since SDPA and the
+    # kernel each sum bf16-rounded P over G heads into dv, in other orders,
+    # and differ by a bf16 step (0.0625) at some elements below 2 (the
+    # kernel holds the float32-P plain version element by element above)
+    lib_err = max(_grad_agrees(torch, a.transpose(1, 2), g, dtype,
+                               f"{name} SDPA backward vs kernel {tag}", elementwise=d == 128)
+                  for name, a, g in zip(("dq", "dk", "dv"), lib, got))
+    again = fns["kernel"]()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"attn-bwd: two backward calls at {tag} differ")
+    log(f"attn-bwd: {tag} {dtype}: two backward calls bit-equal (dq, dk, dv)")
+    del got, lib, again
+    t = _time_alternating(torch, fns, iters=3, rounds=3)
+    # the forward with and without its lse, in turns, as attn-kernel
+    # times it, with the plain forward with lse and SDPA's forward with
+    # grad on (which keeps its logsumexp for the backward)
+    t.update(_time_alternating(torch, {
+        "fwd_lse": lambda: FA._launch(q, k, v, with_lse=True),
+        "fwd": lambda: FA._launch(q, k, v),
+        "fwd_lse_plain": lambda: FA.flash_attention_fwd_plain(q, k, v),
+        "fwd_lse_library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}, iters=20))
+    dev_ms = _queued_ms(torch, fns["kernel"], 10)
+    lib_dev_ms = _queued_ms(torch, library, 10)
+    # the three kernels of a call: the statistics pass, dk/dv, dq
+    split = _profiled_split_ms(
+        torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
+    bd = analysis.bound(*analysis.attention_bwd_work(b, s, h, hkv, d, dtype), dtype)
+    timing = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms,
+                  library_device_ms=lib_dev_ms, device_split=split)
+    log(f"attn-bwd: {tag} {dtype} kernel_ms={t['kernel']:.5f} "
+        f"kernel_device_ms={dev_ms:.5f} "
+        f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
+        f"library_device_ms={lib_dev_ms:.5f} (SDPA causal GQA "
+        f"backward, max_abs_err vs kernel {lib_err:.3e}) "
+        + _bound_text(bd, t["kernel"], f"attn-bwd: {tag} {dtype}", dev_ms)
+        + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
+    log(f"attn-bwd: {tag} {dtype} device ms by kernel (profiler): " + (
+        ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
+        if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
+                      f"kernel records)"))
+    log(f"attn-bwd: forward {tag} {dtype} with lse {t['fwd_lse']:.5f} ms, "
+        f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f}); plain "
+        f"forward with lse {t['fwd_lse_plain']:.5f} ms; SDPA forward with grad on "
+        f"{t['fwd_lse_library']:.5f} ms")
+    del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_attn_bwd(torch, cfg, granite_cfg) -> dict:
     """The attention's backward kernel against the plain backward on the
     card at qwen3-0.6b's widths, and the forward's lse against the plain
     lse; then the backward's times, the plain backward's, SDPA's backward
@@ -2975,6 +3124,9 @@ def phase_attn_bwd(torch, cfg) -> dict:
     forward with its lse against without, against the plain forward with
     its lse and against SDPA's forward where grad is on (it keeps its
     logsumexp); the float32 route timed the same way at BWD_TIMED_F32.
+    Then granite-3-2b's width (``granite_cfg``: d=64, H=32, Hkv=8) in
+    bfloat16: its routes, the kernel and the forward's lse against plain at
+    BWD_SHAPES and BWD_DIAGONAL_S, and at BWD_TIMED timed as d=128 is.
     Inputs are randn, the incoming gradient too. Last, the port's counter
     on the card: a forward and backward through FlashAttention, whose
     backward runs on autograd's own thread, reads the two work formulas."""
@@ -2986,123 +3138,57 @@ def phase_attn_bwd(torch, cfg) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(8765)
 
     def inputs(b, s, dtype):
-        dt = getattr(torch, dtype)
-        return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda").to(dt)
-                     for n in (h, hkv, hkv, h))
+        return _bwd_inputs(torch, gen, b, s, h, hkv, d, dtype)
 
+    # the routes: float32 and bfloat16 at qwen3-0.6b's d=128 (H=16, Hkv=8),
+    # bfloat16 at granite-3-2b's d=64 (H=32, Hkv=8: G=4), each keyed by
+    # dtype (and width) in routes, max_err and lse_err
+    gh, ghkv, gd = granite_cfg.n_heads, granite_cfg.n_kv_heads, granite_cfg.d_head
+    cases = (("float32", "float32", h, hkv, d), ("bfloat16", "bfloat16", h, hkv, d),
+             ("bfloat16_d64", "bfloat16", gh, ghkv, gd))
     routes = {}
-    for dtype in ("float32", "bfloat16"):
-        routes[dtype] = FA.bwd_route_info(getattr(torch, dtype))
-        for name, info in routes[dtype].items():
-            log(f"attn-bwd: {dtype} {name} kernel ({info['design']}): {info['registers']} "
-                f"registers and {info['local_bytes']} local (spill) bytes a thread, shared "
-                f"memory {info['static_smem']} B static + {info['dynamic_smem']} B dynamic a "
-                f"block, {info['threads']} threads a block, {info['blocks_per_sm']} blocks "
-                f"resident on an SM")
+    for key, dtype, _, _, dd in cases:
+        routes[key] = FA.bwd_route_info(getattr(torch, dtype), dd)
+        for name, info in routes[key].items():
+            log(f"attn-bwd: {dtype} d={dd} {name} kernel ({info['design']}): "
+                f"{info['registers']} registers and {info['local_bytes']} local (spill) bytes "
+                f"a thread, shared memory {info['static_smem']} B static + "
+                f"{info['dynamic_smem']} B dynamic a block, {info['threads']} threads a block, "
+                f"{info['blocks_per_sm']} blocks resident on an SM")
             check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1,
-                  f"attn-bwd: {dtype} {name} kernel spills or does not fit an SM")
+                  f"attn-bwd: {dtype} d={dd} {name} kernel spills or does not fit an SM")
 
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
-    lse_err = {"float32": 0.0, "bfloat16": 0.0}
-    checks = [(b, s, dtype) for b, s in BWD_SHAPES for dtype in ("float32", "bfloat16")]
-    checks += [(1, s, dtype) for s in BWD_DIAGONAL_S for dtype in ("float32", "bfloat16")]
-    for b, s, dtype in checks:
-        q, k, v, dout = inputs(b, s, dtype)
-        out, lse = FA._launch(q, k, v, with_lse=True)
-        want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
-        e = (lse - want_lse).abs().max().item()
-        check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse B={b} S={s} {dtype}: "
-                                         f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
-        lse_err[dtype] = max(lse_err[dtype], e)
-        _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain B={b} S={s}")
-        got = FA._launch_bwd(q, k, v, out, lse, dout)
-        want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            max_err[dtype] = max(max_err[dtype], _grad_agrees(
-                torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s} H={h} Hkv={hkv} "
-                                    f"d={d}"))
-        del q, k, v, dout, out, lse, got, want
-    log(f"attn-bwd: forward lse vs plain lse: max_abs_err float32 {lse_err['float32']:.3e} "
-        f"(tol {LSE_TOLERANCE['float32']}), bfloat16 {lse_err['bfloat16']:.3e} "
-        f"(tol {LSE_TOLERANCE['bfloat16']}) ok")
+    max_err = {key: 0.0 for key, *_ in cases}
+    lse_err = {key: 0.0 for key, *_ in cases}
+    for b, s in BWD_SHAPES + tuple((1, s_) for s_ in BWD_DIAGONAL_S):
+        for key, dtype, hh, kk, dd in cases:
+            q, k, v, dout = _bwd_inputs(torch, gen, b, s, hh, kk, dd, dtype)
+            tag = f"B={b} S={s} H={hh} Hkv={kk} d={dd}"
+            out, lse = FA._launch(q, k, v, with_lse=True)
+            want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+            e = (lse - want_lse).abs().max().item()
+            check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse {tag} {dtype}: "
+                                             f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
+            lse_err[key] = max(lse_err[key], e)
+            _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain {tag}")
+            got = FA._launch_bwd(q, k, v, out, lse, dout)
+            want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                max_err[key] = max(max_err[key], _grad_agrees(
+                    torch, g, w, dtype, f"{name} kernel vs plain {tag}"))
+            del q, k, v, dout, out, lse, got, want
+    log("attn-bwd: forward lse vs plain lse: max_abs_err " + ", ".join(
+        f"{key} {lse_err[key]:.3e} (tol {LSE_TOLERANCE[dtype]})" for key, dtype, *_ in cases)
+        + " ok")
     torch.cuda.empty_cache()
 
+    # bfloat16 at the training path's shapes, both widths
     timings = {}
     for b, s in BWD_TIMED:
-        dtype = "bfloat16"
-        q, k, v, dout = inputs(b, s, dtype)
-        out, lse = FA._launch(q, k, v, with_lse=True)
-        # the forward with its lse at the training path's shape, before the
-        # backward comparison takes out and lse as given
-        want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
-        e = (lse - want_lse).abs().max().item()
-        check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse B={b} S={s} {dtype}: "
-                                         f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
-        lse_err[dtype] = max(lse_err[dtype], e)
-        log(f"attn-bwd: forward lse vs plain lse B={b} S={s} {dtype}: max_abs_err {e:.3e} "
-            f"(tol {LSE_TOLERANCE[dtype]}) ok")
-        _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain B={b} S={s}")
-        del want_out, want_lse
-        # the yardstick: SDPA's backward in (B, H, S, d) layouts made once
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        dout_t = dout.transpose(1, 2).contiguous()
-
-        def library():
-            return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
-
-        fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
-               "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
-               "library": library}
-        got = fns["kernel"]()
-        err = max(_grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s}")
-                  for name, g, w in zip(("dq", "dk", "dv"), got,
-                                        fns["plain"]()))
-        max_err[dtype] = max(max_err[dtype], err)
-        lib = library()
-        lib_err = max(_grad_agrees(torch, a.transpose(1, 2), g, dtype,
-                                   f"{name} SDPA backward vs kernel B={b} S={s}")
-                      for name, a, g in zip(("dq", "dk", "dv"), lib, got))
-        again = fns["kernel"]()
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"attn-bwd: two backward calls at B={b} S={s} differ")
-        log(f"attn-bwd: B={b} S={s} {dtype}: two backward calls bit-equal (dq, dk, dv)")
-        del got, lib, again
-        t = _time_alternating(torch, fns, iters=3, rounds=3)
-        # the forward with and without its lse, in turns, as attn-kernel
-        # times it, with the plain forward with lse and SDPA's forward with
-        # grad on (which keeps its logsumexp for the backward)
-        t.update(_time_alternating(torch, {
-            "fwd_lse": lambda: FA._launch(q, k, v, with_lse=True),
-            "fwd": lambda: FA._launch(q, k, v),
-            "fwd_lse_plain": lambda: FA.flash_attention_fwd_plain(q, k, v),
-            "fwd_lse_library": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)}, iters=20))
-        dev_ms = _queued_ms(torch, fns["kernel"], 10)
-        lib_dev_ms = _queued_ms(torch, library, 10)
-        # the three kernels of a call: the statistics pass, dk/dv, dq
-        split = _profiled_split_ms(
-            torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
-        bd = analysis.bound(*analysis.attention_bwd_work(b, s, h, hkv, d, dtype), dtype)
-        timings[(b, s)] = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms,
-                               library_device_ms=lib_dev_ms, device_split=split)
-        log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
-            f"kernel_device_ms={dev_ms:.5f} "
-            f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
-            f"library_device_ms={lib_dev_ms:.5f} (SDPA causal GQA "
-            f"backward, max_abs_err vs kernel {lib_err:.3e}) "
-            + _bound_text(bd, t["kernel"], f"attn-bwd: B={b} S={s} {dtype}", dev_ms)
-            + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
-        log(f"attn-bwd: B={b} S={s} {dtype} device ms by kernel (profiler): " + (
-            ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
-            if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
-                          f"kernel records)"))
-        log(f"attn-bwd: forward B={b} S={s} {dtype} with lse {t['fwd_lse']:.5f} ms, "
-            f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f}); plain "
-            f"forward with lse {t['fwd_lse_plain']:.5f} ms; SDPA forward with grad on "
-            f"{t['fwd_lse_library']:.5f} ms")
-        del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
-        torch.cuda.empty_cache()
+        timings[(b, s)] = _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, "bfloat16")
+    for b, s in BWD_TIMED:
+        timings[(b, s, gd)] = _bwd_timed(torch, b, s, gh, ghkv, gd, gen, max_err, lse_err,
+                                         "bfloat16_d64")
 
     # the float32 route (3xTF32), timed as above
     b, s = BWD_TIMED_F32
@@ -3179,7 +3265,8 @@ def phase_lm_train(torch, cfg, seed: int) -> dict:
     launcher's ``build(..., full=True)`` trained TRAIN_STEPS steps of
     TRAIN_B x TRAIN_S through ``Trainer`` + ``adamw`` (the launcher's
     schedule); both attention counters are set to 0 just before and read
-    just after, and must show 28 forward and 28 backward launches a step;
+    just after, and must show 56 forward and 28 backward launches a step
+    (remat runs each layer's forward again in the backward);
     the loss falls; step ms, tokens/s, peak memory, busy share and the
     attention's share of a step's device time. (c) ``python -m
     repro_torch.launch.train`` at full width on the card, exiting 0."""
@@ -3208,7 +3295,8 @@ def phase_lm_train(torch, cfg, seed: int) -> dict:
         grads = torch.autograd.grad(loss, tree_leaves(live))
         results[impl] = (loss.item(), grads, (FA.launches - before[0],
                                               FA.bwd_launches - before[1]))
-    check(results["flash"][2] == (TRAIN_CHECK_LAYERS, TRAIN_CHECK_LAYERS)
+    # remat (cfg.remat): each layer's forward runs again in the backward
+    check(results["flash"][2] == (2 * TRAIN_CHECK_LAYERS, TRAIN_CHECK_LAYERS)
           and results["chunked"][2] == (0, 0),
           f"lm-train: float32 check launched {results['flash'][2]} (flash), "
           f"{results['chunked'][2]} (chunked)")
@@ -3267,9 +3355,9 @@ def phase_lm_train(torch, cfg, seed: int) -> dict:
         f"over {TRAIN_STEPS} steps ({cfg.n_layers} layers)")
     check(fwd > 0 and bwd > 0, "lm-train: the training path launched an attention kernel "
                                "no time")
-    check(fwd == bwd == cfg.n_layers * TRAIN_STEPS,
-          f"lm-train: expected {cfg.n_layers} forward and backward launches a step, got "
-          f"{fwd} and {bwd} over {TRAIN_STEPS} steps")
+    check(fwd == 2 * bwd == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"lm-train: expected {2 * cfg.n_layers} forward and {cfg.n_layers} backward "
+          f"launches a step (remat), got {fwd} and {bwd} over {TRAIN_STEPS} steps")
     check(last < first, f"lm-train: the loss did not fall ({first:.4f} -> {last:.4f})")
     busy = _busy_share(torch, lambda: tr.run(data, max_steps=tr.step + 1, log_every=0),
                        "flash", top=8)
@@ -3297,6 +3385,158 @@ def phase_lm_train(torch, cfg, seed: int) -> dict:
           f"lm-train: the launcher failed: {proc.stderr[-2000:]}")
     return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
             "loss": (first, last), "roofline": roof}
+
+
+# -------------------------------------------------------- lm-granite-train --
+
+def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
+    """granite-3-2b's training path on the card, its attention on the d=64
+    kernels both ways. (a) At full width cut to GRANITE_CHECK_LAYERS layers:
+    the bfloat16 loss and the gradient of every leaf through the kernels
+    against float32 plain autograd ("chunked") from the same weights, every
+    leaf nonzero, the kernels launched twice forward (remat) and once
+    backward a layer, and remat off against on. (b) The full model from
+    the launcher's ``build(..., full=True)`` trained TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S through ``Trainer(donate=True)`` + ``adamw`` (the
+    launcher's schedule); both attention counters are set to 0 just before
+    and read just after: 80 forward and 40 backward launches a step; the
+    loss falls; step ms, tokens/s, peak memory (GRANITE_SPARE of the card
+    left), busy share, the step's roofline share. (c) ``python -m
+    repro_torch.launch.train`` with GRANITE_CLI, exiting 0."""
+    import dataclasses
+
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    # (a) bfloat16 through the kernels against float32 plain autograd
+    n_cut = GRANITE_CHECK_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=n_cut)
+    params = tfm.init_lm(cut, torch.Generator("cuda").manual_seed(seed), "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(lm_data.token_batches(
+        cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S, seed=seed)).items()}
+
+    def loss_and_grads(c, p):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        before = (FA.launches, FA.bwd_launches)
+        loss, _ = tfm.loss_fn(live, batch, c)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.item(), grads, (FA.launches - before[0], FA.bwd_launches - before[1])
+
+    flash = loss_and_grads(cut, params)
+    flash_off = loss_and_grads(dataclasses.replace(cut, remat=False), params)
+    ref = loss_and_grads(dataclasses.replace(cut, dtype="float32", attn_impl="chunked"),
+                         tree_map(lambda t: t.float(), params))
+    check(flash[2] == (2 * n_cut, n_cut) and flash_off[2] == (n_cut, n_cut)
+          and ref[2] == (0, 0),
+          f"lm-granite-train: the check launched {flash[2]} (remat), {flash_off[2]} "
+          f"(no remat), {ref[2]} (chunked)")
+    loss_rel = abs(flash[0] - ref[0]) / abs(ref[0])
+    worst, zero, remat_worst, remat_equal = 0.0, 0, 0.0, 0
+    for g, g_off, w in zip(flash[1], flash_off[1], ref[1]):
+        worst = max(worst, (torch.linalg.vector_norm(g.float() - w)
+                            / torch.linalg.vector_norm(w)).item())
+        zero += int(not bool(g.abs().max() > 0))
+        remat_equal += int(torch.equal(g, g_off))
+        remat_worst = max(remat_worst, (torch.linalg.vector_norm(g.float() - g_off.float())
+                                        / torch.linalg.vector_norm(g_off.float())).item())
+    n_leaves = len(flash[1])
+    ok = (loss_rel <= GRANITE_LOSS_REL and worst <= GRANITE_TRAIN_REL and zero == 0
+          and remat_worst <= GRANITE_REMAT_REL)
+    log(f"lm-granite-train: {cfg.name} at full width cut to {n_cut} layers, "
+        f"B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: loss bfloat16 flash (kernels, remat) "
+        f"{flash[0]:.6f} vs float32 chunked (plain autograd) {ref[0]:.6f} (rel "
+        f"{loss_rel:.3e}, tol {GRANITE_LOSS_REL}); {n_leaves} gradient leaves, worst error "
+        f"norm over gradient norm {worst:.3e} (tol {GRANITE_TRAIN_REL}), {zero} all-zero; "
+        f"launches fwd/bwd {flash[2]} with remat, {flash_off[2]} without; remat off vs on: "
+        f"{remat_equal} of {n_leaves} leaves bit-equal, worst {remat_worst:.3e} (tol "
+        f"{GRANITE_REMAT_REL}), loss {flash_off[0]:.6f} {'ok' if ok else 'FAIL'}")
+    check(ok, f"lm-granite-train: bfloat16 gradients through the kernels disagree: loss "
+              f"rel {loss_rel}, worst leaf {worst}, {zero} zero leaves, remat {remat_worst}")
+    del params, batch, flash, flash_off, ref
+    torch.cuda.empty_cache()
+
+    # (b) full width and depth, bfloat16, through the launcher's build and a
+    # donating Trainer
+    t0 = time.perf_counter()
+    gcfg, params, loss_fn, data = launch_train.build(cfg.name, True, TRAIN_B, TRAIN_S, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tr = Trainer(loss_fn, adamw(warmup_cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)), params,
+                 donate=True)
+    del params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    log(f"lm-granite-train: {gcfg.name} {gcfg.dtype} params={n_params:,} ({gcfg.n_layers} "
+        f"layers, remat={gcfg.remat}) from launch.train.build(full=True) on the card in "
+        f"{time.perf_counter() - t0:.3f} s; params + adamw state {held / 1e9:.3f} GB "
+        f"allocated; B={TRAIN_B} S={TRAIN_S} ({TRAIN_B * TRAIN_S} tokens a step), "
+        f"Trainer(donate=True) + adamw(warmup_cosine_schedule({TRAIN_LR}, 10, {TRAIN_STEPS}))")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted ----
+    FA.reset_launches()
+    FA.reset_bwd_launches()
+    t0 = time.perf_counter()
+    tr.run(data, max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = FA.launches, FA.bwd_launches
+    # ---- end of the counted run ----
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    losses = [hh["loss"] for hh in tr.history]
+    step_ms = [hh["step_time_s"] * 1e3 for hh in tr.history]
+    check(all(math.isfinite(x) for x in losses), "lm-granite-train: a loss is not finite")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    med = statistics.median(step_ms[1:])
+    log(f"lm-granite-train: {TRAIN_STEPS} steps in {train_s:.3f} s; step_ms "
+        f"first={step_ms[0]:.3f} median(2..{TRAIN_STEPS})={med:.3f} min={min(step_ms[1:]):.3f} "
+        f"max={max(step_ms[1:]):.3f}; {TRAIN_B * TRAIN_S / med * 1e3:.1f} tokens/s; loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB, "
+        f"reserved {reserved / 1e9:.3f} GB of the card's {total / 1e9:.3f} GB")
+    log(f"lm-granite-train: flash_attention launches={fwd}, flash_attention_bwd "
+        f"launches={bwd} over {TRAIN_STEPS} steps ({gcfg.n_layers} layers, remat)")
+    check(fwd > 0 and bwd > 0, "lm-granite-train: the training path launched an attention "
+                               "kernel no time")
+    check(fwd == 2 * bwd == 2 * gcfg.n_layers * TRAIN_STEPS,
+          f"lm-granite-train: expected {2 * gcfg.n_layers} forward and {gcfg.n_layers} "
+          f"backward launches a step, got {fwd} and {bwd} over {TRAIN_STEPS} steps")
+    check(last < first, f"lm-granite-train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check(peak <= total - GRANITE_SPARE,
+          f"lm-granite-train: peak allocated {peak / 1e9:.3f} GB leaves less than "
+          f"{GRANITE_SPARE / 1e9:.0f} GB of the card's {total / 1e9:.3f} GB")
+    busy = _busy_share(torch, lambda: tr.run(data, max_steps=tr.step + 1, log_every=0),
+                       "flash", top=8)
+    log(f"lm-granite-train: one step B={TRAIN_B} S={TRAIN_S} {busy}")
+    train_4k = {s_.name: s_ for s_ in LM_SHAPES}["train_4k"]
+    roof = _step_roofline(torch, cfg.name,
+                          dataclasses.replace(train_4k, seq_len=TRAIN_S, global_batch=TRAIN_B),
+                          lambda: tr.run(data, max_steps=tr.step + 1, log_every=0), med,
+                          "lm-granite-train")
+    log(f"lm-granite-train: the counter's FLOPs include remat's second forward "
+        f"({roof['flops']:.6e} counted against model_flops {roof['model_flops']:.6e}, 6 N T)")
+    del tr, data
+    torch.cuda.empty_cache()
+
+    # (c) the launcher itself, at full width on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *GRANITE_CLI],
+                          env=env, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"lm-granite-train: python -m repro_torch.launch.train {' '.join(GRANITE_CLI)}: exit "
+        f"{proc.returncode} in {cli_s:.3f} s: {' | '.join(lines[-3:])}")
+    check(proc.returncode == 0 and lines and lines[-1].startswith("final:")
+          and lines[0].startswith(f"arch={cfg.name} family=lm params={n_params:,}"),
+          f"lm-granite-train: the launcher failed: {proc.stderr[-2000:]}")
+    return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
+            "loss": (first, last), "roofline": roof, "grad_rel": worst}
 
 
 # -------------------------------------------------------------- bag-kernel --
@@ -4534,11 +4774,14 @@ def main(argv=None) -> int:
         phases["lm-granite"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
-    attn_bwd = phase_attn_bwd(torch, lm_cfg)
+    attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg)
     phases["attn-bwd"] = time.perf_counter() - t
     t = time.perf_counter()
     lm_train = phase_lm_train(torch, lm_cfg, args.seed)
     phases["lm-train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    granite_train = phase_lm_granite_train(torch, granite_cfg, args.seed)
+    phases["lm-granite-train"] = time.perf_counter() - t
     with torch.inference_mode():
         rec_cfg = get_config("dlrm-mlperf")
         t = time.perf_counter()
@@ -4582,6 +4825,7 @@ def main(argv=None) -> int:
     tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
     tb32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32")]
+    tb64 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, granite_cfg.d_head)]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -4626,6 +4870,11 @@ def main(argv=None) -> int:
         "shape_d64": f"B={LM_BATCH} S={LM_SEQ} H={granite_cfg.n_heads} "
                      f"Hkv={granite_cfg.n_kv_heads} d={granite_cfg.d_head}",
         "launches_granite": lm_granite["launches"],
+        "launches_granite_train": granite_train["launches"],
+        "ms_with_lse_d64_b4": tb64["fwd_lse"], "ms_without_lse_d64_b4": tb64["fwd"],
+        "plain_ms_with_lse_d64_b4": tb64["fwd_lse_plain"],
+        "library_ms_with_lse_d64_b4": tb64["fwd_lse_library"],
+        "lse_max_abs_err_d64": attn_bwd["lse_err"]["bfloat16_d64"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,
@@ -4644,6 +4893,14 @@ def main(argv=None) -> int:
         "design_float32": attn_bwd["routes"]["float32"]["dkdv"]["design"],
         "dtype": "bfloat16", "shape": f"B={TRAIN_B} S={TRAIN_S} H={lm_cfg.n_heads} "
                                       f"Hkv={lm_cfg.n_kv_heads} d={lm_cfg.d_head}",
+        "launches_granite_train": granite_train["bwd_launches"],
+        "max_abs_err_d64": attn_bwd["max_err"]["bfloat16_d64"], "ms_d64": tb64["kernel"],
+        "device_ms_d64": tb64["device_ms"], "plain_ms_d64": tb64["plain"],
+        "bound_ms_d64": tb64["bound_ms"], "library_ms_d64": tb64["library"],
+        "library_device_ms_d64": tb64["library_device_ms"],
+        "ms_d64_b8": attn_bwd["timings"][(8, TRAIN_S, granite_cfg.d_head)]["kernel"],
+        "shape_d64": f"B={TRAIN_B} S={TRAIN_S} H={granite_cfg.n_heads} "
+                     f"Hkv={granite_cfg.n_kv_heads} d={granite_cfg.d_head}",
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
         "replaces": embedding_bag.REPLACES, "launches": rec["launches"],

@@ -3,16 +3,17 @@
 Every architecture of the JAX package's registry registers its full config
 and its shape set, so ``roofline.analysis.model_flops`` covers each
 (arch x shape) cell. ``ARCHS`` lists the ones the training launcher
-offers: the paper's own text-pair model, qwen3-0.6b of the LM family,
-dlrm-mlperf, fm, din and bert4rec of the recsys family and meshgraphnet of
-the GNN family. The MoE configs (deepseek-moe-16b, moonshot-v1-16b-a3b)
-build and serve through ``models.transformer`` (``models/moe.py``), with
-the bfloat16 KV cache or, under ``kv_quant``, the int8 one; their training
-is not ported (ROADMAP.md §1 item 10f). granite-3-2b (d_head 64, tied
-embeddings) serves through ``models.transformer`` too, in bfloat16 on the
-attention kernel's d=64 instance; it is not in ``ARCHS`` because its
-training is not ported (the float32 and backward kernels take d_head 128
-only, item 10d). deepseek-coder-33b is data only until the attention kernel
+offers: the paper's own text-pair model, qwen3-0.6b and granite-3-2b of
+the LM family, dlrm-mlperf, fm, din and bert4rec of the recsys family and
+meshgraphnet of the GNN family. granite-3-2b (d_head 64, tied embeddings)
+serves and trains through ``models.transformer`` in bfloat16, on the
+attention kernels' d=64 instances both ways (the float32 kernels take
+d_head 128 only, so a float32 granite runs the plain attention or
+nothing on the card). The MoE configs (deepseek-moe-16b,
+moonshot-v1-16b-a3b) build and serve through ``models.transformer``
+(``models/moe.py``), with the bfloat16 KV cache or, under ``kv_quant``, the
+int8 one; their training is not ported (ROADMAP.md §1 item 10f: at full
+width about 270 GB of training state). deepseek-coder-33b is data only until the attention kernel
 takes its G=7 (item 10d).
 """
 from __future__ import annotations
@@ -42,7 +43,8 @@ _MODULES = {
 ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "sm-cnn")
 #: every architecture whose model is ported so far (the training
 #: launcher's ``--arch`` choices)
-ARCHS = ("bert4rec", "din", "dlrm-mlperf", "fm", "meshgraphnet", "qwen3-0.6b", "sm-cnn")
+ARCHS = ("bert4rec", "din", "dlrm-mlperf", "fm", "granite-3-2b", "meshgraphnet", "qwen3-0.6b",
+         "sm-cnn")
 
 
 def get_config(arch: str):

@@ -54,11 +54,13 @@
 // so any S >= 1 works.
 //
 // bfloat16 route, the training path: wgmma + TMA, warp-specialised, the
-// forward kernel's design (flash_attention.cu) with the roles it needs.
-// Every product is a wgmma (bf16 in, float32 sums) in one of the forward's
-// two forms, m64n64k16 with both operands by shared-memory descriptor, or
-// m64n128k16 with A from registers and B read N-major (transposed by the
-// instruction); the helpers are hopper.cuh's:
+// forward kernel's design (flash_attention.cu) with the roles it needs,
+// and like it a template on the head width D, 64 (granite-3-2b's) or 128
+// (qwen3-0.6b's): a tile is D / 64 boxes of 64 dims. Every product is a
+// wgmma (bf16 in, float32 sums) in one of the forward's two forms,
+// m64n64k16 with both operands by shared-memory descriptor (D / 16 steps a
+// tile), or m64nDk16 with A from registers and B read N-major (transposed
+// by the instruction); the helpers are hopper.cuh's:
 //   * 3 warpgroups of 128 threads a block. Warpgroup 0 is the producer: it
 //     gives up registers (setmaxnreg) and one thread issues every load by
 //     TMA into a 2-stage ring of shared memory with "full" mbarriers the
@@ -74,10 +76,10 @@
 //     log2 e, delta) of each row R in block-row order, padded with zeros to
 //     a multiple of 128 rows, so a 64-row tile's statistics are 512
 //     contiguous bytes, one bulk copy beside its tiles;
-//   * dk/dv: a block holds 128 keys (K and V loaded once, 64 KB) and
-//     streams 64-row Q and dO tiles with their statistics (32.5 KB a
-//     stage). Its consumers own dK and dV of 64 keys x 128 dims in float32
-//     registers (128 a thread), plus S^T and dP^T (64): they take
+//   * dk/dv: a block holds 128 keys (K and V loaded once, 64 KB at
+//     d=128) and streams 64-row Q and dO tiles with their statistics
+//     (32.5 KB a stage). Its consumers own dK and dV of 64 keys x D dims
+//     in float32 registers (D a thread), plus S^T and dP^T (64): they take
 //     setmaxnreg 240 and the producer 24 (256 x 240 + 128 x 24 = 64,512
 //     registers, the 168 a thread that 384 threads get). ptxas gives the
 //     consumers those 240 only because the bounded wait traps through a
@@ -88,10 +90,10 @@
 //     scale; both go from the accumulators to the A operand in registers
 //     as bf16 pairs (the C fragments of m64nN are its A fragments);
 //   * dq: a block holds the forward's 128 rows (BQ = 128 / G positions x
-//     G heads), Q and dO loaded once (64 KB); K and V of each 64-key tile
-//     stream through the ring (32 KB a stage); each consumer keeps its
-//     rows' lse and delta in registers; dQ += dS K accumulates 64 x 128 in
-//     float32 registers (setmaxnreg 232, the producer 40);
+//     G heads), Q and dO loaded once (64 KB at d=128); K and V of each
+//     64-key tile stream through the ring (32 KB a stage); each consumer
+//     keeps its rows' lse and delta in registers; dQ += dS K accumulates
+//     64 x D in float32 registers (setmaxnreg 232, the producer 40);
 //   * the scale stays inside dS before its bf16 rounding, as in the
 //     reference, so dk needs no scaling at the end;
 //   * the compare-and-mask runs only on tiles that cross a group's
@@ -103,9 +105,10 @@
 //   * cuTensorMapEncodeTiled comes through cudaGetDriverEntryPointByVersion
 //     (no -lcuda), and a barrier wait that lasts seconds traps, so a fault
 //     ends the launch with an error instead of a hang.
-// Shared memory: dk/dv 64 KB + 2 stages x (32 KB + 512 B) = 129 KB, dq
-// 64 KB + 2 x 32 KB = 128 KB (plus barriers and alignment slack); one block
-// of 384 threads an SM.
+// Shared memory at d=128: dk/dv 64 KB + 2 stages x (32 KB + 512 B) = 129
+// KB, dq 64 KB + 2 x 32 KB = 128 KB (plus barriers and alignment slack);
+// at d=64 half of each tile, 65 KB and 64 KB. One block of 384 threads an
+// SM (the registers).
 //
 // float32 route, the training path's float32 checks: 3xTF32 on the tensor
 // cores. float32 is held to (1e-4, 1e-4, 2e-5) (rtol, atol, error norm);
@@ -172,7 +175,7 @@
 
 namespace {
 
-constexpr int D = 128;          // head width
+constexpr int TF_D = 128;       // head width of the float32 route
 constexpr int BR = 64;          // rows (position x head) a q tile of the bfloat16 route
 constexpr int BK = 64;          // keys a kv tile of the bfloat16 route
 constexpr int THREADS = 256;    // the statistics kernel: 8 warps, a warp a row
@@ -207,9 +210,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // (a) for each (batch row b, KV head) the rows R = position * G + head in
 // order, NR of them (S * G padded to STAT_ROWS): (lse * lse_mul,
-// rowsum(do * o)) in float32, zeros past S * G; a warp a row. lse_mul is
-// log2 e for the bfloat16 route (exp2), 1 for float32 (exp).
-template <typename T>
+// rowsum(do * o)) in float32, zeros past S * G; a warp a row of D values,
+// 4 a lane (at D = 64 lanes 16..31 add zeros). lse_mul is log2 e for the
+// bfloat16 route (exp2), 1 for float32 (exp).
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ lse, float2* __restrict__ stats, int S, int H,
@@ -225,7 +229,7 @@ flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (R < (S << g_shift)) {
     const int pos = R >> g_shift, h = (kvh << g_shift) + (R & ((1 << g_shift) - 1));
     const size_t src = ((b * S + pos) * H + h) * D + lane * 4;
-    st.y = warp_sum(dot4(load4f(o + src), load4f(dout + src), 0.f));
+    st.y = warp_sum(lane * 4 < D ? dot4(load4f(o + src), load4f(dout + src), 0.f) : 0.f);
     if (lane == 0) st.x = lse[(b * H + h) * S + pos] * lse_mul;
   }
   if (lane == 0) stats[row] = st;
@@ -272,23 +276,23 @@ constexpr int KF_SMEM = KF_BAR + 16 + 1024;        // + alignment slack
 // row dst (null where the row is not stored) in float32 and zeroes it: the
 // first move writes, later ones add to what the lane wrote. The 16 loads
 // are issued before any add, so a move waits on memory once.
-__device__ __forceinline__ void flush_row(float (&acc)[D / 8][4], int e, float* dst, bool first) {
+__device__ __forceinline__ void flush_row(float (&acc)[TF_D / 8][4], int e, float* dst, bool first) {
   if (dst != nullptr) {
-    float2 x[D / 8];
+    float2 x[TF_D / 8];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < TF_D / 8; ++n)
       x[n] = first ? make_float2(0.f, 0.f) : *reinterpret_cast<const float2*>(dst + 8 * n);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < TF_D / 8; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(x[n].x + acc[n][e],
                                                             x[n].y + acc[n][e + 1]);
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][e] = acc[n][e + 1] = 0.f;
+  for (int n = 0; n < TF_D / 8; ++n) acc[n][e] = acc[n][e + 1] = 0.f;
 }
 
 // Both rows of a lane's share (acc values 0, 1: row g; 2, 3: row g + 8).
-__device__ __forceinline__ void flush_rows(float (&acc)[D / 8][4], float* dst0, float* dst1,
+__device__ __forceinline__ void flush_rows(float (&acc)[TF_D / 8][4], float* dst0, float* dst1,
                                            bool first) {
   flush_row(acc, 0, dst0, first);
   flush_row(acc, 2, dst1, first);
@@ -303,7 +307,7 @@ __device__ __forceinline__ void flush_rows(float (&acc)[D / 8][4], float* dst0, 
 // keys 2t and 2t + 1.
 template <bool NF>
 __device__ __forceinline__ void dq_tile(const unsigned char* qs, const unsigned char* dos,
-                                        const unsigned char* kv, float (&acc)[D / 8][4], int r0,
+                                        const unsigned char* kv, float (&acc)[TF_D / 8][4], int r0,
                                         int g, int t4, int key0, bool diag, int pos0, int pos1,
                                         float2 st0, float2 st1, float scale) {
   const unsigned char* khi = kv;
@@ -316,7 +320,7 @@ __device__ __forceinline__ void dq_tile(const unsigned char* qs, const unsigned 
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll 2
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < TF_D / 8; ++kk) {
     const int c = 8 * kk + t4;
     const Split a[4] = {split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0, c))),
                         split_as<NF>(ld_f32(qs + sw_off(QF_ROWS, r0 + 8, c))),
@@ -350,7 +354,7 @@ __device__ __forceinline__ void dq_tile(const unsigned char* qs, const unsigned 
     const Split d[4] = {split_as<NF>(dp[i][0]), split_as<NF>(dp[i][2]), split_as<NF>(dp[i][1]), split_as<NF>(dp[i][3])};
     const int key = 8 * i + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < TF_D / 8; ++n) {
       const uint32_t o0 = sw_off(TF_TILE, key, 8 * n + g), o1 = sw_off(TF_TILE, key + 1, 8 * n + g);
       mma3<NF>(acc[n], d, ld_u32(khi + o0), ld_u32(khi + o1), ld_u32(klo + o0), ld_u32(klo + o1));
     }
@@ -417,13 +421,13 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   // of its (b, KV head) in the statistics' order
   const float2* st = stats + ((size_t)b * Hkv + kvh) * NR + (size_t)qt * QF_ROWS;
   const float2 st0 = st[r0], st1 = st[r0 + 8];
-  const size_t q_row = (size_t)H * D;
-  float* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * D + 2 * t4;
-  float* dst0 = pos0 < S ? dqb + (size_t)pos0 * q_row + (r0 & (G - 1)) * D : nullptr;
-  float* dst1 = pos1 < S ? dqb + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * D : nullptr;
-  float acc[D / 8][4];
+  const size_t q_row = (size_t)H * TF_D;
+  float* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * TF_D + 2 * t4;
+  float* dst0 = pos0 < S ? dqb + (size_t)pos0 * q_row + (r0 & (G - 1)) * TF_D : nullptr;
+  float* dst1 = pos1 < S ? dqb + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * TF_D : nullptr;
+  float acc[TF_D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < TF_D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   int chain = 0, moved = 0;                          // tiles in acc; moves made
   mbar_wait(bar_q, 0);
   // any inf or NaN in the block's Q, dO or its rows' statistics: its tiles
@@ -477,7 +481,7 @@ __device__ __forceinline__ void keys_by_rows(float (&c)[TF_TILE / 8][4], const u
 #pragma unroll
   for (int j = 0; j < TF_TILE / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 #pragma unroll 2
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < TF_D / 8; ++kk) {
     const int col = 8 * kk + t4;
     const Split f[4] = {split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0, col))),
                         split_as<NF>(ld_f32(a + sw_off(KF_KEYS, kr0 + 8, col))),
@@ -494,7 +498,7 @@ __device__ __forceinline__ void keys_by_rows(float (&c)[TF_TILE / 8][4], const u
 // acc (16 keys x 128) += C B: C (16 keys x 32 rows) as its accumulator
 // stands, B a split tile of 32 rows read at rows 2t, 2t + 1.
 template <bool NF>
-__device__ __forceinline__ void add_rows_product(float (&acc)[D / 8][4],
+__device__ __forceinline__ void add_rows_product(float (&acc)[TF_D / 8][4],
                                                  const float (&c)[TF_TILE / 8][4],
                                                  const unsigned char* bhi,
                                                  const unsigned char* blo, int g, int t4) {
@@ -503,7 +507,7 @@ __device__ __forceinline__ void add_rows_product(float (&acc)[D / 8][4],
     const Split f[4] = {split_as<NF>(c[i][0]), split_as<NF>(c[i][2]), split_as<NF>(c[i][1]), split_as<NF>(c[i][3])};
     const int row = 8 * i + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < TF_D / 8; ++n) {
       const uint32_t o0 = sw_off(TF_TILE, row, 8 * n + g), o1 = sw_off(TF_TILE, row + 1, 8 * n + g);
       mma3<NF>(acc[n], f, ld_u32(bhi + o0), ld_u32(bhi + o1), ld_u32(blo + o0), ld_u32(blo + o1));
     }
@@ -514,7 +518,7 @@ __device__ __forceinline__ void add_rows_product(float (&acc)[D / 8][4],
 // the pair's P^T, a lane's 16 values 32 lanes apart.
 template <bool NF>
 __device__ __forceinline__ void dkdv_tile(int role, int pair, const unsigned char* smem,
-                                          const float2* st, float (&acc)[D / 8][4], int kr0,
+                                          const float2* st, float (&acc)[TF_D / 8][4], int kr0,
                                           int g, int t4, int key_lo, int key_hi, int r0,
                                           int n_rows, int g_shift, bool diag, float scale) {
   const unsigned char* qs = smem + KF_SPLIT;         // Q hi, Q lo, dO hi, dO lo
@@ -618,13 +622,13 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kr0 = 16 * pair + g;                     // this lane's keys: k0 + kr0, + 8
   const int key_lo = k0 + kr0, key_hi = key_lo + 8;
   const int kw_first = k0 + 16 * pair, kw_last = kw_first + 15;
-  float acc[D / 8][4];                               // role 0: dV, role 1: dK
+  float acc[TF_D / 8][4];                               // role 0: dV, role 1: dK
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < TF_D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   const float2* st_s = reinterpret_cast<const float2*>(smem + KF_STATS);
   // the lane's output rows: element offsets (-1: not stored)
-  const size_t kv_row = (size_t)Hkv * D;
-  const size_t out0 = (size_t)b * S * kv_row + (size_t)kvh * D + 2 * t4;
+  const size_t kv_row = (size_t)Hkv * TF_D;
+  const size_t out0 = (size_t)b * S * kv_row + (size_t)kvh * TF_D + 2 * t4;
   float* out = role == 0 ? dv : dk;
   float* dst0 = key_lo < S ? out + out0 + (size_t)key_lo * kv_row : nullptr;
   float* dst1 = key_hi < S ? out + out0 + (size_t)key_hi * kv_row : nullptr;
@@ -672,31 +676,40 @@ constexpr int WG_THREADS = 128;                    // a warpgroup
 constexpr int WS_THREADS = 3 * WG_THREADS;         // producer + 2 consumer warpgroups
 constexpr int WS_STAGES = 2;                       // the ring
 constexpr int STATS_BYTES = BR * 8;                // (lse log2 e, delta) of a 64-row tile
-constexpr int TILE_HALF = 64 * 128;                // 64 dims of 64 rows (keys or q rows): 8 KB
+constexpr int TILE_BOX = 64 * 128;                 // 64 dims of 64 rows (keys or q rows): 8 KB
 
-// dq: the forward's 128 rows a block; from a 1024-byte aligned base: Q and
-// dO (each dims 0..63, then 64..127), then each stage's K and V (two halves
-// each), then the barriers
-constexpr int DQ_ROWS = 128;
-constexpr int DQ_HALF = DQ_ROWS * 128;             // 64 dims of the 128 rows: 16 KB
-constexpr int DQ_Q = 0;
-constexpr int DQ_DO = 2 * DQ_HALF;
-constexpr int DQ_KV = 4 * DQ_HALF;
-constexpr int DQ_STAGE = 4 * TILE_HALF;
-constexpr int DQ_BAR = DQ_KV + WS_STAGES * DQ_STAGE;
-constexpr int DQ_SMEM = DQ_BAR + 8 * (1 + 3 * WS_STAGES) + 1024;   // + alignment slack
-
-// dk/dv: 128 keys a block; K and V (two halves each), then each stage's Q
-// and dO (two halves each), then each stage's statistics, then the barriers
-constexpr int KD_KEYS = 128;
-constexpr int KD_HALF = KD_KEYS * 128;             // 64 dims of the 128 keys: 16 KB
-constexpr int KD_K = 0;
-constexpr int KD_V = 2 * KD_HALF;
-constexpr int KD_QD = 4 * KD_HALF;
-constexpr int KD_STAGE = 4 * TILE_HALF;
-constexpr int KD_STATS = KD_QD + WS_STAGES * KD_STAGE;
-constexpr int KD_BAR = KD_STATS + WS_STAGES * STATS_BYTES;
-constexpr int KD_SMEM = KD_BAR + 8 * (1 + 2 * WS_STAGES) + 1024;   // + alignment slack
+// The shared memory of the bfloat16 route at head width D, in boxes of 64
+// dims (128 bytes a row), D / 64 boxes a tile, from a 1024-byte aligned
+// base. d=128: dk/dv 129 KB, dq 128 KB; d=64: 65 KB, 64 KB.
+template <int D>
+struct BwdSmem {
+  static_assert(D == 64 || D == 128, "the bfloat16 route takes head widths 64 and 128");
+  static constexpr int BOXES = D / 64;
+  // dq: the forward's 128 rows a block; Q and dO (D / 64 boxes each), then
+  // each stage's K and V (D / 64 boxes each), then the barriers
+  static constexpr int DQ_ROWS = 128;
+  static constexpr int DQ_BOX = DQ_ROWS * 128;     // 64 dims of the 128 rows: 16 KB
+  static constexpr int DQ_Q = 0;
+  static constexpr int DQ_DO = BOXES * DQ_BOX;
+  static constexpr int DQ_KV = 2 * BOXES * DQ_BOX;
+  static constexpr int DQ_STAGE = 2 * BOXES * TILE_BOX;
+  static constexpr int DQ_BAR = DQ_KV + WS_STAGES * DQ_STAGE;
+  static constexpr int DQ_SMEM = DQ_BAR + 8 * (1 + 3 * WS_STAGES) + 1024;   // + alignment slack
+  // dk/dv: 128 keys a block; K and V (D / 64 boxes each), then each
+  // stage's Q and dO (D / 64 boxes each), then each stage's statistics,
+  // then the barriers
+  static constexpr int KD_KEYS = 128;
+  static constexpr int KD_BOX = KD_KEYS * 128;     // 64 dims of the 128 keys: 16 KB
+  static constexpr int KD_K = 0;
+  static constexpr int KD_V = BOXES * KD_BOX;
+  static constexpr int KD_QD = 2 * BOXES * KD_BOX;
+  static constexpr int KD_STAGE = 2 * BOXES * TILE_BOX;
+  static constexpr int KD_STATS = KD_QD + WS_STAGES * KD_STAGE;
+  static constexpr int KD_BAR = KD_STATS + WS_STAGES * STATS_BYTES;
+  static constexpr int KD_SMEM = KD_BAR + 8 * (1 + 2 * WS_STAGES) + 1024;   // + alignment slack
+};
+constexpr int DQ_ROWS = BwdSmem<128>::DQ_ROWS;
+constexpr int KD_KEYS = BwdSmem<128>::KD_KEYS;
 
 // two floats as a bf16 pair, lo in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -704,28 +717,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// d (64 x 64) = A B^T over the 128 dims for one tile, issued and committed:
-// A's 64 rows and B's 64 rows K-major, each tile's two 64-dim halves a_half
-// and b_half bytes apart; 8 steps of 16 dims, 32 bytes apart in a half
-__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a, uint32_t a_half, uint32_t b,
-                                         uint32_t b_half) {
+// d (64 x 64) = A B^T over the D dims for one tile, issued and committed:
+// A's 64 rows and B's 64 rows K-major, each tile's 64-dim boxes a_box and
+// b_box bytes apart; D / 16 steps of 16 dims, 32 bytes apart in a box
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a, uint32_t a_box, uint32_t b,
+                                         uint32_t b_box) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n64k16_ss(d, gmma_desc(a + (kk >> 2) * a_half + (kk & 3) * 32, 16, 1024),
-                       gmma_desc(b + (kk >> 2) * b_half + (kk & 3) * 32, 16, 1024), kk > 0);
+    wgmma_m64n64k16_ss(d, gmma_desc(a + (kk >> 2) * a_box + (kk & 3) * 32, 16, 1024),
+                       gmma_desc(b + (kk >> 2) * b_box + (kk & 3) * 32, 16, 1024), kk > 0);
   wgmma_commit();
 }
 
-// d (64 x 128) += A B for one tile, issued and committed: A (64 x 64) from
+// d (64 x D) += A B for one tile, issued and committed: A (64 x 64) from
 // registers, B a 64-row tile read N-major (the sum runs over its rows), its
-// 64-dim halves TILE_HALF apart, 8-row groups 1 KB apart; 4 steps of 16 rows
-__device__ __forceinline__ void issue_rs(float (&d)[64], const uint32_t (&a)[BK / 16][4],
+// 64-dim boxes TILE_BOX apart, 8-row groups 1 KB apart; 4 steps of 16
+// rows, each an m64nDk16
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[BK / 16][4],
                                          uint32_t b) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_m64n128k16_rs(d, a[kk], gmma_desc(b + kk * 16 * 128, TILE_HALF, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t desc = gmma_desc(b + kk * 16 * 128, TILE_BOX, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs(d, a[kk], desc);
+    else
+      wgmma_m64n64k16_rs(d, a[kk], desc);
+  }
   wgmma_commit();
 }
 
@@ -742,28 +763,31 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[BK / 16][4], const float (&
   }
 }
 
-// The bf16 outputs of a warp's 16 rows of a 64 x 128 float32 accumulator
-// into its rows of a 128-byte-swizzled tile at smem (its two 64-dim halves
-// half bytes apart); row0 is the lane's first row in the tile.
-__device__ __forceinline__ void stage_out(unsigned char* smem, int half, int row0,
-                                          const float (&acc)[64], int t4) {
+// The bf16 outputs of a warp's 16 rows of a 64 x D float32 accumulator
+// into its rows of a 128-byte-swizzled tile at smem (its 64-dim boxes box
+// bytes apart); row0 is the lane's first row in the tile.
+template <int D>
+__device__ __forceinline__ void stage_out(unsigned char* smem, int box, int row0,
+                                          const float (&acc)[D / 2], int t4) {
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    const int off = (n >> 3) * half + (((n & 7) ^ (row0 & 7)) << 4) + 4 * t4;
+    const int off = (n >> 3) * box + (((n & 7) ^ (row0 & 7)) << 4) + 4 * t4;
     *reinterpret_cast<uint32_t*>(smem + off + row0 * 128) = pack_bf16(acc[4 * n], acc[4 * n + 1]);
     *reinterpret_cast<uint32_t*>(smem + off + (row0 + 8) * 128) =
         pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// (b) dk, dv of 128 keys of one KV head: 3 warpgroups; warpgroup 0 loads K
-// and V once, then each 64-row q tile's Q, dO and statistics from the first
-// tile holding position k0 to the last into a 2-stage ring; warpgroups 1
-// and 2 own keys k0 .. k0 + 63 and k0 + 64 .. k0 + 127. For each tile a
-// consumer runs S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both by
-// descriptor), then dV += P^T dO and dK += dS^T Q (wgmma m64n128k16, P^T
-// and dS^T from registers, dO and Q N-major). The accumulator's rows are
-// the group's keys, its columns the tile's rows.
+// (b) dk, dv of 128 keys of one KV head at head width D: 3 warpgroups;
+// warpgroup 0 loads K and V once, then each 64-row q tile's Q, dO and
+// statistics from the first tile holding position k0 to the last into a
+// 2-stage ring; warpgroups 1 and 2 own keys k0 .. k0 + 63 and k0 + 64 ..
+// k0 + 127. For each tile a consumer runs S^T = K Q^T and dP^T = V dO^T
+// (D / 16 wgmma m64n64k16 each, both by descriptor), then dV += P^T dO and
+// dK += dS^T Q (4 wgmma m64nDk16 each, P^T and dS^T from registers, dO and
+// Q N-major). The accumulator's rows are the group's keys, its columns the
+// tile's rows (S^T, dP^T) or the D dims (dK, dV).
+template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_do,
@@ -772,11 +796,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const float2* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int S, int Hkv, int g_shift, int NR,
                             float scale, float scale_log2) {
+  using L = BwdSmem<D>;
+  constexpr int BOXES = L::BOXES;
   extern __shared__ __align__(1024) unsigned char ws_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(ws_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
   unsigned char* smem = ws_raw + (base - raw);
-  const uint32_t bar_kv = base + KD_BAR;             // K and V landed
+  const uint32_t bar_kv = base + L::KD_BAR;          // K and V landed
   const uint32_t bar_f = bar_kv + 8;                 // full: Q, dO, statistics of stage s
   const uint32_t bar_e = bar_f + 8 * WS_STAGES;      // empty: both consumers done with s
 
@@ -802,11 +828,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
-      mbar_expect_tx(bar_kv, 4 * KD_HALF);           // keys past S arrive as zeros
-      tma_load_4d(base + KD_K, &tm_k, bar_kv, 0, kvh, k0, b);
-      tma_load_4d(base + KD_K + KD_HALF, &tm_k, bar_kv, 64, kvh, k0, b);
-      tma_load_4d(base + KD_V, &tm_v, bar_kv, 0, kvh, k0, b);
-      tma_load_4d(base + KD_V + KD_HALF, &tm_v, bar_kv, 64, kvh, k0, b);
+      mbar_expect_tx(bar_kv, 2 * BOXES * L::KD_BOX);  // keys past S arrive as zeros
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_4d(base + L::KD_K + x * L::KD_BOX, &tm_k, bar_kv, 64 * x, kvh, k0, b);
+        tma_load_4d(base + L::KD_V + x * L::KD_BOX, &tm_v, bar_kv, 64 * x, kvh, k0, b);
+      }
       const float2* st = stats + ((size_t)b * Hkv + kvh) * NR;
       for (int i = 0; i < n_iter; ++i) {
         const int s = i % WS_STAGES;
@@ -815,13 +841,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // is the tile's 64 rows in order; rows past S arrive as zeros
         const int r0 = (t_first + i) * BR;
         const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
-        const uint32_t qd = base + KD_QD + s * KD_STAGE, full = bar_f + 8 * s;
-        mbar_expect_tx(full, 4 * TILE_HALF + STATS_BYTES);
-        tma_load_4d(qd, &tm_q, full, 0, head, pos, b);
-        tma_load_4d(qd + TILE_HALF, &tm_q, full, 64, head, pos, b);
-        tma_load_4d(qd + 2 * TILE_HALF, &tm_do, full, 0, head, pos, b);
-        tma_load_4d(qd + 3 * TILE_HALF, &tm_do, full, 64, head, pos, b);
-        bulk_load(base + KD_STATS + s * STATS_BYTES, st + r0, STATS_BYTES, full);
+        const uint32_t qd = base + L::KD_QD + s * L::KD_STAGE, full = bar_f + 8 * s;
+        mbar_expect_tx(full, 2 * BOXES * TILE_BOX + STATS_BYTES);
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(qd + x * TILE_BOX, &tm_q, full, 64 * x, head, pos, b);
+          tma_load_4d(qd + (BOXES + x) * TILE_BOX, &tm_do, full, 64 * x, head, pos, b);
+        }
+        bulk_load(base + L::KD_STATS + s * STATS_BYTES, st + r0, STATS_BYTES, full);
       }
     }
     return;
@@ -834,11 +860,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kw0 = k0 + 64 * c;
   const int row0 = 64 * c + 16 * warp + g;           // this lane's keys: k0 + row0, + 8
   const int key_lo = k0 + row0, key_hi = key_lo + 8;
-  const uint32_t k_rows = base + KD_K + c * 64 * 128, v_rows = base + KD_V + c * 64 * 128;
+  const uint32_t k_rows = base + L::KD_K + c * 64 * 128, v_rows = base + L::KD_V + c * 64 * 128;
 
-  float dk_acc[64], dv_acc[64], sc[32], dp[32];
+  float dk_acc[D / 2], dv_acc[D / 2], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
   uint32_t pa[BK / 16][4], da[BK / 16][4];
@@ -850,17 +876,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = (t_first + i) * BR;
     const int p_lo = r0 >> g_shift, p_hi = min((r0 + BR - 1) >> g_shift, S - 1);
     if (p_hi >= kw0) {                               // some row sees a key of this group
-      const uint32_t qd = base + KD_QD + s * KD_STAGE;
-      // K's and V's addresses made opaque here, so their 16 descriptors are
+      const uint32_t qd = base + L::KD_QD + s * L::KD_STAGE;
+      // K's and V's addresses made opaque here, so their descriptors are
       // formed at each tile rather than held in registers across tiles
       uint32_t ka = k_rows, va = v_rows;
       asm volatile("" : "+r"(ka), "+r"(va));
       // (lse log2 e, delta) of the tile's rows 2 m and 2 m + 1: float4 m
-      const float4* st = reinterpret_cast<const float4*>(smem + KD_STATS + s * STATS_BYTES);
+      const float4* st = reinterpret_cast<const float4*>(smem + L::KD_STATS + s * STATS_BYTES);
       fence_regs(sc);
-      issue_ss(sc, ka, KD_HALF, qd, TILE_HALF);                     // S^T = K Q^T
+      issue_ss<D>(sc, ka, L::KD_BOX, qd, TILE_BOX);                          // S^T = K Q^T
       fence_regs(dp);
-      issue_ss(dp, va, KD_HALF, qd + 2 * TILE_HALF, TILE_HALF);     // dP^T = V dO^T
+      issue_ss<D>(dp, va, L::KD_BOX, qd + BOXES * TILE_BOX, TILE_BOX);       // dP^T = V dO^T
       wgmma_wait<1>();                                              // S^T in, dP^T runs on
       fence_regs(sc);
       if (p_lo < kw0 + 63) {                         // the tile crosses the diagonal
@@ -895,9 +921,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       pack_a(pa, sc);
       pack_a(da, dp);
       fence_regs(dv_acc);
-      issue_rs(dv_acc, pa, qd + 2 * TILE_HALF);      // dV += P^T dO
+      issue_rs<D>(dv_acc, pa, qd + BOXES * TILE_BOX);   // dV += P^T dO
       fence_regs(dk_acc);
-      issue_rs(dk_acc, da, qd);                      // dK += dS^T Q
+      issue_rs<D>(dk_acc, da, qd);                      // dK += dS^T Q
       wgmma_wait<0>();
       fence_regs(dv_acc);
       fence_regs(dk_acc);
@@ -906,32 +932,37 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // out: dK and dV in bf16 through this warp's own 16 rows of the K and V
-  // tiles (read out by now), then 16-byte stores
-  stage_out(smem + KD_K, KD_HALF, row0, dk_acc, t4);
-  stage_out(smem + KD_V, KD_HALF, row0, dv_acc, t4);
+  // tiles (read out by now), then 16-byte stores, D / 8 a row
+  constexpr int CHUNKS = D / 8;
+  stage_out<D>(smem + L::KD_K, L::KD_BOX, row0, dk_acc, t4);
+  stage_out<D>(smem + L::KD_V, L::KD_BOX, row0, dv_acc, t4);
   __syncwarp();
   const size_t kv_row = (size_t)Hkv * D;
   const size_t out0 = (size_t)b * S * kv_row + (size_t)kvh * D;
 #pragma unroll
-  for (int i = 0; i < 16 * 16 / 32; ++i) {
+  for (int i = 0; i < 16 * CHUNKS / 32; ++i) {
     const int cidx = i * 32 + lane;
-    const int r = 64 * c + 16 * warp + cidx / 16, ch = cidx % 16;
+    const int r = 64 * c + 16 * warp + cidx / CHUNKS, ch = cidx % CHUNKS;
     const int key = k0 + r;
     if (key < S) {
-      const int off = (ch >> 3) * KD_HALF + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+      const int off = (ch >> 3) * L::KD_BOX + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
       const size_t dst = out0 + (size_t)key * kv_row + ch * 8;
-      *reinterpret_cast<uint4*>(dk + dst) = *reinterpret_cast<const uint4*>(smem + KD_K + off);
-      *reinterpret_cast<uint4*>(dv + dst) = *reinterpret_cast<const uint4*>(smem + KD_V + off);
+      *reinterpret_cast<uint4*>(dk + dst) =
+          *reinterpret_cast<const uint4*>(smem + L::KD_K + off);
+      *reinterpret_cast<uint4*>(dv + dst) =
+          *reinterpret_cast<const uint4*>(smem + L::KD_V + off);
     }
   }
 }
 
-// (c) dq of 128 rows (BQ = 128 / G positions x G heads) of one KV head: 3
-// warpgroups; warpgroup 0 loads Q and dO once, then K and V of each 64-key
-// tile up to the block's last position into a 2-stage ring; warpgroups 1
-// and 2 own rows 0..63 and 64..127. For each tile a consumer runs S = Q K^T
-// and dP = dO V^T (wgmma m64n64k16, both by descriptor), then dQ += dS K
-// (wgmma m64n128k16, dS from registers, K N-major).
+// (c) dq of 128 rows (BQ = 128 / G positions x G heads) of one KV head at
+// head width D: 3 warpgroups; warpgroup 0 loads Q and dO once, then K and
+// V of each 64-key tile up to the block's last position into a 2-stage
+// ring; warpgroups 1 and 2 own rows 0..63 and 64..127. For each tile a
+// consumer runs S = Q K^T and dP = dO V^T (D / 16 wgmma m64n64k16 each,
+// both by descriptor), then dQ += dS K (4 wgmma m64nDk16, dS from
+// registers, K N-major).
+template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
@@ -940,11 +971,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float2* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
                           int S, int H, int Hkv, int g_shift, int NR, float scale,
                           float scale_log2) {
+  using L = BwdSmem<D>;
+  constexpr int BOXES = L::BOXES;
   extern __shared__ __align__(1024) unsigned char ws_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(ws_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms are 1024-byte aligned
   unsigned char* smem = ws_raw + (base - raw);
-  const uint32_t bar_q = base + DQ_BAR;              // Q and dO landed
+  const uint32_t bar_q = base + L::DQ_BAR;           // Q and dO landed
   const uint32_t bar_k = bar_q + 8;                  // full: K of stage s landed
   const uint32_t bar_v = bar_k + 8 * WS_STAGES;      // full: V of stage s landed
   const uint32_t bar_e = bar_v + 8 * WS_STAGES;      // empty: both consumers done with s
@@ -976,21 +1009,22 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       // Q, dO: a box of 64 dims x G heads x BQ positions is the 128 rows in
       // order r = position * G + head, 128 bytes a row
-      mbar_expect_tx(bar_q, 4 * DQ_HALF);
-      tma_load_4d(base + DQ_Q, &tm_q, bar_q, 0, kvh * G, q0, b);
-      tma_load_4d(base + DQ_Q + DQ_HALF, &tm_q, bar_q, 64, kvh * G, q0, b);
-      tma_load_4d(base + DQ_DO, &tm_do, bar_q, 0, kvh * G, q0, b);
-      tma_load_4d(base + DQ_DO + DQ_HALF, &tm_do, bar_q, 64, kvh * G, q0, b);
+      mbar_expect_tx(bar_q, 2 * BOXES * L::DQ_BOX);
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_4d(base + L::DQ_Q + x * L::DQ_BOX, &tm_q, bar_q, 64 * x, kvh * G, q0, b);
+        tma_load_4d(base + L::DQ_DO + x * L::DQ_BOX, &tm_do, bar_q, 64 * x, kvh * G, q0, b);
+      }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % WS_STAGES;
         if (t >= WS_STAGES) mbar_wait(bar_e + 8 * s, ((t / WS_STAGES) - 1) & 1);
-        const uint32_t kv = base + DQ_KV + s * DQ_STAGE;
-        mbar_expect_tx(bar_k + 8 * s, 2 * TILE_HALF);   // keys past S arrive as zeros
-        tma_load_4d(kv, &tm_k, bar_k + 8 * s, 0, kvh, t * BK, b);
-        tma_load_4d(kv + TILE_HALF, &tm_k, bar_k + 8 * s, 64, kvh, t * BK, b);
-        mbar_expect_tx(bar_v + 8 * s, 2 * TILE_HALF);
-        tma_load_4d(kv + 2 * TILE_HALF, &tm_v, bar_v + 8 * s, 0, kvh, t * BK, b);
-        tma_load_4d(kv + 3 * TILE_HALF, &tm_v, bar_v + 8 * s, 64, kvh, t * BK, b);
+        const uint32_t kv = base + L::DQ_KV + s * L::DQ_STAGE;
+        mbar_expect_tx(bar_k + 8 * s, BOXES * TILE_BOX);   // keys past S arrive as zeros
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_4d(kv + x * TILE_BOX, &tm_k, bar_k + 8 * s, 64 * x, kvh, t * BK, b);
+        mbar_expect_tx(bar_v + 8 * s, BOXES * TILE_BOX);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_4d(kv + (BOXES + x) * TILE_BOX, &tm_v, bar_v + 8 * s, 64 * x, kvh, t * BK,
+                      b);
       }
     }
     return;
@@ -1004,22 +1038,22 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int pos0 = q0 + (row0 >> g_shift), pos1 = q0 + ((row0 + 8) >> g_shift);
   const int wg_first = q0 + ((64 * c) >> g_shift);
   const int wg_last = q0 + ((64 * c + 63) >> g_shift);
-  const uint32_t q_rows = base + DQ_Q + c * 64 * 128, do_rows = base + DQ_DO + c * 64 * 128;
+  const uint32_t q_rows = base + L::DQ_Q + c * 64 * 128, do_rows = base + L::DQ_DO + c * 64 * 128;
   // this lane's rows' (lse log2 e, delta): the block's rows are rows
   // qt * 128 .. of its (b, KV head) in the statistics' order
   const float2* st = stats + ((size_t)b * Hkv + kvh) * NR + (size_t)qt * DQ_ROWS;
   const float2 st0 = st[row0], st1 = st[row0 + 8];
 
-  float acc[64], sc[32], dp[32];
+  float acc[D / 2], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
   uint32_t da[BK / 16][4];
   // tiles holding a key at or before this group's last position (none if
   // its rows all lie past S); the rest are masked for every row of the group
   const int n_own = wg_first < S ? min(n_tiles, (wg_last / BK) + 1) : 0;
-  auto stage_at = [&](int t) { return base + DQ_KV + (t % WS_STAGES) * DQ_STAGE; };
+  auto stage_at = [&](int t) { return base + L::DQ_KV + (t % WS_STAGES) * L::DQ_STAGE; };
   auto phase_of = [&](int t) { return (uint32_t)((t / WS_STAGES) & 1); };
   mbar_wait(bar_q, 0);
 
@@ -1027,10 +1061,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t kv = stage_at(t);
     mbar_wait(bar_k + 8 * (t % WS_STAGES), phase_of(t));
     fence_regs(sc);
-    issue_ss(sc, q_rows, DQ_HALF, kv, TILE_HALF);                 // S = Q K^T
+    issue_ss<D>(sc, q_rows, L::DQ_BOX, kv, TILE_BOX);                        // S = Q K^T
     mbar_wait(bar_v + 8 * (t % WS_STAGES), phase_of(t));
     fence_regs(dp);
-    issue_ss(dp, do_rows, DQ_HALF, kv + 2 * TILE_HALF, TILE_HALF); // dP = dO V^T
+    issue_ss<D>(dp, do_rows, L::DQ_BOX, kv + BOXES * TILE_BOX, TILE_BOX);    // dP = dO V^T
     wgmma_wait<1>();                                              // S in, dP runs on
     fence_regs(sc);
     if (t * BK + BK - 1 > wg_first) {                // the tile crosses the diagonal
@@ -1061,7 +1095,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     pack_a(da, dp);
     fence_regs(acc);
-    issue_rs(acc, da, kv);                           // dQ += dS K
+    issue_rs<D>(acc, da, kv);                        // dQ += dS K
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(bar_e + 8 * (t % WS_STAGES));
@@ -1073,19 +1107,20 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // out: dQ in bf16 through this warp's own 16 rows of the Q tile (read out
-  // by now), then 16-byte stores
-  stage_out(smem + DQ_Q, DQ_HALF, row0, acc, t4);
+  // by now), then 16-byte stores, D / 8 a row
+  constexpr int CHUNKS = D / 8;
+  stage_out<D>(smem + L::DQ_Q, L::DQ_BOX, row0, acc, t4);
   __syncwarp();
   const size_t q_row = (size_t)H * D;
   __nv_bfloat16* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * D;
 #pragma unroll
-  for (int i = 0; i < 16 * 16 / 32; ++i) {
+  for (int i = 0; i < 16 * CHUNKS / 32; ++i) {
     const int cidx = i * 32 + lane;
-    const int r = 64 * c + 16 * warp + cidx / 16, ch = cidx % 16;
+    const int r = 64 * c + 16 * warp + cidx / CHUNKS, ch = cidx % CHUNKS;
     const int pos = q0 + (r >> g_shift);
     if (pos < S)
       *reinterpret_cast<uint4*>(dqb + (size_t)pos * q_row + (r & (G - 1)) * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(smem + DQ_Q + (ch >> 3) * DQ_HALF + r * 128 +
+          *reinterpret_cast<const uint4*>(smem + L::DQ_Q + (ch >> 3) * L::DQ_BOX + r * 128 +
                                           (((ch & 7) ^ (r & 7)) << 4));
   }
 }
@@ -1101,7 +1136,7 @@ int stat_rows(int S, int g_shift) {
   return (((S << g_shift) + STAT_ROWS - 1) / STAT_ROWS) * STAT_ROWS;
 }
 
-// Lets the four kernels take their dynamic shared memory. The sizes are
+// Lets the six kernels take their dynamic shared memory. The sizes are
 // constants, so this runs once a device in a process (on every call past
 // device 63); two threads that race both set the same values.
 cudaError_t allow_smem() {
@@ -1114,8 +1149,10 @@ cudaError_t allow_smem() {
   const struct { const void* fn; int bytes; } kernels[] = {
       {(const void*)flash_bwd_dkdv_f32_kernel, KF_SMEM},
       {(const void*)flash_bwd_dq_f32_kernel, QF_SMEM},
-      {(const void*)flash_bwd_dkdv_wgmma_kernel, KD_SMEM},
-      {(const void*)flash_bwd_dq_wgmma_kernel, DQ_SMEM}};
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<128>, BwdSmem<128>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<128>, BwdSmem<128>::DQ_SMEM},
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<64>, BwdSmem<64>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<64>, BwdSmem<64>::DQ_SMEM}};
   for (const auto& kn : kernels) {
     err = cudaFuncSetAttribute(kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kn.bytes);
     if (err != cudaSuccess) return err;
@@ -1124,12 +1161,15 @@ cudaError_t allow_smem() {
   return cudaSuccess;
 }
 
-// The statistics kernel, then dk/dv, then dq, on the caller's stream.
-// Each is a 3xTF32 kernel for float32 and a wgmma one for bfloat16.
+// The statistics kernel, then dk/dv, then dq, on the caller's stream, at
+// head width D. Each is a 3xTF32 kernel for float32 (D = TF_D only) and a
+// wgmma one for bfloat16.
+template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
                    void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
+  const bool f32 = dtype == 0;   // only at D = TF_D (the entry point's check)
   const cudaError_t ctx = make_context_current();
   if (ctx != cudaSuccess) return ctx;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
@@ -1141,7 +1181,6 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
   // is larger; K and V arrive in the dq kernel's key tiles and the dk/dv
   // kernel's 128-key blocks
   static_assert(QF_ROWS == DQ_ROWS, "both routes' dq kernels take the forward's 128 rows");
-  const bool f32 = dtype == 0;
   const int kd_rows = f32 ? TF_TILE : BR, dq_keys = f32 ? TF_TILE : BK;
   const int kd_keys = f32 ? KF_KEYS : KD_KEYS;
   const int kd_heads = G < kd_rows ? G : kd_rows;
@@ -1166,34 +1205,37 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
   float2* stats = reinterpret_cast<float2*>(scratch);
   const size_t n_rows = (size_t)B * Hkv * NR;        // a multiple of the 8 warps a block
   const unsigned stat_blocks = (unsigned)(n_rows / (THREADS / 32));
-  if (f32)
-    flash_bwd_stats_kernel<float><<<stat_blocks, THREADS, 0, stream>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), lse, stats, S, H, Hkv,
-        g_shift, NR, n_rows, 1.f);
-  else
-    flash_bwd_stats_kernel<bf16><<<stat_blocks, THREADS, 0, stream>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, stats, S, H, Hkv,
-        g_shift, NR, n_rows, LOG2E);
+  const dim3 grid_kd((S + kd_keys - 1) / kd_keys, Hkv, B), grid_dq(NR / DQ_ROWS, Hkv, B);
+  if constexpr (D == TF_D) {
+    if (f32) {
+      flash_bwd_stats_kernel<float, TF_D><<<stat_blocks, THREADS, 0, stream>>>(
+          static_cast<const float*>(o), static_cast<const float*>(dout), lse, stats, S, H, Hkv,
+          g_shift, NR, n_rows, 1.f);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkdv_f32_kernel<<<grid_kd, TF_THREADS, KF_SMEM, stream>>>(
+          q_kd, do_kd, k_kd, v_kd, stats, static_cast<float*>(dk), static_cast<float*>(dv), S,
+          Hkv, g_shift, NR, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      flash_bwd_dq_f32_kernel<<<grid_dq, TF_THREADS, QF_SMEM, stream>>>(
+          q_dq, do_dq, k_dq, v_dq, stats, static_cast<float*>(dq), S, H, Hkv, g_shift, NR,
+          scale);
+      return cudaGetLastError();
+    }
+  }
+  flash_bwd_stats_kernel<bf16, D><<<stat_blocks, THREADS, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, stats, S, H, Hkv,
+      g_shift, NR, n_rows, LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_kd((S + kd_keys - 1) / kd_keys, Hkv, B), grid_dq(NR / DQ_ROWS, Hkv, B);
-  if (f32) {
-    flash_bwd_dkdv_f32_kernel<<<grid_kd, TF_THREADS, KF_SMEM, stream>>>(
-        q_kd, do_kd, k_kd, v_kd, stats, static_cast<float*>(dk), static_cast<float*>(dv), S, Hkv,
-        g_shift, NR, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<<<grid_dq, TF_THREADS, QF_SMEM, stream>>>(
-        q_dq, do_dq, k_dq, v_dq, stats, static_cast<float*>(dq), S, H, Hkv, g_shift, NR, scale);
-    return cudaGetLastError();
-  }
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_wgmma_kernel<<<grid_kd, WS_THREADS, KD_SMEM, stream>>>(
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid_kd, WS_THREADS, BwdSmem<D>::KD_SMEM, stream>>>(
       q_kd, do_kd, k_kd, v_kd, stats, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hkv,
       g_shift, NR, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<<<grid_dq, WS_THREADS, DQ_SMEM, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D><<<grid_dq, WS_THREADS, BwdSmem<D>::DQ_SMEM, stream>>>(
       q_dq, do_dq, k_dq, v_dq, stats, static_cast<bf16*>(dq), S, H, Hkv, g_shift, NR, scale,
       scale_log2);
   return cudaGetLastError();
@@ -1205,40 +1247,56 @@ long long scratch_values(int B, int S, int H, int Hkv) {
   return 2ll * B * Hkv * stat_rows(S, log2_of(H / Hkv));
 }
 
+// whether a dtype's route is compiled for head width d: bfloat16 64 and
+// 128, float32 TF_D
+bool takes(int dtype, int d) {
+  return dtype == 1 ? (d == 64 || d == 128) : dtype == 0 && d == TF_D;
+}
+
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16. scratch is the caller's float32 scratch of
-// scratch_len values, at least 2 * B * Hkv * (S * H / Hkv padded to 128):
-// each row's (lse, delta) pair in block-row order (bfloat16: lse log2 e). Returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue, without launching, for a shape it does not take
-// or a scratch too small).
+// dtype 0: float32 (d = 128), 1: bfloat16 (d = 64 or 128). scratch is the
+// caller's float32 scratch of scratch_len values, at least 2 * B * Hkv *
+// (S * H / Hkv padded to 128): each row's (lse, delta) pair in block-row
+// order (bfloat16: lse log2 e). Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue, without launching, for a dtype, width
+// or shape it does not take, or a scratch too small).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const float* lse,
                                    float* scratch, long long scratch_len, void* dq, void* dk,
                                    void* dv, int B, int S, int H, int Hkv, int d, float scale,
                                    void* stream) {
-  if (d != D || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || 128 % (H / Hkv) != 0 ||
-      B > 65535 || Hkv > 65535 || (long long)S * (H / Hkv) > (1ll << 30) ||
-      scratch_len < scratch_values(B, S, H, Hkv))
+  if (!takes(dtype, d) || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
+      128 % (H / Hkv) != 0 || B > 65535 || Hkv > 65535 ||
+      (long long)S * (H / Hkv) > (1ll << 30) || scratch_len < scratch_values(B, S, H, Hkv))
     return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch(dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, scale,
-                     static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return (int)launch<64>(dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv,
+                           scale, st);
+  return (int)launch<128>(dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv,
+                          scale, st);
 }
 
-// What a dtype's kernels hold on the card, for the logs: for kernel 0
-// (dk/dv) and 1 (dq), info[0] registers and [1] local (spill) bytes a
-// thread, [2] static and [3] dynamic shared memory bytes a block, [4]
-// blocks resident on an SM, [5] threads a block, [6] the design (2: wgmma +
-// TMA, 3: 3xTF32 mma.sync + TMA). Returns a cudaError_t.
-extern "C" int flash_attention_bwd_route_info(int dtype, int which, int* info) {
-  if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
+// What a dtype's kernels at head width d hold on the card, for the logs:
+// for kernel 0 (dk/dv) and 1 (dq), info[0] registers and [1] local (spill)
+// bytes a thread, [2] static and [3] dynamic shared memory bytes a block,
+// [4] blocks resident on an SM, [5] threads a block, [6] the design (2:
+// wgmma + TMA, 3: 3xTF32 mma.sync + TMA). Returns a cudaError_t
+// (cudaErrorInvalidValue for a dtype and width with no kernel).
+extern "C" int flash_attention_bwd_route_info(int dtype, int which, int d, int* info) {
+  if (!takes(dtype, d) || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
   const void* fn;
   int smem, threads;
-  if (dtype == 1) {
-    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel
-                    : (const void*)flash_bwd_dq_wgmma_kernel;
-    smem = which == 0 ? KD_SMEM : DQ_SMEM;
+  if (dtype == 1 && d == 128) {
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<128>
+                    : (const void*)flash_bwd_dq_wgmma_kernel<128>;
+    smem = which == 0 ? BwdSmem<128>::KD_SMEM : BwdSmem<128>::DQ_SMEM;
+    threads = WS_THREADS;
+  } else if (dtype == 1) {
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<64>
+                    : (const void*)flash_bwd_dq_wgmma_kernel<64>;
+    smem = which == 0 ? BwdSmem<64>::KD_SMEM : BwdSmem<64>::DQ_SMEM;
     threads = WS_THREADS;
   } else {
     fn = which == 0 ? (const void*)flash_bwd_dkdv_f32_kernel

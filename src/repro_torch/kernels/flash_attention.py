@@ -31,9 +31,10 @@ The C entry point picks a kernel by dtype:
   width 128 only.
 
 ``KERNEL_HEAD_DIMS`` says which head widths each direction and dtype is
-compiled for. A call at another width raises ``ValueError`` before any
-launch, and so does a call that would need the gradient at a width the
-backward does not take (d=64 today), before the forward runs.
+compiled for: bfloat16 64 and 128 both ways, float32 128 both ways. A call
+at another width raises ``ValueError`` before any launch, and so does a
+call that would need the gradient at a width the backward does not take
+(float32 at d=64), before the forward runs.
 
 Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). Any
 ``S >= 1`` works: the kernel masks the ragged tail itself, where the Pallas
@@ -52,7 +53,8 @@ its own, so the serving forward's build is untouched: FlashAttention-2's
 dk/dv and dq kernels without atomics, so the gradients are the same from
 run to run; bfloat16 warp-specialised on the tensor cores, every product a
 ``wgmma`` and every tile arriving by TMA into a 2-stage ring, as in the
-forward; float32 in 3xTF32 ``mma.sync`` fed by TMA, since the ``wgmma``
+forward, and like it one template compiled at head widths 64 and 128;
+float32 in 3xTF32 ``mma.sync`` fed by TMA, since the ``wgmma``
 form's tiles do not fit a block), on CPU tensors in
 ``flash_attention_bwd_plain``. Serving runs under ``torch.inference_mode()``
 and keeps the forward with no ``lse`` written.
@@ -85,12 +87,12 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 BWD_REPLACES = "src/repro/models/layers.py:235"
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 #: head widths the CUDA kernels are compiled for, by (direction, dtype): the
-#: bfloat16 forward at 64 (granite-3-2b's) and 128 (qwen3-0.6b's), the float32
-#: forward and both backward routes at 128; the plain versions take any width
+#: bfloat16 forward and backward at 64 (granite-3-2b's) and 128 (qwen3-0.6b's),
+#: the float32 forward and backward at 128; the plain versions take any width
 KERNEL_HEAD_DIMS = {
     ("forward", torch.bfloat16): (64, 128),
     ("forward", torch.float32): (128,),
-    ("backward", torch.bfloat16): (128,),
+    ("backward", torch.bfloat16): (64, 128),
     ("backward", torch.float32): (128,),
 }
 #: a block's query rows, positions x the query heads of one KV head: the
@@ -299,23 +301,29 @@ def route_info(dtype: torch.dtype, d: int = 128) -> dict:
     return out
 
 
-def bwd_route_info(dtype: torch.dtype) -> dict:
-    """The backward's two kernels for ``dtype`` on the current card, as
-    ``{"dkdv": {...}, "dq": {...}}``: registers and local (spill) bytes a
-    thread, static and dynamic shared memory a block, blocks resident on an
-    SM, threads a block and the design (bfloat16: ``wgmma`` + TMA, 384
-    threads; float32: 3xTF32 ``mma.sync`` + TMA, 256 threads; both on the
-    tensor cores)."""
+def bwd_route_info(dtype: torch.dtype, d: int = 128) -> dict:
+    """The backward's two kernels for ``dtype`` at head width ``d`` on the
+    current card, as ``{"dkdv": {...}, "dq": {...}}``: registers and local
+    (spill) bytes a thread, static and dynamic shared memory a block, blocks
+    resident on an SM, threads a block and the design (bfloat16: ``wgmma`` +
+    TMA, 384 threads; float32: 3xTF32 ``mma.sync`` + TMA, 256 threads; both
+    on the tensor cores). A width the backward of ``dtype`` is not compiled
+    for raises ``ValueError``."""
+    widths = KERNEL_HEAD_DIMS[("backward", dtype)]
+    if d not in widths:
+        raise ValueError(f"the CUDA kernel is compiled for head widths {widths} in the "
+                         f"backward of {dtype}, not {d}")
     fn = build.load_library("flash_attention_bwd").flash_attention_bwd_route_info
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
             "blocks_per_sm", "threads", "design")
     out = {}
     for which, name in enumerate(("dkdv", "dq")):
         info = (ctypes.c_int * 7)()
-        err = fn(_DTYPE_CODES[dtype], which, info)
+        err = fn(_DTYPE_CODES[dtype], which, d, info)
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd_route_info failed: CUDA error {err}")
         out[name] = dict(zip(keys, info))

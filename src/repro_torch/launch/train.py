@@ -3,13 +3,21 @@
 The port of the JAX package's ``launch/train.py``, with its flags and its
 printed lines, plus ``--device`` (default ``cuda``; without a card it raises
 unless given ``--device cpu``). Runs REDUCED configs unless ``--full``; the
-full ``qwen3-0.6b`` (596,049,920 parameters, bfloat16) trains on one H100,
-its attention on the hand-written CUDA kernels both ways
-(``kernels/flash_attention.py``). Includes checkpoint/resume, straggler
-accounting and the fault-tolerant step loop (``training.train_loop``).
+full ``qwen3-0.6b`` (596,049,920 parameters) and ``granite-3-2b``
+(2,533,365,760 parameters, d_head 64), both bfloat16, train on one H100,
+their attention on the hand-written CUDA kernels both ways
+(``kernels/flash_attention.py``), each layer rematerialised (``cfg.remat``).
+``--full`` is the production setting: the ``Trainer`` donates, updating the
+params and the optimizer state in place (``Trainer(donate=True)``, as the
+JAX package asks of production launchers), so granite's 40.5 GB of bf16
+params and grads and float32 moments and master copies are held once.
+Includes checkpoint/resume, straggler accounting and the fault-tolerant step
+loop (``training.train_loop``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
+      --batch 4 --seq-len 2048 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b --full \\
       --batch 4 --seq-len 2048 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert4rec --steps 30
@@ -108,7 +116,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--full", action="store_true",
-                    help="full config (qwen3-0.6b fits one 80 GB card; "
+                    help="full config, trained with donated (in-place) updates "
+                         "(qwen3-0.6b and granite-3-2b fit one 80 GB card; "
                          "dlrm-mlperf's 384.5 GB of state does not)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card cuda raises")
@@ -119,7 +128,8 @@ def main(argv=None):
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={args.arch} family={cfg.family} params={n_params:,}")
     opt = adamw(warmup_cosine_schedule(args.lr, 10, args.steps))
-    tr = Trainer(loss, opt, params, ckpt_dir=args.ckpt_dir, ckpt_every=50)
+    tr = Trainer(loss, opt, params, ckpt_dir=args.ckpt_dir, ckpt_every=50,
+                 donate=args.full)
     if args.ckpt_dir and tr.restore():
         print(f"resumed at step {tr.step}")
     metrics = tr.run(data, max_steps=args.steps, log_every=10)

@@ -29,10 +29,14 @@ Training differentiates ``forward`` with autograd. Under ``"flash"`` the
 attention's gradient is the attention module's own backward
 (``FlashAttention``: the CUDA backward kernel on the card, the plain
 backward on the CPU), the port of ``flash_attention_jnp``'s custom VJP, so
-every parameter gets its gradient and no (S, S) scores are kept. The
-layers are not rematerialised (``cfg.remat`` is the JAX package's
-``jax.checkpoint``; here every layer's activations are kept), so a training
-step runs the attention forward once a layer and its backward once.
+every parameter gets its gradient and no (S, S) scores are kept. With
+``cfg.remat`` (every LM config's default) each layer is rematerialised, the
+twin of the JAX package's ``jax.checkpoint``: ``forward`` keeps only each
+layer's input and runs the layer again in the backward
+(``torch.utils.checkpoint``, non-reentrant), so a training step runs the
+attention forward twice a layer and its backward once; the values are the
+same as without it. Remat acts only where grad is enabled: ``prefill`` and
+serving run under ``torch.inference_mode()`` and keep nothing.
 
 The int8 KV cache (``cfg.kv_quant``) is JAX's, KIVI-style: each new
 (token, head) row is stored as int8 with its float32 absmax scale
@@ -48,6 +52,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
@@ -187,12 +192,19 @@ def _block(cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), moe_aux): the sum of the layers'
-    load-balance losses (float32; 0 for a dense model)."""
+    load-balance losses (float32; 0 for a dense model). With ``cfg.remat``
+    and grad enabled each layer runs under ``checkpoint``: its activations
+    are made again in the backward instead of kept."""
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.n_layers):
-        x, _, _, aux = _block(cfg, x, _layer(params["layers"], i), positions)
+        lp = _layer(params["layers"], i)
+        if remat:
+            x, _, _, aux = checkpoint(_block, cfg, x, lp, positions, use_reentrant=False)
+        else:
+            x, _, _, aux = _block(cfg, x, lp, positions)
         if aux is not None:
             auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"])
@@ -235,7 +247,9 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     """Full pass materializing the KV cache.
 
     Returns (last-position logits (B, V), cache {k,v: (L, B, S, Hkv, Dh)});
-    the final norm and the head run on the last position only.
+    the final norm and the head run on the last position only. It runs
+    under ``torch.inference_mode()`` in serving, so ``cfg.remat`` (which
+    JAX's prefill also applies) changes nothing here.
     """
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     b, s = tokens.shape

@@ -9,7 +9,9 @@ come from the runtime instead of the injected fakes):
    checkpoint. A retry is safe only for a step that commits nothing before
    it returns: the port's optimizers build new tensors and mutate none of
    their inputs (``training.optimizer``), so a step that raised leaves the
-   params as they were and its retry does not apply an update twice.
+   params as they were and its retry does not apply an update twice. A
+   step that cannot be retried (a donated update that failed part way,
+   ``training.train_loop``) raises ``StepFailure``, which is not retried.
 2. ``StragglerMonitor`` — per-step deadline tracking with EWMA baseline;
    flags steps slower than ``threshold``x the moving median, the signal used
    to trigger re-sharding away from a slow host.
@@ -31,11 +33,14 @@ class StepFailure(RuntimeError):
 
 def retry_step(fn: Callable, *args, max_retries: int = 3,
                backoff_s: float = 0.0, on_retry: Optional[Callable] = None):
-    """Run fn(*args); retry on exception up to max_retries."""
+    """Run fn(*args); retry on exception up to max_retries. A
+    ``StepFailure`` from fn is final and raised at once."""
     last = None
     for attempt in range(max_retries + 1):
         try:
             return fn(*args)
+        except StepFailure:
+            raise
         except Exception as e:  # noqa: BLE001 — the retry boundary
             last = e
             if on_retry is not None:

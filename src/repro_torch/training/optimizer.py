@@ -11,9 +11,16 @@ the lr scale. The state keeps the JAX package's keys (``step`` as a 0-d
 int32, ``mu``, ``nu``, ``master``), so a checkpoint's ``opt.rpro`` restores
 in either package.
 
-Every update is functional: it builds new tensors and mutates none of its
-inputs, so a step that raises halfway leaves params and state as they were
-(``training.fault_tolerance.retry_step`` may run it again).
+By default an update is functional: it builds new tensors and mutates none
+of its inputs, so a step that raises halfway leaves params and state as
+they were (``training.fault_tolerance.retry_step`` may run it again).
+``update(..., donate=True)`` is the port of JAX's buffer donation
+(``Trainer(donate=True)``): it clips the grads, and writes the moments, the
+``master`` copies and the params, in place, leaf by leaf, with the
+functional update's float32 operations in the same order, so its values are
+the functional update's to the bit. It holds no second copy of the state,
+only a leaf's float32 temporaries; a donated update that raises leaves the
+trees half updated.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from repro_torch.core.treepath import tree_leaves, tree_map
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (params, grads, st)
+    # (params, grads, st, donate=False) -> (params, st)
+    update: Callable[..., Tuple[Any, Any]]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +78,28 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in leaves))
 
 
+def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     g = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+    scale = _clip_scale(g, max_norm)
     return tree_map(lambda leaf: (_f32(leaf) * scale).to(leaf.dtype),
                     tree), g
+
+
+def clip_by_global_norm_(tree, max_norm: float):
+    """``clip_by_global_norm`` in place: each leaf scaled in float32 and
+    written back in its own dtype, the same values."""
+    g = global_norm(tree)
+    scale = _clip_scale(g, max_norm)
+    for leaf in tree_leaves(tree):
+        if leaf.dtype == torch.float32:
+            leaf.mul_(scale)
+        else:
+            leaf.copy_(_f32(leaf).mul_(scale))
+    return tree, g
 
 
 # ---------------------------------------------------------------------------
@@ -98,16 +123,46 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
                 lambda p: p.detach().to(torch.float32, copy=True), params),
         }
 
-    def update(params, grads, st):
-        if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
-        step = st["step"] + 1
-        lr_t = sched(step)
+    def corrections(step):
         stepf = _f32(step)
         c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                           device=step.device), stepf)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                           device=step.device), stepf)
+        return c1, c2
+
+    @torch.no_grad()
+    def update_in_place(params, grads, st):
+        if clip_norm is not None:
+            clip_by_global_norm_(grads, clip_norm)
+        step = st["step"].add_(1)
+        lr_t = sched(step)
+        c1, c2 = corrections(step)
+        for m, v, g, p32, p in zip(*(tree_leaves(t) for t in (
+                st["mu"], st["nu"], grads, st["master"], params))):
+            g = _f32(g)
+            m.mul_(b1).add_(g * (1 - b1))              # b1 m + (1 - b1) g
+            t = g * (1 - b2)
+            v.mul_(b2).add_(t.mul_(g))                 # b2 v + (1 - b2) g g
+            del t, g
+            u = m / c1
+            den = (v / c2).sqrt_().add_(eps)
+            u.div_(den)                                # (m / c1) / (sqrt(v / c2) + eps)
+            del den
+            if weight_decay:
+                u.add_(p32 * weight_decay)
+            p32.sub_(u.mul_(lr_t))                     # p32 - lr_t u
+            p.copy_(p32)
+        return params, st
+
+    def update(params, grads, st, donate: bool = False):
+        if donate:
+            return update_in_place(params, grads, st)
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm)
+        step = st["step"] + 1
+        lr_t = sched(step)
+        c1, c2 = corrections(step)
 
         def upd(m, v, g, p32):
             g = _f32(g)
@@ -154,7 +209,21 @@ def sgd(lr: Callable | float, momentum: float = 0.9,
                     lambda p: p.detach().to(torch.float32, copy=True),
                     params)}
 
-    def update(params, grads, st):
+    @torch.no_grad()
+    def update_in_place(params, grads, st):
+        if clip_norm is not None:
+            clip_by_global_norm_(grads, clip_norm)
+        lr_t = sched(st["step"].add_(1))
+        for v, g, p32, p in zip(*(tree_leaves(t) for t in (
+                st["vel"], grads, st["master"], params))):
+            v.mul_(momentum).add_(_f32(g))             # momentum v + g
+            p32.sub_(v * lr_t)                         # p32 - lr_t v
+            p.copy_(p32)
+        return params, st
+
+    def update(params, grads, st, donate: bool = False):
+        if donate:
+            return update_in_place(params, grads, st)
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
         step = st["step"] + 1

@@ -6,11 +6,16 @@ owns optimization, checkpointing cadence, straggler accounting, and
 crash-resume (restore() picks up where the last atomic checkpoint left off).
 
 The JAX package's ``jax.value_and_grad`` + ``jax.jit`` step becomes
-``torch.autograd.grad`` on the loss, run eagerly. The step is functional:
-it differentiates detached copies of the params and returns new trees from
-the optimizer, so a step that raises commits nothing and ``retry_step``
-may run it again. Batches are dicts of numpy arrays (``data.qa``) or
-tensors; they are moved to the params' device.
+``torch.autograd.grad`` on the loss, run eagerly. By default the step is
+functional: it differentiates detached copies of the params and returns new
+trees from the optimizer, so a step that raises commits nothing and
+``retry_step`` may run it again. ``Trainer(donate=True)``, the port of the
+JAX step's donated buffers, has the optimizer update the params and its
+state in place (``optimizer.update(..., donate=True)``), with no second copy
+of either; a step that fails once that update has begun raises
+``StepFailure`` and is not retried over the half-updated trees, as JAX's
+deleted buffers make a retry fail. Batches are dicts of numpy arrays
+(``data.qa``) or tensors; they are moved to the params' device.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.core.treepath import tree_leaves, tree_map
 from repro_torch.training.checkpoint import CheckpointManager
-from repro_torch.training.fault_tolerance import StragglerMonitor, retry_step
+from repro_torch.training.fault_tolerance import StepFailure, StragglerMonitor, retry_step
 from repro_torch.training.optimizer import Optimizer
 
 
@@ -54,8 +59,10 @@ class Trainer:
                  params: Any, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 100, keep: int = 3,
                  donate: bool = False, max_retries: int = 2):
-        # ``donate`` is accepted for the JAX signature; an eager step has no
-        # buffers to donate.
+        # ``donate``: the optimizer updates params and state in place (a
+        # production launcher's setting, as in JAX); off by default, where
+        # a failed step may be retried
+        self.donate = donate
         self.optimizer = optimizer
         self.params = params
         self.opt_state = optimizer.init(params)
@@ -72,8 +79,16 @@ class Trainer:
         device = leaves[0].device if leaves else torch.device("cpu")
         loss, metrics, grads = value_and_grad(
             self._loss_fn, params, _to_device(batch, device))
-        new_params, new_state = self.optimizer.update(params, grads,
-                                                      opt_state)
+        if self.donate:
+            try:
+                new_params, new_state = self.optimizer.update(params, grads, opt_state,
+                                                              donate=True)
+            except Exception as e:  # noqa: BLE001 — the trees are half updated
+                raise StepFailure("the donated update failed after it began writing the "
+                                  "params and optimizer state in place; restore a "
+                                  "checkpoint") from e
+        else:
+            new_params, new_state = self.optimizer.update(params, grads, opt_state)
         metrics = dict(metrics, loss=loss)
         return new_params, new_state, {k: v.detach() if isinstance(
             v, torch.Tensor) else v for k, v in metrics.items()}

@@ -15,7 +15,7 @@ in 3xTF32, both wgmma on the tensor cores), and the float32 kernel on
 inputs holding +-inf and NaN; the bfloat16 kernel also at d=64 over the
 same lengths and groups and at granite-3-2b's 8 x 2048 prefill (H=32,
 Hkv=8), and the widths the kernels are not compiled for refused with no
-launch (float32 at d=64, a call needing the gradient at d=64); they skip
+launch (float32 at d=64, with or without the gradient); they skip
 where no card is present (``chip_smoke.py`` does the same at qwen3-0.6b's
 and granite-3-2b's widths). The JAX side is imported by a fixture, so that the
 card-only tests also run on a machine with the port's dependencies alone:
@@ -280,18 +280,22 @@ def test_cuda_bfloat16_kernel_refuses_an_uncompiled_head_width(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_the_gradient_at_d64(cuda_device):
-    """The backward is compiled at d=128 only, so a bfloat16 call at d=64
-    that needs the gradient raises before the forward launches (a training
-    step would otherwise fail only in its backward)."""
-    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16).requires_grad_()
+    """float32 has no kernel at d=64 in either direction, so a float32 call
+    at d=64 that needs the gradient raises before the forward launches (a
+    training step would otherwise fail only in its backward). The bfloat16
+    backward is compiled at d=64 (granite-3-2b trains there): the same call
+    in bfloat16 launches the forward, and its backward the backward."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.float32).requires_grad_()
                for a in _qkv(1, 8, 4, 2, 64))
     before, bwd_before = FA.launches, FA.bwd_launches
     with pytest.raises(ValueError, match="compiled for head widths"):
         FA.flash_attention(q, k, v)
     assert (FA.launches, FA.bwd_launches) == (before, bwd_before)
-    with torch.no_grad():   # the same call without the gradient runs
-        FA.flash_attention(q, k, v)
-    assert FA.launches == before + 1
+    q, k, v = (x.detach().bfloat16().requires_grad_() for x in (q, k, v))
+    FA.flash_attention(q, k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.bwd_launches) == (before + 1, bwd_before + 1)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
 
 
 @pytest.mark.cuda

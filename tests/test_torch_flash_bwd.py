@@ -14,8 +14,10 @@ The ``cuda``-marked tests hold the backward kernel of
 kernel's lse against the plain lse, at d=128 for lengths around the 64-key
 tiles and the bfloat16 kernels' 128-key and 128-row blocks, 1 to 16 query
 heads a KV head, in float32 and bfloat16, and two backward calls bit-equal
-(the kernels use no atomics; float32 also at 4 x 2048); they skip where no
-card is present. The JAX
+(the kernels use no atomics; float32 also at 4 x 2048); in bfloat16 at
+d=64 (granite-3-2b's H=32 over 32 / G KV heads, G 1 to 8, the same lengths,
+and granite's 4 x 2048), where a float32 call raises before any launch;
+they skip where no card is present. The JAX
 side is imported by a fixture, so the card-only tests also run on a machine
 with the port's dependencies alone:
 
@@ -210,6 +212,8 @@ RMS_FLOOR = 1e-3
 #: lengths around the 64-key and 64-row tiles and the 128-key and 128-row
 #: blocks of the bfloat16 kernels
 CUDA_BWD_LENGTHS = [1, 7, 63, 64, 65, 127, 128, 129, 130, 255, 256, 257]
+#: query heads a KV head at d=64: granite-3-2b's H=32 over 32 / G KV heads
+D64_GROUPS = [1, 2, 4, 8]
 
 
 def _dv_with_bf16_p(q, k, lse, dout):
@@ -317,6 +321,57 @@ def test_cuda_bwd_routes_report_their_design(cuda_device):
             assert (info[name]["design"], info[name]["threads"]) == (design, threads)
             assert info[name]["blocks_per_sm"] >= 1
             assert info[name]["local_bytes"] == 0, (dtype, name, info[name])
+
+
+def test_bwd_route_info_refuses_a_width_with_no_kernel():
+    """The backward is compiled at d=64 and 128 in bfloat16 and at 128 in
+    float32; any other (dtype, width) raises before the library loads."""
+    assert FA.KERNEL_HEAD_DIMS[("backward", torch.bfloat16)] == (64, 128)
+    assert FA.KERNEL_HEAD_DIMS[("backward", torch.float32)] == (128,)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 256)):
+        with pytest.raises(ValueError, match="compiled for head widths"):
+            FA.bwd_route_info(dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", D64_GROUPS)
+@pytest.mark.parametrize("s", CUDA_BWD_LENGTHS)
+def test_cuda_bf16_bwd_kernel_matches_plain_at_d64(cuda_device, g, s):
+    _assert_bwd_matches_plain(1 if s == 257 else 2, s, 32, 32 // g, 64, "bfloat16",
+                              cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_bwd_kernel_matches_plain_at_granites_training_shape(cuda_device):
+    """granite-3-2b's H=32, Hkv=8, d=64 at 4 x 2048: 32 key tiles a row."""
+    _assert_bwd_matches_plain(4, 2048, 32, 8, 64, "bfloat16", cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_bwd_route_at_d64_reports_its_design(cuda_device):
+    info = FA.bwd_route_info(torch.bfloat16, 64)
+    for name in ("dkdv", "dq"):
+        assert (info[name]["design"], info[name]["threads"]) == ("wgmma + TMA", 384)
+        assert info[name]["blocks_per_sm"] >= 1 and info[name]["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_float32_at_d64_raises_before_any_launch(cuda_device):
+    """float32 has no kernel at d=64 either way: the forward with or
+    without grad and the backward raise ``ValueError`` and launch
+    nothing."""
+    q, k, v, dout = (torch.from_numpy(a).to(cuda_device)
+                     for a in _grad_inputs(1, 64, 8, 2, 64))
+    before = (FA.launches, FA.bwd_launches)
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.flash_attention(q, k, v)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA.flash_attention(tq, tk, tv)
+    lse = torch.zeros((1, 8, 64), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="compiled for head widths"):
+        FA._launch_bwd(q, k, v, q.clone(), lse, dout)
+    assert (FA.launches, FA.bwd_launches) == before
 
 
 @pytest.mark.cuda

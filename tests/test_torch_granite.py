@@ -75,14 +75,14 @@ def test_config_matches_jax():
 
 
 def test_kernel_head_widths_serve_granite_in_bfloat16_only():
-    """The bfloat16 forward kernel takes granite's d_head 64 (and 128); the
-    float32 forward and both backward kernels take 128 only, so granite
-    serves on the card in bfloat16 and does not train there yet."""
+    """The bfloat16 forward and backward kernels take granite's d_head 64
+    (and 128); the float32 forward and backward kernels take 128 only, so
+    granite serves and trains on the card in bfloat16 only."""
     d = get_config(ARCH).d_head
-    assert FA.KERNEL_HEAD_DIMS[("forward", torch.bfloat16)] == (64, 128)
-    for key in (("forward", torch.float32), ("backward", torch.bfloat16),
-                ("backward", torch.float32)):
-        assert d not in FA.KERNEL_HEAD_DIMS[key] and 128 in FA.KERNEL_HEAD_DIMS[key]
+    for direction in ("forward", "backward"):
+        assert FA.KERNEL_HEAD_DIMS[(direction, torch.bfloat16)] == (64, 128)
+        assert FA.KERNEL_HEAD_DIMS[(direction, torch.float32)] == (128,)
+        assert d not in FA.KERNEL_HEAD_DIMS[(direction, torch.float32)]
 
 
 def test_forward_prefill_decode_match_jax():

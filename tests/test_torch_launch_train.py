@@ -10,7 +10,9 @@ with a finite loss; the JAX launcher's flags are all there; a checkpoint
 directory resumes; BERT4Rec and the gnn family build the JAX launcher's
 batches and trees and train through ``main``; a card that is not there
 raises; ``--arch`` offers only the ported architectures, while the
-registry also holds the configs whose models are not ported.
+registry also holds the configs whose models are not ported; reduced
+granite-3-2b trains through ``main``, and ``--full`` trains with the
+``Trainer``'s donated updates.
 """
 import ast
 import math
@@ -44,7 +46,8 @@ def _shapes(tree):
     return out
 
 
-@pytest.mark.parametrize("arch,batch,seq_len", [("qwen3-0.6b", 4, 16), ("sm-cnn", 8, 64)])
+@pytest.mark.parametrize("arch,batch,seq_len", [("qwen3-0.6b", 4, 16), ("sm-cnn", 8, 64),
+                                                ("granite-3-2b", 4, 16)])
 def test_build_gives_the_jax_launchers_batches_and_tree(arch, batch, seq_len):
     jcfg, jparams, _, jdata = jax_train.build(arch, False, batch, seq_len)
     cfg, params, loss, data = train.build(arch, False, batch, seq_len, device="cpu")
@@ -83,11 +86,48 @@ def test_cli_trains_three_steps_on_the_cpu(arch, family, params):
 
 
 def test_params_line_counts_what_the_jax_launcher_counts():
-    for arch in ("sm-cnn", "qwen3-0.6b"):
+    for arch in ("sm-cnn", "qwen3-0.6b", "granite-3-2b"):
         _, jparams, _, _ = jax_train.build(arch, False, 2, 8)
         _, params, _, _ = train.build(arch, False, 2, 8, device="cpu")
         assert sum(int(np.prod(p.shape)) for p in jax.tree.leaves(jparams)) == \
             sum(p.numel() for p in tree_leaves(params))
+
+
+def test_granite_trains_through_main_on_the_cpu(capsys):
+    """Reduced granite-3-2b (tied embeddings, remat on) trains 3 steps
+    through ``main``: the JAX launcher's ``arch=`` line and a finite final
+    loss."""
+    _, jparams, _, _ = jax_train.build("granite-3-2b", False, 16, 64)
+    n = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(jparams))
+    train.main(["--arch", "granite-3-2b", "--steps", "3", "--lr", "1e-2", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == f"arch=granite-3-2b family=lm params={n:,}"
+    final = ast.literal_eval(lines[-1][len("final: "):])
+    assert math.isfinite(final["loss"]) and final["loss"] > 0
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_full_trains_with_donated_updates(full, monkeypatch, capsys):
+    """``--full`` is the production setting: its ``Trainer`` donates (the
+    update writes params and state in place); a reduced run does not. The
+    build is held to the reduced config here, so no full model is made."""
+    seen = {}
+    real_build, real_trainer = train.build, train.Trainer
+
+    def reduced_build(arch, full_, batch, seq_len, device="cuda"):
+        seen["full"] = full_
+        return real_build(arch, False, batch, seq_len, device)
+
+    def recording_trainer(*args, **kw):
+        seen["donate"] = kw.get("donate", False)
+        return real_trainer(*args, **kw)
+
+    monkeypatch.setattr(train, "build", reduced_build)
+    monkeypatch.setattr(train, "Trainer", recording_trainer)
+    train.main(["--arch", "granite-3-2b", "--steps", "2", "--batch", "2", "--seq-len", "16",
+                "--device", "cpu"] + (["--full"] if full else []))
+    assert seen == {"full": full, "donate": full}
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("final: {")
 
 
 def test_cli_takes_the_jax_launchers_flags_and_device(tmp_path, capsys):

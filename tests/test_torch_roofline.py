@@ -74,8 +74,8 @@ def test_registry_lists_the_jax_cells():
             [(a, dataclasses.asdict(s)) for a, s in J.cells(inapplicable)]
     assert len(C.cells(include_inapplicable=True)) == 40
     # the ported architectures only: the MoE and larger dense configs are data
-    assert set(C.ARCHS) == {"bert4rec", "din", "dlrm-mlperf", "fm", "meshgraphnet",
-                            "qwen3-0.6b", "sm-cnn"}
+    assert set(C.ARCHS) == {"bert4rec", "din", "dlrm-mlperf", "fm", "granite-3-2b",
+                            "meshgraphnet", "qwen3-0.6b", "sm-cnn"}
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -16,7 +16,12 @@ mirrored), at ``reduced(sm-cnn)`` with every input drawn from numpy seeds:
 * checkpoints written by either package restore in the other, the params
   file byte-equal for one tree; ``publish_checkpoint`` ids equal across
   packages; ``retry_step`` leaves the params as they were after a step
-  that raised, and its retry applies the update once.
+  that raised, and its retry applies the update once;
+* the donated (in-place) update of ``adamw``, ``adam`` and ``sgd`` and the
+  in-place clip equal to the functional ones bit for bit, each tensor
+  keeping its storage; a donated ``Trainer`` equal to a functional one; a
+  donated step whose update failed raising ``StepFailure`` unretried, and
+  one that failed before its update retried.
 
 The JAX side is imported by a fixture, so the ``cuda``-marked tests (the
 ``Trainer`` on the card against the CPU) run where JAX is not installed."""
@@ -550,6 +555,117 @@ def test_retry_step_leaves_params_unchanged_after_a_failed_step():
     clean.run(iter([batch]), log_every=0)
     assert calls["n"] == 2 and int(failing.opt_state["step"]) == 1
     for a, b in zip(tree_leaves(failing.params), tree_leaves(clean.params)):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------------- donated updates --
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_donated_update_equals_the_functional_one_bit_for_bit(name, dtype):
+    """Three updates with ``donate=True`` write the params, the state and
+    the clipped grads in place (every tensor keeps its storage) and give the
+    functional update's params and state to the bit, bfloat16 params (float32
+    masters) too."""
+    from repro_torch.training import optimizer as port_opt
+    opt = OPTIMIZERS[name](port_opt)
+    dt = getattr(torch, dtype)
+    p_fn = tree_map(lambda t: t.to(dt), _torch(_tree(1)))
+    p_in = tree_map(torch.clone, p_fn)
+    st_fn, st_in = opt.init(p_fn), opt.init(p_in)
+    ptrs = [t.data_ptr() for t in tree_leaves(p_in) + tree_leaves(st_in)]
+    for i in range(3):
+        grads = tree_map(lambda a: torch.from_numpy(a * 3.0).to(dt), _tree(10 + i))
+        donated = tree_map(torch.clone, grads)
+        p_fn, st_fn = opt.update(p_fn, grads, st_fn)
+        p_in, st_in = opt.update(p_in, donated, st_in, donate=True)
+    assert ptrs == [t.data_ptr() for t in tree_leaves(p_in) + tree_leaves(st_in)]
+    assert sorted(st_in) == sorted(st_fn) and int(st_in["step"]) == 3
+    for a, b in zip(tree_leaves(p_in) + tree_leaves(st_in),
+                    tree_leaves(p_fn) + tree_leaves(st_fn)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_in_place_equals_the_functional_clip(dtype):
+    from repro_torch.training.optimizer import clip_by_global_norm_
+    dt = getattr(torch, dtype)
+    tree = tree_map(lambda a: torch.from_numpy(a * 4.0).to(dt), _tree(2))
+    want, wg = clip_by_global_norm(tree, 1.0)
+    ptrs = [t.data_ptr() for t in tree_leaves(tree)]
+    got, g = clip_by_global_norm_(tree, 1.0)
+    assert got is tree and ptrs == [t.data_ptr() for t in tree_leaves(got)]
+    assert torch.equal(g, wg)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_a_failing_donated_step_raises_step_failure_without_a_retry():
+    """A donated step whose update raises after it began writing in place
+    is not retried over the half-updated trees: ``run`` raises
+    ``StepFailure`` at once (the update ran once, with retries left), as
+    JAX's deleted buffers fail a retry; the trainer's step count stays."""
+    cfg = _cfg()
+    tree = sm_cnn.init_sm_cnn_numpy(cfg, seed=0)
+    batch = next(QA.pair_batches(_corpus(), HashingTokenizer(cfg.vocab_size),
+                                 cfg.max_len, 64, seed=0))
+    tr = _port_trainer(tree, donate=True, max_retries=2)
+    real_update = tr.optimizer.update
+    calls = {"n": 0}
+
+    def update_then_fail(params, grads, st, donate=False):
+        calls["n"] += 1
+        real_update(params, grads, st, donate=donate)
+        raise RuntimeError("lost the step after its update")
+
+    tr.optimizer = tr.optimizer._replace(update=update_then_fail)
+    with pytest.raises(FT.StepFailure) as failed:
+        tr.run(iter([batch]), log_every=0)
+    assert isinstance(failed.value.__cause__, RuntimeError)
+    assert calls["n"] == 1 and tr.step == 0
+    assert int(tr.opt_state["step"]) == 1   # the update had begun in place
+
+
+def test_a_donated_step_that_fails_before_its_update_is_retried():
+    """A failure before the donated update (here in the loss) has written
+    nothing, so ``retry_step`` runs the step again, and the trainer ends
+    where a donated trainer that never failed does, to the bit."""
+    cfg = _cfg()
+    tree = sm_cnn.init_sm_cnn_numpy(cfg, seed=0)
+    batch = next(QA.pair_batches(_corpus(), HashingTokenizer(cfg.vocab_size),
+                                 cfg.max_len, 64, seed=0))
+    calls = {"n": 0}
+
+    def loss_failing_once(params, b):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("lost the forward")
+        return sm_cnn.loss_fn(params, b, cfg=cfg)
+
+    failing = Trainer(loss_failing_once, adamw(3e-3), sm_cnn.params_from_numpy(tree, "cpu"),
+                      donate=True, max_retries=1)
+    failing.run(iter([batch]), log_every=0)
+    clean = _port_trainer(tree, donate=True)
+    clean.run(iter([batch]), log_every=0)
+    assert calls["n"] == 2 and failing.step == clean.step == 1
+    for a, b in zip(tree_leaves(failing.params) + tree_leaves(failing.opt_state),
+                    tree_leaves(clean.params) + tree_leaves(clean.opt_state)):
+        assert torch.equal(a, b)
+
+
+def test_donated_trainer_equals_the_functional_one():
+    """Five ``Trainer`` steps on sm-cnn with ``donate`` True and False: the
+    same losses, params and state, bit for bit."""
+    cfg = _cfg()
+    tree = sm_cnn.init_sm_cnn_numpy(cfg, seed=0)
+    trainers = [_port_trainer(tree, donate=d) for d in (False, True)]
+    for tr in trainers:
+        tr.run(_stream(QA, _corpus(), HashingTokenizer(cfg.vocab_size), cfg.max_len),
+               max_steps=5, log_every=0)
+    fn, kept = trainers
+    assert [h["loss"] for h in fn.history] == [h["loss"] for h in kept.history]
+    for a, b in zip(tree_leaves(fn.params) + tree_leaves(fn.opt_state),
+                    tree_leaves(kept.params) + tree_leaves(kept.opt_state)):
         assert torch.equal(a, b)
 
 
