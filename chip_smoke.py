@@ -80,7 +80,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             every reply the ranking of the version its arm names, and
             RolloutController.hot_swap through MSG_SWAP on a live server
             (a NaN version rolled back, the trained one landed); python -m
-            repro_torch.launch.serve --describe --device cuda, then a
+            repro_torch.launch.serve --describe --device cuda --backend
+            pallas (aot's compiles are the backends phase's), then a
             --serve-pipeline --server threadpool --backend pallas server
             ranked through Client.rank_batch and drained with --drain; the
             launcher's world published to a registry and served by one
@@ -172,6 +173,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             prefill 1 x 32768; 40 attention launches a prefill, none in
             decode (its 2.5e9 parameters are under KV_QUANT_PARAMS, so the
             bfloat16 cache)
+  attn-g7   the attention kernel at group sizes that are not powers of two
+            (the forward pads G to the next one and never stores the idle
+            rows), both routes at d=128 against the plain version: G = 3,
+            5, 6, 7 over deepseek-coder-33b's 8 KV heads for B=2 and S from
+            1 to 257 around the 16-position blocks and 64-key tiles, then at
+            coder's H=56, Hkv=8 at 8 x 2048 (both types) and on the first
+            and last 256 query rows of lm-coder's long prefill (bfloat16);
+            each launch writes into a buffer filled with NaN one position's
+            rows wider on each side: every output element written, none
+            around it; a float32 NaN-free Q beside an inf in the next
+            group's first head (loaded into this group's idle rows) stays
+            finite; a call that needs the gradient at G=7 raises with no
+            launch (the backward kernels take a G dividing 128); times at
+            8 x 2048 in both types beside the plain version, SDPA (GQA) and
+            the bound
+  lm-coder-check  deepseek-coder-33b at full width cut to 2 layers,
+            bfloat16: lm-granite-check's (a) and (b) through the kernel at
+            G=7, untied lm_head; (c) decode at position S on the int8 cache
+            (the prefill's cache quantized) against the bfloat16 decode at
+            INT8_ATOL
+  lm-coder  deepseek-coder-33b at full width in bfloat16 (66.68 GB of
+            weights, 62 layers, G=7), the lm phase's schedule and checks:
+            prefill 8 x 2048 with its bound (62 attention launches each),
+            32 greedy decode steps, the long prefill cut to 1 x CODER_LONG
+            (at 32768 its cache and working memory would not fit beside the
+            weights and the decode cache), then the int8 decode at
+            decode_32k's 32,768 positions at CODER_INT8_ROWS rows, whose
+            peak must leave 4 GB of the card unreserved
   attn-bwd  the attention's backward kernel (csrc/flash_attention_bwd.cu)
             against the plain backward at qwen3-0.6b's H=16, Hkv=8, d=128,
             float32 and bfloat16 (randn inputs and incoming gradient), for
@@ -305,9 +334,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             and loss_fn gradients, each aggregator, card == CPU
 
 The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot, attn-d64,
-lm-granite-check, lm-granite, bag-kernel, rec-check and rec phases run
-under torch.inference_mode() (attn-d64's float32 gradient refusal outside
-it);
+lm-granite-check, lm-granite, attn-g7, lm-coder-check, lm-coder,
+bag-kernel, rec-check and rec phases run under torch.inference_mode()
+(attn-d64's float32 and attn-g7's gradient refusals outside it);
 attn-bwd, lm-train, lm-granite-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
@@ -463,6 +492,24 @@ D64_GROUP_S = (1, 63, 64, 65, 130, 257)
 #: must be identical
 GRANITE_CHECK_LAYERS = 2
 GRANITE_TOL = dict(rtol=2 ** -4, atol=2 ** -4)
+#: deepseek-coder-33b: 56 query heads over 8 KV heads (G=7), the one config
+#: whose group size is not a power of two. attn-g7 holds the kernel at each
+#: G of G7_GROUPS over coder's 8 KV heads for B=2 and S in G7_S (one token,
+#: one position either side of a 16-position block's edge (G=5..7: 16
+#: positions a block of 128 rows) and of a 64-key tile's, ragged lengths).
+#: lm-coder-check cuts it to GRANITE_CHECK_LAYERS layers and holds it to
+#: GRANITE_TOL (its logits and cache have granite's scales: an untied head
+#: at std 1/sqrt(d_model) gives logits of std ~1, k and v std ~1).
+#: lm-coder's long prefill is cut to 1 x CODER_LONG: at 1 x 32768 its bf16
+#: cache (8.32 GB) and the prefill's working memory (~6 GB: the MLP's three
+#: 32768 x 19200 bf16 temporaries and more) beside 66.68 GB of weights and
+#: the 8 x 2080 decode cache (4.23 GB), which the int8 decode reads after
+#: it, would pass the card's 85.5 GB. Its int8 decode runs at
+#: CODER_INT8_ROWS rows: 4.29 GB of int8 cache a row beside the weights
+CODER_ARCH = "deepseek-coder-33b"
+G7_GROUPS = (3, 5, 6, 7)
+G7_S = (1, 15, 16, 17, 63, 64, 65, 130, 257)
+CODER_LONG, CODER_INT8_ROWS = 16384, 2
 #: attn-bwd: the backward kernel against the plain backward at qwen3-0.6b's
 #: H=16, Hkv=8, d=128: (B, S) from one token to 1 x 1024, and S around the
 #: 64-key tiles at B=1. Tolerances: max abs error within atol + rtol |want|
@@ -1988,8 +2035,11 @@ def _launch_cli() -> dict:
     env = dict(os.environ, PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-u", "-m", "repro_torch.launch.serve"]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd + ["--describe", "--device", "cuda"], env=env, cwd=str(ROOT),
-                         capture_output=True, text=True, timeout=LAUNCH_WAIT_S)
+    # the pallas backend: the default, aot, compiles 10 inductor programs
+    # here (89.6–121.0 s), which the backends phase already builds and checks
+    out = subprocess.run(cmd + ["--describe", "--device", "cuda", "--backend", "pallas"],
+                         env=env, cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=LAUNCH_WAIT_S)
     describe_s = time.perf_counter() - t0
     check(out.returncode == 0, f"launch: --describe failed: {out.stderr[-2000:]}")
     lines = out.stdout.strip().splitlines()
@@ -1999,7 +2049,7 @@ def _launch_cli() -> dict:
     for line in lines:
         log(f"launch: describe | {line}")
     log(f"launch: python -m repro_torch.launch.serve --describe --device cuda "
-        f"(backend aot) in {describe_s:.3f} s")
+        f"--backend pallas in {describe_s:.3f} s")
 
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd + ["--serve-pipeline", "--server", "threadpool",
@@ -2366,8 +2416,9 @@ def phase_lm_check(torch, cfg, seed: int) -> None:
 def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
              int8_rows: int = 0) -> dict:
     """An LM's serving path at full width in bfloat16 (qwen3-0.6b as "lm",
-    deepseek-moe-16b as "lm-moe", moonshot-v1-16b-a3b as "lm-moonshot"):
-    prefill of 8 x 2048 tokens, the cache copied into a 2048+32 cache, 32
+    deepseek-moe-16b as "lm-moe", moonshot-v1-16b-a3b as "lm-moonshot",
+    granite-3-2b as "lm-granite", deepseek-coder-33b as "lm-coder"):
+    prefill of 8 x 2048 tokens (each call's cache freed before the next), the cache copied into a 2048+32 cache, 32
     greedy decode steps, then a prefill of 1 x ``long_len``. The attention
     kernel's launch count is set to 0 just before and read just after, and
     must be one a layer per prefill; decode launches it never. The 8 x 2048
@@ -2414,6 +2465,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
     n_full = 0
     prefill_s = []
     for _ in range(3):
+        logits = pcache = None                        # the last call's cache, freed first
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         logits, pcache = tfm.prefill(params, toks, cfg)
@@ -2444,6 +2496,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
     decode_launches = FA.launches - cfg.n_layers * n_full
     long_s = []
     for _ in range(2):
+        long_logits = long_cache = None               # the last call's cache, freed first
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         long_logits, long_cache = tfm.prefill(params, long_toks, cfg)
@@ -2909,7 +2962,95 @@ def phase_attn_d64(torch, cfg) -> dict:
     return {"max_err": max_err, "timings": timings, "route": info}
 
 
-def _granite_agrees(torch, got, want, what: str, top1: bool = False) -> float:
+def _fenced_launch(torch, q, k, v):
+    """The forward kernel written into the middle of a buffer of NaN that
+    holds one position's rows more on each side; fails unless every
+    element of the output was written (randn inputs give no NaN) and
+    nothing around it. Returns the output."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, s, h, d = q.shape
+    buf = torch.full((b * s + 2, h, d), float("nan"), dtype=q.dtype, device=q.device)
+    got = FA._launch(q, k, v, out=buf[1:-1].view(b, s, h, d))
+    torch.cuda.synchronize()
+    unwritten = int(got.isnan().sum())
+    fenced = bool(buf[0].isnan().all()) and bool(buf[-1].isnan().all())
+    check(unwritten == 0 and fenced,
+          f"attention B={b} S={s} H={h} Hkv={k.shape[2]}: {unwritten} output elements "
+          f"unwritten, the rows around it untouched: {fenced}")
+    return got
+
+
+def phase_attn_g7(torch, cfg, long_len: int) -> dict:
+    """The attention kernel at group sizes that are not powers of two,
+    against its plain version on the card in both routes at d=128: at each
+    G of G7_GROUPS over ``cfg``'s (deepseek-coder-33b's) Hkv for B=2 and S
+    in G7_S, at its own H=56, Hkv=8 at 8 x 2048 in both types and at 1 x
+    ``long_len`` in bfloat16 on the first and last ATTN_SLICE_ROWS query
+    rows; every launch fenced (``_fenced_launch``). The float32 route's
+    flag for non-finite Q must not read the next group's heads in its idle
+    rows; a call that needs the gradient raises with no launch. Times at 8
+    x 2048 in both types beside the plain version, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    check(h % hkv == 0 and (h // hkv) & (h // hkv - 1) != 0,
+          f"{cfg.name}'s group size {h // hkv} is a power of two")
+    gen = torch.Generator(device="cuda").manual_seed(7777)
+
+    def inputs(b, s, heads, dtype, grad=False):
+        return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda")
+                     .to(getattr(torch, dtype)).requires_grad_(grad)
+                     for n in (heads, hkv, hkv))
+
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    checks = [(2, s, g * hkv, dtype) for g in G7_GROUPS for s in G7_S
+              for dtype in ("float32", "bfloat16")]
+    checks += [(LM_BATCH, LM_SEQ, h, dtype) for dtype in ("float32", "bfloat16")]
+    checks += [(1, long_len, h, "bfloat16")]
+    for b, s, heads, dtype in checks:
+        q, k, v = inputs(b, s, heads, dtype)
+        err = _kernel_vs_plain(torch, q, k, v, _fenced_launch(torch, q, k, v), dtype,
+                               f"G={heads // hkv} fenced ")
+        max_err[dtype] = max(max_err[dtype], err)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # an inf in group 1's first head, which group 0's idle rows load
+    q, k, v = inputs(1, 130, h, "float32")
+    q[0, 20, h // hkv, 3] = float("inf")
+    got, want = FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v)
+    own = h // hkv
+    ok = (torch.equal(got.isnan(), want.isnan()) and bool(want.isnan().any())
+          and bool(torch.isfinite(got[:, :, :own]).all()))
+    finite = ~want.isnan()
+    err = (got[finite] - want[finite]).abs().max().item()
+    ok = ok and err <= ATTN_TOLERANCE["float32"]
+    log(f"attn-g7: float32 inf in head {own} (group 1's first, group 0's idle row): group 0 "
+        f"finite, NaN where plain's are, max_abs_err elsewhere {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the float32 kernel's idle rows changed another group's result")
+
+    before = (FA.launches, FA.bwd_launches)
+    with torch.inference_mode(False), torch.enable_grad():
+        grad = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, "bfloat16", grad=True)))
+    torch.cuda.synchronize()
+    launched = (FA.launches - before[0], FA.bwd_launches - before[1])
+    ok = grad is not None and launched == (0, 0)
+    log(f"attn-g7: bfloat16 with the gradient at G={own} refused ({grad}); launches "
+        f"(forward, backward) {launched} {'ok' if ok else 'FAIL'}")
+    check(ok, "a call that needs the gradient at G=7 was not refused before a launch")
+
+    timings = {}
+    for dtype in ("bfloat16", "float32"):
+        timings[dtype] = t = _time_attention(torch, *inputs(LM_BATCH, LM_SEQ, h, dtype), dtype)
+        max_err[dtype] = max(max_err[dtype], t["max_err"])
+        torch.cuda.empty_cache()
+    return {"max_err": max_err, "timings": timings}
+
+
+def _granite_agrees(torch, got, want, what: str, top1: bool = False,
+                    phase: str = "lm-granite-check") -> float:
     """Holds bfloat16 ``got`` against ``want`` at GRANITE_TOL (and, for
     logits, the same top-1 token in every row: ``got``'s is a token on
     which ``want`` peaks, so where bfloat16 rounds two of ``want``'s
@@ -2927,21 +3068,26 @@ def _granite_agrees(torch, got, want, what: str, top1: bool = False) -> float:
         ok = ok and same
         text = (f", top-1 identical {same} (leads "
                 f"{', '.join(f'{x:.4f}' for x in (lead[:, 0] - lead[:, 1]).tolist())})")
-    log(f"lm-granite-check: {what}: max_abs_err={err:.3e} (rtol {GRANITE_TOL['rtol']} atol "
+    log(f"{phase}: {what}: max_abs_err={err:.3e} (rtol {GRANITE_TOL['rtol']} atol "
         f"{GRANITE_TOL['atol']}){text} {'ok' if ok else 'FAIL'}")
-    check(ok, f"granite: {what} disagree: max_abs_err {err}")
+    check(ok, f"{phase}: {what} disagree: max_abs_err {err}")
     return err
 
 
-def phase_lm_granite_check(torch, cfg, seed: int) -> None:
-    """granite-3-2b's serving path at full width cut to GRANITE_CHECK_LAYERS
-    layers, in bfloat16 on the card (weights from ``seed``): (a) prefill
-    through the d=64 kernel ("flash", one launch a layer) against plain
-    torch ("chunked") at (CHECK_B, CHECK_S): last logits and the cache;
-    (b) decode at position S after that prefill against forward over S+1
-    tokens, and the prefill's last logits against forward's; at GRANITE_TOL
-    with top-1 tokens equal. The padded vocabulary columns (49,155 to
-    49,280) read -1e30 and the tied head leaves no lm_head."""
+def phase_lm_bf16_check(torch, cfg, seed: int, phase: str) -> None:
+    """A bfloat16 LM's serving path at full width cut to
+    GRANITE_CHECK_LAYERS layers on the card (weights from ``seed``):
+    granite-3-2b as lm-granite-check (the d=64 kernel, tied embeddings),
+    deepseek-coder-33b as lm-coder-check (the kernel at G=7, an untied
+    lm_head). (a) prefill through the kernel ("flash", one launch a layer)
+    against plain torch ("chunked") at (CHECK_B, CHECK_S): last logits and
+    the cache; (b) decode at position S after that prefill against forward
+    over S+1 tokens, and the prefill's last logits against forward's; at
+    GRANITE_TOL with top-1 tokens equal. Padded vocabulary columns (granite:
+    49,155 to 49,280) read -1e30, and a tied head leaves no lm_head. (c)
+    For a model past KV_QUANT_PARAMS parameters, which serves on the int8
+    cache: decode at position S on the prefill's cache quantized to int8
+    against (b)'s bfloat16 decode at INT8_ATOL."""
     import dataclasses
 
     from repro_torch.data import lm as lm_data
@@ -2949,10 +3095,11 @@ def phase_lm_granite_check(torch, cfg, seed: int) -> None:
     from repro_torch.models import transformer as tfm
 
     cfg2 = dataclasses.replace(cfg, n_layers=GRANITE_CHECK_LAYERS)
-    check(cfg2.dtype == "bfloat16" and cfg2.tie_embeddings and cfg2.d_head == 64,
-          f"{cfg.name} is not bfloat16 with tied embeddings at d_head 64")
+    check(cfg2.dtype == "bfloat16", f"{cfg.name} is not bfloat16")
     params = tfm.init_lm(cfg2, torch.Generator("cuda").manual_seed(seed), "cuda")
-    check("lm_head" not in params, "a tied config built an lm_head")
+    check(("lm_head" in params) != cfg2.tie_embeddings,
+          f"{cfg.name}: tie_embeddings {cfg2.tie_embeddings} but lm_head "
+          f"{'built' if 'lm_head' in params else 'missing'}")
     toks = torch.from_numpy(next(lm_data.token_batches(
         cfg.vocab_size, CHECK_B, CHECK_S + 1, seed=seed))["tokens"]).cuda()
     prompt = toks[:, :CHECK_S]
@@ -2969,11 +3116,12 @@ def phase_lm_granite_check(torch, cfg, seed: int) -> None:
     pad = flash_l[:, cfg.vocab_size:].float()
     check(tuple(flash_l.shape) == (CHECK_B, cfg.vocab_padded) and bool((pad <= -1e29).all()),
           f"padded vocabulary columns {cfg.vocab_size}..{cfg.vocab_padded} not masked")
+    kernel = f"d={cfg.d_head} G={cfg.n_heads // cfg.n_kv_heads}"
     _granite_agrees(torch, flash_l, chunk_l, f"bfloat16 prefill B={CHECK_B} S={CHECK_S} "
-                    f"flash (the d=64 kernel, {launched} launches) vs chunked: last logits",
-                    top1=True)
+                    f"flash (the {kernel} kernel, {launched} launches) vs chunked: last "
+                    f"logits", top1=True, phase=phase)
     for key in ("k", "v"):
-        _granite_agrees(torch, flash_c[key], chunk_c[key], f"prefill cache {key}")
+        _granite_agrees(torch, flash_c[key], chunk_c[key], f"prefill cache {key}", phase=phase)
     del chunk_l, chunk_c
 
     full, _ = tfm.forward(params, toks, cfg2)
@@ -2983,9 +3131,24 @@ def phase_lm_granite_check(torch, cfg, seed: int) -> None:
     pos = torch.full((CHECK_B,), CHECK_S, dtype=torch.int32, device="cuda")
     lg, _ = tfm.decode_step(params, cache, toks[:, CHECK_S], pos, cfg2)
     _granite_agrees(torch, lg, full[:, -1], f"bfloat16 decode at position {CHECK_S} vs "
-                    f"forward over {CHECK_S + 1} tokens", top1=True)
+                    f"forward over {CHECK_S + 1} tokens", top1=True, phase=phase)
     _granite_agrees(torch, flash_l, full[:, -2], "prefill's last logits vs forward's",
-                    top1=True)
+                    top1=True, phase=phase)
+    if cfg.n_params() > KV_QUANT_PARAMS:
+        cfgq = dataclasses.replace(cfg2, kv_quant=True)
+        qcache = tfm.init_cache(cfgq, CHECK_B, CHECK_S + 8)
+        for key in ("k", "v"):
+            qcache[key][:, :, :CHECK_S], qcache[f"{key}_scale"][:, :, :CHECK_S] = (
+                tfm._kv_quantize(flash_c[key]))
+        lq, _ = tfm.decode_step(params, qcache, toks[:, CHECK_S], pos, cfgq)
+        err = (lq.float() - lg.float()).abs().max().item()
+        same = int((lq.argmax(-1) == lg.argmax(-1)).sum())
+        ok = math.isfinite(err) and err <= INT8_ATOL
+        log(f"{phase}: int8 decode at position {CHECK_S} (the prefill's cache quantized) vs "
+            f"the bfloat16 decode: max_abs_err={err:.3e} (atol {INT8_ATOL}); top-1 equal in "
+            f"{same} of {CHECK_B} rows (not gated) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{phase}: int8 decode disagrees with the bfloat16 decode: {err}")
+        del qcache, lq
     del params, flash_l, flash_c, full, cache, lg
     torch.cuda.empty_cache()
 
@@ -4767,11 +4930,22 @@ def main(argv=None) -> int:
         attn64 = phase_attn_d64(torch, granite_cfg)
         phases["attn-d64"] = time.perf_counter() - t
         t = time.perf_counter()
-        phase_lm_granite_check(torch, granite_cfg, args.seed)
+        phase_lm_bf16_check(torch, granite_cfg, args.seed, "lm-granite-check")
         phases["lm-granite-check"] = time.perf_counter() - t
         t = time.perf_counter()
         lm_granite = phase_lm(torch, granite_cfg, args.seed, "lm-granite", LM_LONG, 0)
         phases["lm-granite"] = time.perf_counter() - t
+        coder_cfg = get_config(CODER_ARCH)
+        t = time.perf_counter()
+        attn_g7 = phase_attn_g7(torch, coder_cfg, CODER_LONG)
+        phases["attn-g7"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_lm_bf16_check(torch, coder_cfg, args.seed, "lm-coder-check")
+        phases["lm-coder-check"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lm_coder = phase_lm(torch, coder_cfg, args.seed, "lm-coder", CODER_LONG,
+                            CODER_INT8_ROWS)
+        phases["lm-coder"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
     attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg)
@@ -4821,6 +4995,7 @@ def main(argv=None) -> int:
     tfa32 = attn["timings"][(LM_BATCH, LM_SEQ, "float32")]
     tg1 = moe_check["timing"]
     t64 = attn64["timings"][(LM_BATCH, LM_SEQ)]
+    tg7, tg7_32 = attn_g7["timings"]["bfloat16"], attn_g7["timings"]["float32"]
     tbg = bag["timings"]["serve_bulk"]
     tbb = bag_bwd["timing"]
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
@@ -4875,6 +5050,16 @@ def main(argv=None) -> int:
         "plain_ms_with_lse_d64_b4": tb64["fwd_lse_plain"],
         "library_ms_with_lse_d64_b4": tb64["fwd_lse_library"],
         "lse_max_abs_err_d64": attn_bwd["lse_err"]["bfloat16_d64"],
+        "max_abs_err_g7": attn_g7["max_err"]["bfloat16"],
+        "max_abs_err_g7_float32": attn_g7["max_err"]["float32"],
+        "ms_g7": tg7["kernel"], "device_ms_g7": tg7["device_ms"],
+        "plain_ms_g7": tg7["plain"], "bound_ms_g7": tg7["bound_ms"],
+        "library_ms_g7": tg7["library"], "ms_g7_float32": tg7_32["kernel"],
+        "device_ms_g7_float32": tg7_32["device_ms"], "plain_ms_g7_float32": tg7_32["plain"],
+        "bound_ms_g7_float32": tg7_32["bound_ms"], "library_ms_g7_float32": tg7_32["library"],
+        "shape_g7": f"B={LM_BATCH} S={LM_SEQ} H={coder_cfg.n_heads} "
+                    f"Hkv={coder_cfg.n_kv_heads} d={coder_cfg.d_head}",
+        "launches_coder": lm_coder["launches"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,

@@ -13,8 +13,12 @@ nothing on the card). The MoE configs (deepseek-moe-16b,
 moonshot-v1-16b-a3b) build and serve through ``models.transformer``
 (``models/moe.py``), with the bfloat16 KV cache or, under ``kv_quant``, the
 int8 one; their training is not ported (ROADMAP.md §1 item 10f: at full
-width about 270 GB of training state). deepseek-coder-33b is data only until the attention kernel
-takes its G=7 (item 10d).
+width about 270 GB of training state). deepseek-coder-33b (56 query heads
+over 8 KV heads: G=7) serves through ``models.transformer`` in bfloat16,
+on the attention forward kernel at that group size, with the bfloat16 KV
+cache or, under ``kv_quant``, the int8 one; its training is not ported
+(the backward kernels take a G that divides 128, and its 3.3e10
+parameters' training state does not fit one card).
 """
 from __future__ import annotations
 

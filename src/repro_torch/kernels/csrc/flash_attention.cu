@@ -28,23 +28,36 @@
 // the diagonal tiles are overhead above that bound.
 //
 // Both routes share the block shape. One block per (q tile, KV head, batch
-// row); a block's 128 rows are BQ = 128 / G query positions x the G query
-// heads of its KV head (row r = position r / G, head r % G), so a K/V tile
-// read from device memory serves all G heads. G must divide 128, so every
-// row of a block holds a query head; being a divisor of 128 it is a power of
-// two. Blocks take q tiles from the last one down, so the longest causal
-// rows start first. The kv loop stops at the tile that holds the block's
-// last query position. Masked scores are -1e30, never -inf, and the output
-// is acc / max(l, 1e-30), written once in the input's type. Rows past S are
-// staged as zeros and never stored, so any S >= 1 works (no S % block
-// condition). Where the caller passes an lse buffer (training: the backward
-// in flash_attention_bwd.cu recomputes each tile's probabilities from it),
-// each row's natural log-sum-exp of its scaled scores, m + log(max(l,
-// 1e-30)) with m in scaled units, is written to lse (B, H, S) float32, once,
-// by the lane that holds the row's full sum; with lse null (serving) nothing
-// more is written. Both run on the caller's stream and allocate nothing.
-// The bfloat16 route is compiled for d = 64 (granite-3-2b's head width) and
-// d = 128 (qwen3-0.6b's and the MoE configs'), a template on d; the float32
+// row); a block's 128 rows are BQ = 128 / Gp query positions x Gp heads,
+// Gp the power of two at or above G (row r = position r / Gp, head r % Gp),
+// so a K/V tile read from device memory serves all G heads of its KV head.
+// G may be any group size up to 128, as the Pallas kernel's is: where G is
+// a power of two (1, 2, 4, 8: qwen3-0.6b, granite-3-2b, the MoE configs)
+// Gp = G and every row holds a query head of the group. Otherwise (G = 7,
+// deepseek-coder-33b's 56 over 8: Gp = 8, BQ = 16) a position's rows
+// G .. Gp - 1 are idle: the Q box is Gp heads tall from the group's first
+// head, so they hold the next group's first heads, or TMA's zeros past H
+// for the last group. They are computed with this KV head's keys and never
+// stored (every out and lse write asks head < G), and the float32 route
+// leaves them out of its flag for non-finite Q; a row's max and sum never
+// leave its own lanes, so an idle row touches no other. Those guards are a
+// template parameter (PAD): a power-of-two G runs an instance without
+// them, the code it ran before any G was padded. Their products
+// (1/8 of them at G = 7) are overhead above the bound, like the masked
+// pairs of the diagonal tiles. Blocks take q tiles from the last one down,
+// so the longest causal rows start first. The kv loop stops at the tile
+// that holds the block's last query position. Masked scores are -1e30,
+// never -inf, and the output is acc / max(l, 1e-30), written once in the
+// input's type. Rows past S are staged as zeros and never stored, so any
+// S >= 1 works (no S % block condition). Where the caller passes an lse
+// buffer (training: the backward in flash_attention_bwd.cu recomputes each
+// tile's probabilities from it), each row's natural log-sum-exp of its
+// scaled scores, m + log(max(l, 1e-30)) with m in scaled units, is written
+// to lse (B, H, S) float32, once, by the lane that holds the row's full
+// sum; with lse null (serving) nothing more is written. Both run on the
+// caller's stream and allocate nothing. The bfloat16 route is compiled for
+// d = 64 (granite-3-2b's head width) and d = 128 (qwen3-0.6b's,
+// deepseek-coder-33b's and the MoE configs'), a template on d; the float32
 // route for d = 128 only. The wrapper refuses other widths.
 //
 // bfloat16 route, the serving path: stage 2 of the tensor-core design,
@@ -70,9 +83,9 @@
 //     product (the accumulator and A fragments share m16n8's layout);
 //   * the TMA boxes are 64 dims (128 bytes) wide, d / 64 of them a tile,
 //     loaded with the 128-byte swizzle that the descriptors name, so wgmma
-//     reads without bank conflicts; a Q box is 64 dims x G heads x 128 / G
-//     positions, the block's rows in order. Keys and rows past S arrive as
-//     zeros (TMA's out-of-bounds fill); the causal mask hides such keys
+//     reads without bank conflicts; a Q box is 64 dims x Gp heads x 128 /
+//     Gp positions, the block's rows in order. Keys and rows past S arrive
+//     as zeros (TMA's out-of-bounds fill); the causal mask hides such keys
 //     from every stored row;
 //   * a consumer runs a tile as S, its softmax, then P V, waiting for each
 //     product; the two consumers and the producer's loads overlap each
@@ -147,7 +160,7 @@
 
 namespace {
 
-constexpr int ROWS = 128;       // query rows per block: BQ positions x G heads
+constexpr int ROWS = 128;       // query rows per block: BQ positions x Gp heads
 constexpr int BK = 64;          // keys a tile of the bfloat16 route (float32: TF_BK)
 constexpr float MASK = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -161,6 +174,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// the shift of Gp, the power of two at or above g
 int log2_of(int g) {
   int shift = 0;
   while ((1 << shift) < g) ++shift;
@@ -233,6 +247,7 @@ __device__ __forceinline__ void split_k(const unsigned char* raw, unsigned char*
 // from shared memory; Q hi K lo, Q hi K hi with Q from registers), the
 // softmax in registers, and O += P V in three wgmma m64n128k8 passes (P lo
 // V hi_c, P hi V lo, P hi V hi, P from registers).
+template <bool PAD>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -252,7 +267,8 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the warpgroup by a shuffle from lane 0, so the compiler sees the role
   // branches as warp-uniform
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG_THREADS, 0);
-  const int G = 1 << g_shift;
+  // PAD: G = H / Hkv below Gp = 1 << g_shift, rows G .. Gp - 1 of a position idle
+  const int G = PAD ? H / (int)gridDim.y : 1 << g_shift;
   const int BQ = ROWS >> g_shift;
   const int qt = gridDim.x - 1 - blockIdx.x;        // the longest rows first
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -284,8 +300,9 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     };
     if (pt == 0) {
-      // Q: a box of 32 values x G heads x BQ positions is the 128 rows in
-      // order r = position * G + head, 128 bytes a row
+      // Q: a box of 32 values x Gp heads x BQ positions from the group's
+      // first head is the 128 rows in order r = position * Gp + head, 128
+      // bytes a row
       mbar_expect_tx(bar_q, ROWS * 512);
       for (int a = 0; a < 4; ++a)
         tma_load_4d(base + TF_Q + a * ROWS * 128, &tm_q, bar_q, 32 * a, kvh * G, q0, b);
@@ -331,13 +348,16 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
       unsigned char* at = smem + TF_Q + sw_off(ROWS, r0 + 8 * (e & 1), 8 * kk + t4 + 4 * (e >> 1));
       const Split sp = split(*reinterpret_cast<const float*>(at));
       qh[kk][e] = sp.big;
-      q_bad |= sp.big != sp.big_c;
+      // an idle row (PAD) holds another group's head: not this group's flag
+      q_bad |= (!PAD || ((r0 + 8 * (e & 1)) & ((1 << g_shift) - 1)) < G) &&
+               sp.big != sp.big_c;
       *reinterpret_cast<uint32_t*>(at) = sp.small;
     }
   }
   fence_proxy_async();                              // Q lo is for wgmma
-  // any inf or NaN in the group's Q, taken from lane 0 so the compiler sees
-  // the branch on it as warp-uniform (a divergent one serializes the wgmmas)
+  // any inf or NaN in the warpgroup's Q rows (idle rows aside), taken from
+  // lane 0 so the compiler sees the branch on it as warp-uniform (a
+  // divergent one serializes the wgmmas)
   q_bad = __shfl_sync(0xffffffffu, (int)named_sync_or(2 + c, WG_THREADS, q_bad), 0);
 
   float acc[64], sc[16];
@@ -459,20 +479,23 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const int gmask = PAD ? (1 << g_shift) - 1 : G - 1;   // a row's head is row & gmask
+  const int head0 = r0 & gmask, head1 = (r0 + 8) & gmask;
+  const bool live0 = !PAD || head0 < G, live1 = !PAD || head1 < G;   // else idle: never stored
   if (lse != nullptr && t4 == 0) {                  // m is in scaled units here
     const size_t lrow = ((size_t)b * H + (size_t)kvh * G) * S;
-    if (pos0 < S) lse[lrow + (size_t)(r0 & (G - 1)) * S + pos0] = m[0] + logf(l0);
-    if (pos1 < S) lse[lrow + (size_t)((r0 + 8) & (G - 1)) * S + pos1] = m[1] + logf(l1);
+    if (live0 && pos0 < S) lse[lrow + (size_t)head0 * S + pos0] = m[0] + logf(l0);
+    if (live1 && pos1 < S) lse[lrow + (size_t)head1 * S + pos1] = m[1] + logf(l1);
   }
   const size_t q_row = (size_t)H * TF_D;
   float* ob = o + (size_t)b * S * q_row + (size_t)kvh * G * TF_D + 2 * t4;
 #pragma unroll
   for (int n = 0; n < TF_D / 8; ++n) {
-    if (pos0 < S)
-      *reinterpret_cast<float2*>(ob + (size_t)pos0 * q_row + (r0 & (G - 1)) * TF_D + 8 * n) =
+    if (live0 && pos0 < S)
+      *reinterpret_cast<float2*>(ob + (size_t)pos0 * q_row + head0 * TF_D + 8 * n) =
           make_float2(acc[4 * n] / l0, acc[4 * n + 1] / l0);
-    if (pos1 < S)
-      *reinterpret_cast<float2*>(ob + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * TF_D + 8 * n) =
+    if (live1 && pos1 < S)
+      *reinterpret_cast<float2*>(ob + (size_t)pos1 * q_row + head1 * TF_D + 8 * n) =
           make_float2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
   }
 }
@@ -486,16 +509,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const int G = H / Hkv, g_shift = log2_of(G);
   const int BQ = ROWS >> g_shift;
   CUtensorMap tq, tk, tv;
-  if (!encode_map_f32(encode, &tq, q, B, S, H, G, BQ) ||
+  if (!encode_map_f32(encode, &tq, q, B, S, H, 1 << g_shift, BQ) ||
       !encode_map_f32(encode, &tk, k, B, S, Hkv, 1, TF_BK) ||
       !encode_map_f32(encode, &tv, v, B, S, Hkv, 1, TF_BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  // a power-of-two G runs the kernel without the idle-row guards
+  const auto kernel = G == 1 << g_shift ? flash_attention_f32_kernel<false>
+                                         : flash_attention_f32_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TF_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  flash_attention_f32_kernel<<<grid, TF_THREADS, TF_SMEM, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), lse, S, H, g_shift, scale);
+  kernel<<<grid, TF_THREADS, TF_SMEM, stream>>>(tq, tk, tv, static_cast<float*>(o), lse, S,
+                                                H, g_shift, scale);
   return cudaGetLastError();
 }
 
@@ -637,7 +663,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (
 // by descriptor (N-major). The accumulator layout of a warpgroup is
 // m16n8's for each of its warps: warp w holds rows 16 w + g and 16 w + g +
 // 8, columns 8 i + 2 t, 8 i + 2 t + 1 in d[4 i .. 4 i + 3].
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   const __grid_constant__ CUtensorMap tm_k,
@@ -655,7 +681,8 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_e = bar_v + 8 * WS_STAGES;     // empty: both consumers done with s
 
   const int tid = threadIdx.x, wg = tid / WG_THREADS;
-  const int G = 1 << g_shift;
+  // PAD: G = H / Hkv below Gp = 1 << g_shift, rows G .. Gp - 1 of a position idle
+  const int G = PAD ? H / (int)gridDim.y : 1 << g_shift;
   const int BQ = ROWS >> g_shift;
   const int qt = gridDim.x - 1 - blockIdx.x;        // the longest rows first
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -677,8 +704,9 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      // Q: a box of 64 dims x G heads x BQ positions is the 128 rows in
-      // order r = position * G + head, 128 bytes a row
+      // Q: a box of 64 dims x Gp heads x BQ positions from the group's
+      // first head is the 128 rows in order r = position * Gp + head, 128
+      // bytes a row
       mbar_expect_tx(bar_q, L::BOXES * BOX_Q);
 #pragma unroll
       for (int x = 0; x < L::BOXES; ++x)
@@ -752,10 +780,14 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // (each 64-dim box, in the same swizzled layout), then 16-byte stores
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int gmask = PAD ? (1 << g_shift) - 1 : G - 1;   // a row's head is row & gmask
   if (lse != nullptr && t4 == 0) {   // m is in raw score units here: the natural lse
     const size_t lrow = ((size_t)b * H + (size_t)kvh * G) * S;   // is scale * m + log(l)
-    if (pos0 < S) lse[lrow + (size_t)(row0 & (G - 1)) * S + pos0] = fmaf(scale, m[0], logf(l0));
-    if (pos1 < S) lse[lrow + (size_t)((row0 + 8) & (G - 1)) * S + pos1] = fmaf(scale, m[1], logf(l1));
+    const int head0 = row0 & gmask, head1 = (row0 + 8) & gmask;
+    if ((!PAD || head0 < G) && pos0 < S)
+      lse[lrow + (size_t)head0 * S + pos0] = fmaf(scale, m[0], logf(l0));
+    if ((!PAD || head1 < G) && pos1 < S)
+      lse[lrow + (size_t)head1 * S + pos1] = fmaf(scale, m[1], logf(l1));
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -774,9 +806,9 @@ flash_attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < 16 * CHUNKS / 32; ++i) {
     const int cidx = i * 32 + lane;
     const int r = 64 * c + 16 * warp + cidx / CHUNKS, ch = cidx % CHUNKS;
-    const int pos = q0 + (r >> g_shift);
-    if (pos < S)
-      *reinterpret_cast<uint4*>(ob + (size_t)pos * q_row + (r & (G - 1)) * D + ch * 8) =
+    const int pos = q0 + (r >> g_shift), head = r & gmask;
+    if ((!PAD || head < G) && pos < S)               // idle rows are never stored
+      *reinterpret_cast<uint4*>(ob + (size_t)pos * q_row + head * D + ch * 8) =
           *reinterpret_cast<const uint4*>(smem + (ch >> 3) * BOX_Q + r * 128 +
                                           (((ch & 7) ^ (r & 7)) << 4));
   }
@@ -792,16 +824,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   const int G = H / Hkv, g_shift = log2_of(G);
   const int BQ = ROWS >> g_shift;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(encode, &tq, q, B, S, H, D, G, BQ) ||
+  if (!encode_map(encode, &tq, q, B, S, H, D, 1 << g_shift, BQ) ||
       !encode_map(encode, &tk, k, B, S, Hkv, D, 1, BK) ||
       !encode_map(encode, &tv, v, B, S, Hkv, D, 1, BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // a power-of-two G runs the kernel without the idle-row guards
+  const auto kernel = G == 1 << g_shift ? flash_attention_bf16_wgmma_kernel<D, false>
+                                         : flash_attention_bf16_wgmma_kernel<D, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          WsSmem<D>::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  flash_attention_bf16_wgmma_kernel<D><<<grid, WS_THREADS, WsSmem<D>::BYTES, stream>>>(
+  kernel<<<grid, WS_THREADS, WsSmem<D>::BYTES, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, g_shift, scale, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -809,13 +843,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 }  // namespace
 
 // dtype 0: float32 (3xTF32 wgmma) at d = 128; 1: bfloat16 (wgmma) at d = 64
-// or 128; both on the tensor cores. lse is null, or (B, H, S) float32 for
-// each row's log-sum-exp. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue, without launching, for a shape it does not take).
+// or 128; both on the tensor cores; any G = H / Hkv up to 128. lse is null,
+// or (B, H, S) float32 for each row's log-sum-exp. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, without
+// launching, for a shape it does not take).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, float* lse, int B, int S, int H, int Hkv, int d,
                                    float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 || B > 65535 ||
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > ROWS || B > 65535 ||
       Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -831,23 +866,24 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
 // card, for the logs: info[0] the design stage (2: wgmma + TMA, 4: 3xTF32
 // wgmma + TMA), [1] registers and [2] local (spill) bytes a thread, [3]
 // static and [4] dynamic shared memory bytes a block, [5] blocks resident
-// on an SM, [6] threads a block. Returns a cudaError_t
+// on an SM, [6] threads a block: of the instance a power-of-two G runs (a
+// padded G's adds only the idle-row guards). Returns a cudaError_t
 // (cudaErrorInvalidValue for a dtype and width with no kernel).
 extern "C" int flash_attention_route_info(int dtype, int d, int* info) {
   const void* fn;
   int threads, smem, stage;
   if (dtype == 0 && d == TF_D) {
-    fn = (const void*)flash_attention_f32_kernel;
+    fn = (const void*)flash_attention_f32_kernel<false>;
     threads = TF_THREADS;
     smem = TF_SMEM;
     stage = 4;
   } else if (dtype == 1 && d == 128) {
-    fn = (const void*)flash_attention_bf16_wgmma_kernel<128>;
+    fn = (const void*)flash_attention_bf16_wgmma_kernel<128, false>;
     threads = WS_THREADS;
     smem = WsSmem<128>::BYTES;
     stage = 2;
   } else if (dtype == 1 && d == 64) {
-    fn = (const void*)flash_attention_bf16_wgmma_kernel<64>;
+    fn = (const void*)flash_attention_bf16_wgmma_kernel<64, false>;
     threads = WS_THREADS;
     smem = WsSmem<64>::BYTES;
     stage = 2;

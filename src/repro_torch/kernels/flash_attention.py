@@ -36,9 +36,14 @@ at another width raises ``ValueError`` before any launch, and so does a
 call that would need the gradient at a width the backward does not take
 (float32 at d=64), before the forward runs.
 
-Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). Any
-``S >= 1`` works: the kernel masks the ragged tail itself, where the Pallas
-kernel asserted ``S % block == 0``. It reads and writes the
+Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). The
+forward takes any ``G`` up to ``KERNEL_ROWS`` (128), as the Pallas kernel
+does: deepseek-coder-33b's 56 heads over 8 give G=7, which the kernel pads
+to 8 rows a position and never stores the eighth. The backward takes a
+``G`` that divides 128, and a call that needs the gradient at another
+``G`` raises ``ValueError`` before the forward launches. Any ``S >= 1``
+works: the kernel masks the ragged tail itself, where the Pallas kernel
+asserted ``S % block == 0``. It reads and writes the
 ``(B, S, H, d)`` layouts in place, so the wrapper makes no transposed copy.
 
 The gradient. Where grad is enabled and an input requires it,
@@ -96,7 +101,9 @@ KERNEL_HEAD_DIMS = {
     ("backward", torch.float32): (128,),
 }
 #: a block's query rows, positions x the query heads of one KV head: the
-#: kernel takes a group size G = H / Hkv that divides it
+#: forward takes any group size G = H / Hkv up to it (a G that is not a
+#: power of two leaves rows of a block idle), the backward a G that divides
+#: it
 KERNEL_ROWS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the design of a kernel, by the code both C libraries report (the
@@ -343,19 +350,30 @@ def _check_head_width(dtype: torch.dtype, d: int, grad: bool) -> None:
                              f"in the {direction} of {dtype}, not {d}")
 
 
+def _check_group(g: int, grad: bool) -> None:
+    """Raises ``ValueError`` unless the forward kernel takes ``g`` query
+    heads a KV head (any up to ``KERNEL_ROWS``), and with ``grad`` the
+    backward kernels too (a ``g`` that divides ``KERNEL_ROWS``)."""
+    if g > KERNEL_ROWS:
+        raise ValueError(f"the CUDA kernel takes up to {KERNEL_ROWS} query heads per "
+                         f"KV head, not {g}")
+    if grad and KERNEL_ROWS % g:
+        raise ValueError(f"the CUDA backward kernel takes a number of query heads per KV "
+                         f"head that divides {KERNEL_ROWS}, not {g}")
+
+
 def _check_kernel(*tensors: torch.Tensor, grad: bool = False) -> None:
     """What the CUDA kernels take beyond ``_check``: q, k, v (and, for the
     backward, out and dout) on the card, a head width ``KERNEL_HEAD_DIMS``
-    lists for the dtype (for the backward too where ``grad``), G dividing
-    128, B and Hkv within the grid, each tensor on a 16-byte boundary."""
+    lists for the dtype and a G the forward takes (for the backward too
+    where ``grad``), B and Hkv within the grid, each tensor on a 16-byte
+    boundary."""
     q, k = tensors[0], tensors[1]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, s, h, d = q.shape
     _check_head_width(q.dtype, d, grad)
-    if KERNEL_ROWS % (h // k.shape[2]):
-        raise ValueError(f"the CUDA kernel takes a number of query heads per KV "
-                         f"head that divides {KERNEL_ROWS}, not {h // k.shape[2]}")
+    _check_group(h // k.shape[2], grad)
     if b > 65535 or k.shape[2] > 65535:
         raise ValueError(f"the CUDA kernel's grid takes B and Hkv up to 65535, "
                          f"not B={b} Hkv={k.shape[2]}")
@@ -373,13 +391,19 @@ def _on_device(t: torch.Tensor):
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            with_lse: bool = False):
+            with_lse: bool = False, out=None):
     """The forward kernel: ``out``, and with ``with_lse`` also ``lse``
-    (B, H, S) float32."""
+    (B, H, S) float32. ``out``, where given, is a contiguous tensor like
+    ``q`` that the kernel writes into (a check can fence it)."""
     global launches
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be contiguous {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}, on a 16-byte boundary")
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with _on_device(q):
@@ -468,8 +492,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     grad is enabled and an input requires it, through ``FlashAttention``,
     whose backward is the CUDA backward kernel (the plain backward on CPU
     tensors). A CUDA call at a head width ``KERNEL_HEAD_DIMS`` does not list
-    for its dtype, or for the backward where grad is needed, raises
-    ``ValueError`` before anything launches. Under a ``roofline.counts``
+    for its dtype, or for the backward where grad is needed, or at a G past
+    ``KERNEL_ROWS`` (where grad is needed, one that does not divide it),
+    raises ``ValueError`` before anything launches. Under a ``roofline.counts``
     counter either route counts as ``analysis.attention_work`` (with the lse
     where it goes through ``FlashAttention``), its backward as
     ``analysis.attention_bwd_work``."""

@@ -2,10 +2,13 @@
 
 On the CPU the wrapper runs the plain PyTorch version. It is held against
 the Pallas kernel in interpret mode at ``tests/test_kernels.py``'s four
-shapes, and against the jnp oracle ``ref.flash_attention_ref`` and the
-kv-chunked ``layers.flash_attention_jnp`` at those shapes and at ragged
-sequence lengths (37, 130), where the Pallas kernel asserts divisibility.
-Inputs are standard normal, so the softmax stays spread, not one-hot.
+shapes, at group sizes 3 and 7 (deepseek-coder-33b's), and against the
+jnp oracle ``ref.flash_attention_ref`` and the kv-chunked
+``layers.flash_attention_jnp`` at those shapes and at ragged sequence
+lengths (37, 130), where the Pallas kernel asserts divisibility. Inputs are
+standard normal, so the softmax stays spread, not one-hot. The wrapper's
+group check (the forward any G up to 128, the backward a G dividing it)
+runs on the CPU too.
 
 The ``cuda``-marked tests hold the CUDA kernel itself against the plain
 version, by max absolute error and by the error's norm, at d=128 for
@@ -15,10 +18,16 @@ in 3xTF32, both wgmma on the tensor cores), and the float32 kernel on
 inputs holding +-inf and NaN; the bfloat16 kernel also at d=64 over the
 same lengths and groups and at granite-3-2b's 8 x 2048 prefill (H=32,
 Hkv=8), and the widths the kernels are not compiled for refused with no
-launch (float32 at d=64, with or without the gradient); they skip
-where no card is present (``chip_smoke.py`` does the same at qwen3-0.6b's
-and granite-3-2b's widths). The JAX side is imported by a fixture, so that the
-card-only tests also run on a machine with the port's dependencies alone:
+launch (float32 at d=64, with or without the gradient); both routes at G
+= 3, 5, 6, 7 over the same lengths and at deepseek-coder-33b's 8 x 2048
+prefill (H=56, Hkv=8), written into a NaN-fenced buffer (every element of
+the output written, none around it), the float32 route's inf/NaN flag at
+G=7 blind to the next group's heads in its idle rows, and a gradient at
+G=3 refused before either kernel launches; they skip where no card is
+present (``chip_smoke.py`` does the same at qwen3-0.6b's, granite-3-2b's
+and deepseek-coder-33b's widths). The JAX side is imported by a fixture, so
+that the card-only tests also run on a machine with the port's
+dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash.py
 """
@@ -42,6 +51,8 @@ SHAPES = [
     (1, 128, 8, 8, 64, 128, 128),   # MHA, single tile
     (2, 37, 4, 2, 16, None, None),  # ragged
     (1, 130, 16, 8, 32, None, None),
+    (1, 128, 14, 2, 32, 32, 32),    # G=7, deepseek-coder-33b's group size
+    (1, 64, 6, 2, 16, 16, 32),      # G=3
 ]
 DTYPES = [("float32", 2e-5), ("bfloat16", 3e-2)]
 # the card also holds the error's norm over the output's norm: float32 to
@@ -58,6 +69,13 @@ CUDA_SHAPES = [(1 if s in (1, 257) else 2, s, 16, 16 // g, 128)
                for g in CUDA_GROUPS for s in CUDA_LENGTHS]
 # the same at d=64, granite-3-2b's head width (the bfloat16 kernel only)
 CUDA_SHAPES_D64 = [(b, s, h, hkv, 64) for b, s, h, hkv, _ in CUDA_SHAPES]
+# group sizes that are not powers of two, over 2 KV heads: the forward pads
+# G to the next power of two (3 -> 4, 5, 6, 7 -> 8), so the first group's
+# idle rows hold the second group's first heads and the second group's lie
+# past H; lengths around the 16- and 32-position blocks and the 64-key tiles
+CUDA_ODD_GROUPS = [3, 5, 6, 7]
+CUDA_ODD_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 130, 257]
+CUDA_SHAPES_ODD_G = [(2, s, 2 * g, 2, 128) for g in CUDA_ODD_GROUPS for s in CUDA_ODD_LENGTHS]
 
 
 def _qkv(b, s, h, hkv, d, seed=0):
@@ -137,6 +155,22 @@ def test_plain_flash_takes_a_slice_of_query_rows(s, start):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("g", [1, 2, 3, 5, 6, 7, 8, 64, 96, 127, 128, 129])
+def test_group_check_forward_takes_any_g_backward_a_divisor(g):
+    """The forward kernel pads a G that is not a power of two to the next
+    one and takes any G up to 128; the backward takes a G dividing 128."""
+    if g > FA.KERNEL_ROWS:
+        with pytest.raises(ValueError, match="up to 128"):
+            FA._check_group(g, grad=False)
+    else:
+        FA._check_group(g, grad=False)
+    if g > FA.KERNEL_ROWS or FA.KERNEL_ROWS % g:
+        with pytest.raises(ValueError):
+            FA._check_group(g, grad=True)
+    else:
+        FA._check_group(g, grad=True)
+
+
 def _good():
     q, k, v = _qkv(1, 4, 4, 2, 8)
     return torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
@@ -168,14 +202,25 @@ def test_wrapper_refuses_bad_inputs(case):
         FA.flash_attention(q, k, v)
 
 
-def _assert_kernel_matches_plain(b, s, h, hkv, d, dtype, tol, device):
+def _assert_kernel_matches_plain(b, s, h, hkv, d, dtype, tol, device, fenced=False):
+    """The kernel against the plain version; with ``fenced``, launched into
+    the middle of a buffer filled with NaN that holds one position's rows
+    more on each side: every element of the output is written, and nothing
+    around it."""
     tdt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(device, tdt) for a in _qkv(b, s, h, hkv, d))
     before = FA.launches
-    got = FA.flash_attention(q, k, v)
+    if fenced:
+        buf = torch.full((b * s + 2, h, d), float("nan"), dtype=tdt, device=device)
+        got = FA._launch(q, k, v, out=buf[1:-1].view(b, s, h, d))
+    else:
+        got = FA.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert FA.launches == before + 1
     assert got.dtype == tdt and tuple(got.shape) == (b, s, h, d)
+    if fenced:
+        assert buf[0].isnan().all() and buf[-1].isnan().all()
+        assert not got.isnan().any()
     want = FA.flash_attention_plain(q, k, v).float()
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     rel = (torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want)).item()
@@ -201,6 +246,22 @@ def test_cuda_kernel_matches_plain_at_the_prefill_shape(cuda_device, dtype, tol)
 @pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES_D64)
 def test_cuda_bfloat16_kernel_matches_plain_at_d64(cuda_device, b, s, h, hkv, d):
     _assert_kernel_matches_plain(b, s, h, hkv, d, "bfloat16", 3e-2, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d", CUDA_SHAPES_ODD_G)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_matches_plain_at_odd_groups(cuda_device, b, s, h, hkv, d, dtype, tol):
+    """A group size that is not a power of two, in both routes: the idle
+    rows are never stored, into the output or around it."""
+    _assert_kernel_matches_plain(b, s, h, hkv, d, dtype, tol, cuda_device, fenced=True)
+
+
+@pytest.mark.cuda
+def test_cuda_bfloat16_kernel_matches_plain_at_coder_prefill(cuda_device):
+    """deepseek-coder-33b's prefill of 8 x 2048 (H=56, Hkv=8, d=128: G=7)."""
+    _assert_kernel_matches_plain(8, 2048, 56, 8, 128, "bfloat16", 3e-2, cuda_device,
+                                 fenced=True)
 
 
 @pytest.mark.cuda
@@ -258,6 +319,25 @@ def test_cuda_float32_kernel_follows_plain_on_inf_and_nan(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_float32_kernel_follows_plain_on_inf_and_nan_at_g7(cuda_device):
+    """G=7 over 2 KV heads: group 0's idle rows hold group 1's first head,
+    which carries an inf here. Group 0 must not take it for its own (its
+    rows stay finite and at the float32 gate), and a NaN in group 0's q
+    still marks its own rows as the plain version does."""
+    b, s, h, hkv, d = 1, 130, 14, 2, 128
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(b, s, h, hkv, d, seed=7))
+    q[0, 20, 7, 3] = float("inf")      # group 1's first head
+    q[0, 90, 2, 0] = float("nan")      # group 0
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert want[:, :, 7].isnan().any() and not want[:, :, :2].isnan().any()
+    assert torch.equal(got.isnan(), want.isnan())
+    finite = ~want.isnan()
+    torch.testing.assert_close(got[finite], want[finite], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_an_uncompiled_head_width(cuda_device):
     """float32 at d=64: only the bfloat16 kernel is compiled there."""
     q, k, v = (torch.from_numpy(a).to(cuda_device, torch.float32)
@@ -299,10 +379,25 @@ def test_cuda_kernel_refuses_the_gradient_at_d64(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_a_group_that_does_not_divide_its_rows(cuda_device):
+def test_cuda_backward_refuses_a_group_that_does_not_divide_its_rows(cuda_device):
+    """G=3: the forward launches; a call that needs the gradient raises
+    before either kernel launches (the backward takes a G dividing 128)."""
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 12, 4, 128))
-    before = FA.launches
+    before, bwd_before = FA.launches, FA.bwd_launches
+    FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.bwd_launches) == (before + 1, bwd_before)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
     with pytest.raises(ValueError, match="divides 128"):
+        FA.flash_attention(q, k, v)
+    assert (FA.launches, FA.bwd_launches) == (before + 1, bwd_before)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_a_group_past_its_rows(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 129, 1, 128))
+    before = FA.launches
+    with pytest.raises(ValueError, match="up to 128"):
         FA.flash_attention(q, k, v)
     assert FA.launches == before
 
