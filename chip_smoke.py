@@ -184,10 +184,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             rows wider on each side: every output element written, none
             around it; a float32 NaN-free Q beside an inf in the next
             group's first head (loaded into this group's idle rows) stays
-            finite; a call that needs the gradient at G=7 raises with no
-            launch (the backward kernels take a G dividing 128); times at
-            8 x 2048 in both types beside the plain version, SDPA (GQA) and
-            the bound
+            finite; a call past 128 query heads a KV head raises with no
+            launch, with or without the gradient; times at 8 x 2048 in both
+            types beside the plain version, SDPA (GQA) and the bound
   lm-coder-check  deepseek-coder-33b at full width cut to 2 layers,
             bfloat16: lm-granite-check's (a) and (b) through the kernel at
             G=7, untied lm_head; (c) decode at position S on the int8 cache
@@ -221,13 +220,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             Hkv=8): its kernels' registers, spills and shared memory, the
             kernel and the forward's lse against plain at the same (B, S)
             set, and at 4 and 8 x 2048 timed as at d=128 (plain, SDPA, the
-            bound, device ms by kernel); under the port's counter a
-            forward and backward on the card read the formulas
+            bound, device ms by kernel); then group sizes that are not
+            powers of two (G padded to the next one, Q and dO read through
+            a 5-D view whose idle rows are zeros): both routes at G = 3, 5,
+            6, 7 over deepseek-coder-33b's 8 KV heads for B=2 and S from 1
+            to 257 around the 16-position dq blocks and 64-row tiles, with
+            the forward's lse, every forward and backward launch writing
+            into NaN-filled buffers one position wider on each side (dq,
+            dk, dv all written, nothing around them); inf and NaN in q and
+            dout of the next group's first head leaving KV head 0's dk and
+            dv and group 0's dq equal to plain's, in both types; coder's
+            H=56, Hkv=8 at 4 x 2048 timed in bfloat16 (two calls bit-equal,
+            plain, SDPA with enable_gqa, the bound, device ms by kernel) and
+            in float32; under the port's counter a forward and backward on
+            the card read the formulas
   lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
             layers, the loss and every gradient leaf through the kernels
             ("flash") against plain autograd ("chunked"), every leaf
             nonzero; then the full-width bfloat16 model from
-            launch.train.build(full=True) trained 20 steps of 4 x 2048
+            launch.train.build(full=True) trained 12 steps of 4 x 2048
             through Trainer + adamw; both attention counters set to 0 just
             before and read just after: 56 forward and 28 backward launches
             a step (each layer rematerialised: cfg.remat); the loss falls;
@@ -242,7 +253,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             the same weights, within GRANITE_TRAIN_REL, every leaf nonzero,
             4 forward and 2 backward launches, remat on and off equal; (b)
             the full model (40 layers, bfloat16) from
-            launch.train.build(full=True) trained 20 steps of 4 x 2048
+            launch.train.build(full=True) trained 12 steps of 4 x 2048
             through Trainer(donate=True) + adamw, both attention counters
             set to 0 just before and read just after: 80 forward and 40
             backward launches a step; the loss falls; step ms, tokens/s,
@@ -251,6 +262,21 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             forward, model_flops does not); (c) python -m
             repro_torch.launch.train --arch granite-3-2b --full --batch 1
             --seq-len 2048 --steps 2 --device cuda exiting 0
+  lm-coder-train  deepseek-coder-33b's training path, its attention on
+            the kernels both ways at G=7: lm-granite-train's (a) at full
+            width cut to 2 layers; (b) full width cut to CODER_TRAIN_LAYERS
+            = 4 layers (2.584e9 parameters: all 62 layers' 533 GB of
+            training state do not fit one card), built as the launcher
+            builds an LM, 12 steps of 4 x 2048 through Trainer(donate=True)
+            + adamw: 8 forward and 4 backward launches a step, the loss
+            falling, step ms, tokens/s, peak memory (4 GB of the card
+            left), busy share, the step's share of model_flops at 4 layers;
+            (c) python -m repro_torch.launch.train --arch qwen3-0.6b
+            --steps 3 and --arch deepseek-coder-33b --steps 3, started
+            together, reduced on the card: float32 at d_head 16, for which
+            no attention kernel is compiled, so the launcher trains them on
+            "chunked" and prints attn=chunked (no CUDA kernel for float32
+            d_head 16); each exits 0
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
             and bfloat16, with and without weights; ids outside the table
@@ -336,8 +362,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 The attn-kernel, lm-check, lm, lm-moe-check, lm-moe, lm-moonshot, attn-d64,
 lm-granite-check, lm-granite, attn-g7, lm-coder-check, lm-coder,
 bag-kernel, rec-check and rec phases run under torch.inference_mode()
-(attn-d64's float32 and attn-g7's gradient refusals outside it);
-attn-bwd, lm-train, lm-granite-train, bag-bwd, rec-train,
+(attn-d64's float32 and attn-g7's past-128 refusals with the gradient
+outside it); attn-bwd, lm-train, lm-granite-train, lm-coder-train,
+bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -433,6 +460,9 @@ ATTN_SLICE_ROWS = 256
 #: would need 120 GB of KV cache, more than one 80 GB card)
 LM_BATCH, LM_SEQ, LM_DECODE = 8, 2048, 32
 LM_LONG = 32768
+#: the prefills of each LM phase's counted run: LM_PREFILLS at 8 x 2048,
+#: LM_LONG_PREFILLS at its long length
+LM_PREFILLS, LM_LONG_PREFILLS = 2, 1
 #: lm-check in float32: prefill flash vs chunked at this (B, S), and decode
 #: at position S against forward over S+1 tokens
 CHECK_B, CHECK_S = 2, 130
@@ -539,7 +569,7 @@ BWD_TIMED_F32 = (4, 2048)
 #: rematerialises its layers (cfg.remat), so a step launches the attention
 #: forward twice a layer and its backward once
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 130
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 20, 1e-3
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 12, 1e-3
 TRAIN_CLI = ("--arch", "qwen3-0.6b", "--full", "--steps", "3", "--batch", "2",
              "--seq-len", "512", "--device", "cuda")
 #: the float32 gradient check: each leaf's error norm over its gradient's,
@@ -563,6 +593,21 @@ GRANITE_TRAIN_REL, GRANITE_LOSS_REL, GRANITE_REMAT_REL = 0.04, 1e-3, 1e-5
 GRANITE_SPARE = 4e9
 GRANITE_CLI = ("--arch", "granite-3-2b", "--full", "--batch", "1", "--seq-len", "2048",
                "--steps", "2")
+#: lm-coder-train: deepseek-coder-33b at full width, lm-granite-train's
+#: schedule. (a) Its check at GRANITE_CHECK_LAYERS layers and granite's
+#: tolerances (a CPU rehearsal of the comparison at a narrower width,
+#: d_model 1792 with coder's G=7, head width, untied head and vocabulary,
+#: gave the loss within 2.0e-4 and every leaf within 0.0125). (b) The model
+#: cut to CODER_TRAIN_LAYERS layers: all 62 hold 3.334e10 parameters, whose
+#: 16 B each of training state (bf16 param and grad, float32 master copy
+#: and moments) are 533 GB; 4 layers and both tables hold 2.584e9 (41.3 GB),
+#: which leaves room for 4 x 2048 under remat; 6 would hold 58 GB. (c) The
+#: launcher's reduced LMs on the card: float32 at d_head 16, for which no
+#: attention kernel is compiled, so the launcher trains them on "chunked"
+#: and prints an attn= line saying so
+CODER_TRAIN_LAYERS = 4
+CODER_CLIS = (("--arch", "qwen3-0.6b", "--steps", "3"),
+              ("--arch", "deepseek-coder-33b", "--steps", "3"))
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -799,22 +844,24 @@ def _bound_text(bd, ms: float, what: str, device_ms=None) -> str:
             + " ".join(f"{name}={share:.4f}" for name, share in shares.items()))
 
 
-def _step_roofline(torch, arch: str, shape, run, median_ms: float, what: str) -> dict:
+def _step_roofline(torch, arch: str, shape, run, median_ms: float, what: str,
+                   cfg=None) -> dict:
     """One more call of ``run``, untimed, under the port's counter
     (``repro_torch.roofline.counts``), then the module's roofline of the
-    step at ``shape``, the ShapeSpec of the (cut) cell the phase runs: the
-    model's FLOPs, the counted FLOPs and bytes, the useful ratio, the bound
-    (the model's FLOPs at the peak of the config's dtype against its bytes
-    at the HBM rate), what bounds it, and its share of the phase's measured
-    median. A share past SHARE_CAP fails the phase."""
+    step at ``shape``, the ShapeSpec of the (cut) cell the phase runs, and
+    ``cfg``, the (cut) config where it is not ``arch``'s own: the model's
+    FLOPs, the counted FLOPs and bytes, the useful ratio, the bound (the
+    model's FLOPs at the peak of the config's dtype against its bytes at the
+    HBM rate), what bounds it, and its share of the phase's measured median.
+    A share past SHARE_CAP fails the phase."""
     from repro_torch.configs import get_config
     from repro_torch.roofline import analysis, counts, hw
 
     counted = counts.count(run)
     torch.cuda.synchronize()
-    r = analysis.build_roofline(arch, shape, "1 card", 1, counted)
+    r = analysis.build_roofline(arch, shape, "1 card", 1, counted, cfg=cfg)
     share = r.share(median_ms / 1e3)
-    peak = hw.peak_flops(get_config(arch).dtype)
+    peak = hw.peak_flops((get_config(arch) if cfg is None else cfg).dtype)
     log(f"{what}: roofline of {shape.describe()}: model_flops {r.model_flops:.6e}, counted "
         f"{counted.flops:.6e} FLOPs (useful ratio {r.useful_ratio:.5f}) and "
         f"{counted.bytes_accessed:.6e} bytes (at the card's rates {r.compute_s * 1e3:.5f} ms "
@@ -2464,7 +2511,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
     FA.reset_launches()
     n_full = 0
     prefill_s = []
-    for _ in range(3):
+    for _ in range(LM_PREFILLS):
         logits = pcache = None                        # the last call's cache, freed first
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -2495,7 +2542,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
     peak_decode = torch.cuda.max_memory_allocated()
     decode_launches = FA.launches - cfg.n_layers * n_full
     long_s = []
-    for _ in range(2):
+    for _ in range(LM_LONG_PREFILLS):
         long_logits = long_cache = None               # the last call's cache, freed first
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -2962,22 +3009,45 @@ def phase_attn_d64(torch, cfg) -> dict:
     return {"max_err": max_err, "timings": timings, "route": info}
 
 
-def _fenced_launch(torch, q, k, v):
+def _fenced_launch(torch, q, k, v, with_lse: bool = False):
     """The forward kernel written into the middle of a buffer of NaN that
     holds one position's rows more on each side; fails unless every
     element of the output was written (randn inputs give no NaN) and
-    nothing around it. Returns the output."""
+    nothing around it. Returns the output (and, ``with_lse``, its lse)."""
     from repro_torch.kernels import flash_attention as FA
 
     b, s, h, d = q.shape
     buf = torch.full((b * s + 2, h, d), float("nan"), dtype=q.dtype, device=q.device)
-    got = FA._launch(q, k, v, out=buf[1:-1].view(b, s, h, d))
+    res = FA._launch(q, k, v, with_lse=with_lse, out=buf[1:-1].view(b, s, h, d))
+    got = res[0] if with_lse else res
     torch.cuda.synchronize()
     unwritten = int(got.isnan().sum())
     fenced = bool(buf[0].isnan().all()) and bool(buf[-1].isnan().all())
     check(unwritten == 0 and fenced,
           f"attention B={b} S={s} H={h} Hkv={k.shape[2]}: {unwritten} output elements "
           f"unwritten, the rows around it untouched: {fenced}")
+    return res
+
+
+def _fenced_bwd(torch, q, k, v, out, lse, dout):
+    """The backward kernels written into the middle of three buffers of NaN,
+    each holding one position's rows more on each side than dq, dk or dv;
+    fails unless every element of the three was written (randn inputs give
+    no NaN) and nothing around them. Returns ``(dq, dk, dv)``."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, s = q.shape[:2]
+    bufs = [torch.full((b * s + 2, *x.shape[2:]), float("nan"), dtype=x.dtype,
+                       device=x.device) for x in (q, k, v)]
+    got = FA._launch_bwd(q, k, v, out, lse, dout,
+                         grads=tuple(buf[1:-1].view(x.shape) for buf, x in zip(bufs, (q, k, v))))
+    torch.cuda.synchronize()
+    for name, buf, g in zip(("dq", "dk", "dv"), bufs, got):
+        unwritten = int(g.isnan().sum())
+        fenced = bool(buf[0].isnan().all()) and bool(buf[-1].isnan().all())
+        check(unwritten == 0 and fenced,
+              f"attention backward B={b} S={s} H={q.shape[2]} Hkv={k.shape[2]}: {unwritten} "
+              f"{name} elements unwritten, the rows around it untouched: {fenced}")
     return got
 
 
@@ -2989,8 +3059,9 @@ def phase_attn_g7(torch, cfg, long_len: int) -> dict:
     ``long_len`` in bfloat16 on the first and last ATTN_SLICE_ROWS query
     rows; every launch fenced (``_fenced_launch``). The float32 route's
     flag for non-finite Q must not read the next group's heads in its idle
-    rows; a call that needs the gradient raises with no launch. Times at 8
-    x 2048 in both types beside the plain version, SDPA and the bound."""
+    rows; a call past KERNEL_ROWS query heads a KV head raises with no
+    launch, with or without the gradient. Times at 8 x 2048 in both types
+    beside the plain version, SDPA and the bound."""
     from repro_torch.kernels import flash_attention as FA
 
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -2998,10 +3069,9 @@ def phase_attn_g7(torch, cfg, long_len: int) -> dict:
           f"{cfg.name}'s group size {h // hkv} is a power of two")
     gen = torch.Generator(device="cuda").manual_seed(7777)
 
-    def inputs(b, s, heads, dtype, grad=False):
+    def inputs(b, s, heads, dtype):
         return tuple(torch.randn((b, s, n, d), generator=gen, device="cuda")
-                     .to(getattr(torch, dtype)).requires_grad_(grad)
-                     for n in (heads, hkv, hkv))
+                     .to(getattr(torch, dtype)) for n in (heads, hkv, hkv))
 
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     checks = [(2, s, g * hkv, dtype) for g in G7_GROUPS for s in G7_S
@@ -3031,15 +3101,24 @@ def phase_attn_g7(torch, cfg, long_len: int) -> dict:
         f"{'ok' if ok else 'FAIL'}")
     check(ok, "the float32 kernel's idle rows changed another group's result")
 
+    # past KERNEL_ROWS query heads a KV head: refused before any launch, with
+    # or without the gradient (the gradient at G=7 runs in attn-bwd)
     before = (FA.launches, FA.bwd_launches)
+    past = FA.KERNEL_ROWS + 1
+
+    def past_rows(grad):
+        return tuple(torch.randn((1, 64, n, d), generator=gen, device="cuda")
+                     .to(torch.bfloat16).requires_grad_(grad) for n in (past, 1, 1))
+
+    plain = _refusal(lambda: FA.flash_attention(*past_rows(False)))
     with torch.inference_mode(False), torch.enable_grad():
-        grad = _refusal(lambda: FA.flash_attention(*inputs(1, 64, h, "bfloat16", grad=True)))
+        grad = _refusal(lambda: FA.flash_attention(*past_rows(True)))
     torch.cuda.synchronize()
     launched = (FA.launches - before[0], FA.bwd_launches - before[1])
-    ok = grad is not None and launched == (0, 0)
-    log(f"attn-g7: bfloat16 with the gradient at G={own} refused ({grad}); launches "
-        f"(forward, backward) {launched} {'ok' if ok else 'FAIL'}")
-    check(ok, "a call that needs the gradient at G=7 was not refused before a launch")
+    ok = plain is not None and grad is not None and launched == (0, 0)
+    log(f"attn-g7: bfloat16 at G={past} refused ({plain}), with the gradient too ({grad}); "
+        f"launches (forward, backward) {launched} {'ok' if ok else 'FAIL'}")
+    check(ok, f"a call at G={past} was not refused before a launch")
 
     timings = {}
     for dtype in ("bfloat16", "float32"):
@@ -3197,7 +3276,7 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
     from repro_torch.roofline import analysis
 
     dtype = "bfloat16"
-    tag = f"B={b} S={s}" + ("" if d == 128 else f" H={h} Hkv={hkv} d={d}")
+    tag = f"B={b} S={s}" + ("" if (h, hkv, d) == (16, 8, 128) else f" H={h} Hkv={hkv} d={d}")
     q, k, v, dout = _bwd_inputs(torch, gen, b, s, h, hkv, d, dtype)
     out, lse = FA._launch(q, k, v, with_lse=True)
     # the forward with its lse at the training path's shape, before the
@@ -3228,13 +3307,14 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
                                     fns["plain"]()))
     max_err[key] = max(max_err[key], err)
     lib = library()
-    # the yardstick computes the same gradient: at d=128 (G=2) element by
-    # element and by its norm; at d=64 (G=4) by its norm, since SDPA and the
-    # kernel each sum bf16-rounded P over G heads into dv, in other orders,
-    # and differ by a bf16 step (0.0625) at some elements below 2 (the
-    # kernel holds the float32-P plain version element by element above)
+    # the yardstick computes the same gradient: at d=128 and G=2 element by
+    # element and by its norm; at d=64 (G=4) and G=7 by its norm, since SDPA
+    # and the kernel each sum bf16-rounded P over G heads into dv, in other
+    # orders, and differ by a bf16 step (0.0625) at some elements below 2
+    # (the kernel holds the float32-P plain version element by element above)
     lib_err = max(_grad_agrees(torch, a.transpose(1, 2), g, dtype,
-                               f"{name} SDPA backward vs kernel {tag}", elementwise=d == 128)
+                               f"{name} SDPA backward vs kernel {tag}",
+                               elementwise=d == 128 and h // hkv <= 2)
                   for name, a, g in zip(("dq", "dk", "dv"), lib, got))
     again = fns["kernel"]()
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -3279,7 +3359,63 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
     return timing
 
 
-def phase_attn_bwd(torch, cfg, granite_cfg) -> dict:
+def _bwd_timed_f32(torch, b, s, h, hkv, d, gen, max_err, key) -> dict:
+    """The float32 backward (3xTF32) at (b, s, h, hkv, d) as attn-bwd times
+    it: the kernel against plain, two calls bit-equal, then the kernel, the
+    plain backward and SDPA's float32 backward in turns, device ms back to
+    back and by kernel, the bound. The error goes into ``max_err[key]``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.roofline import analysis
+
+    dtype = "float32"
+    tag = f"B={b} S={s}" + ("" if (h, hkv) == (16, 8) else f" H={h} Hkv={hkv}")
+    q, k, v, dout = _bwd_inputs(torch, gen, b, s, h, hkv, d, dtype)
+    out, lse = FA._launch(q, k, v, with_lse=True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+
+    def library_f32():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
+
+    fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
+           "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
+           "library": library_f32}
+    got = fns["kernel"]()
+    max_err[key] = max(max_err[key], max(
+        _grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain {tag}")
+        for name, g, w in zip(("dq", "dk", "dv"), got, fns["plain"]())))
+    again = fns["kernel"]()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"attn-bwd: two float32 backward calls at {tag} differ")
+    log(f"attn-bwd: {tag} {dtype}: two backward calls bit-equal (dq, dk, dv)")
+    del got, again
+    t = _time_alternating(torch, fns, iters=2, rounds=3)
+    dev_ms = _queued_ms(torch, fns["kernel"], 5)
+    lib_dev_ms = _queued_ms(torch, library_f32, 5)
+    split = _profiled_split_ms(
+        torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
+    bd = analysis.bound(*analysis.attention_bwd_work(b, s, h, hkv, d, dtype), dtype)
+    timing = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms,
+                  library_device_ms=lib_dev_ms, device_split=split)
+    log(f"attn-bwd: {tag} {dtype} kernel_ms={t['kernel']:.5f} "
+        f"kernel_device_ms={dev_ms:.5f} plain_ms={t['plain']:.5f} "
+        f"library_ms={t['library']:.5f} library_device_ms={lib_dev_ms:.5f} (SDPA causal "
+        f"GQA backward, float32) "
+        + _bound_text(bd, t["kernel"], f"attn-bwd: {tag} {dtype}", dev_ms)
+        + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
+    log(f"attn-bwd: {tag} {dtype} device ms by kernel (profiler): " + (
+        ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
+        if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
+                      f"kernel records)"))
+    del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
+    torch.cuda.empty_cache()
+    return timing
+
+
+
+def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg) -> dict:
     """The attention's backward kernel against the plain backward on the
     card at qwen3-0.6b's widths, and the forward's lse against the plain
     lse; then the backward's times, the plain backward's, SDPA's backward
@@ -3290,10 +3426,18 @@ def phase_attn_bwd(torch, cfg, granite_cfg) -> dict:
     Then granite-3-2b's width (``granite_cfg``: d=64, H=32, Hkv=8) in
     bfloat16: its routes, the kernel and the forward's lse against plain at
     BWD_SHAPES and BWD_DIAGONAL_S, and at BWD_TIMED timed as d=128 is.
-    Inputs are randn, the incoming gradient too. Last, the port's counter
-    on the card: a forward and backward through FlashAttention, whose
-    backward runs on autograd's own thread, reads the two work formulas."""
-    import torch.nn.functional as F
+    Then group sizes that are not powers of two (``coder_cfg``:
+    deepseek-coder-33b, G=7): both routes at each G of G7_GROUPS over its
+    Hkv for B=2 and S in G7_S against the plain backward, with the
+    forward's lse against plain's, every forward and backward launch
+    writing into NaN-filled buffers one position wider on each side
+    (``_fenced_launch``, ``_fenced_bwd``); inf and NaN in q and dout of
+    head G (group 1's first) leaving group 0's dq and KV head 0's dk and dv
+    equal to plain's; coder's H=56, Hkv=8 at TRAIN_B x TRAIN_S timed in
+    bfloat16 as d=128 is and in float32 at BWD_TIMED_F32. Inputs are randn,
+    the incoming gradient too. Last, the port's counter on the card: a
+    forward and backward through FlashAttention, whose backward runs on
+    autograd's own thread, reads the two work formulas."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.roofline import analysis, counts
 
@@ -3354,49 +3498,71 @@ def phase_attn_bwd(torch, cfg, granite_cfg) -> dict:
                                          "bfloat16_d64")
 
     # the float32 route (3xTF32), timed as above
-    b, s = BWD_TIMED_F32
-    dtype = "float32"
-    q, k, v, dout = inputs(b, s, dtype)
-    out, lse = FA._launch(q, k, v, with_lse=True)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    dout_t = dout.transpose(1, 2).contiguous()
+    timings[(*BWD_TIMED_F32, "float32")] = _bwd_timed_f32(torch, *BWD_TIMED_F32, h, hkv, d,
+                                                          gen, max_err, "float32")
 
-    def library_f32():
-        return torch.autograd.grad(lib_out, (qt, kt, vt), dout_t, retain_graph=True)
-
-    fns = {"kernel": lambda: FA._launch_bwd(q, k, v, out, lse, dout),
-           "plain": lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout),
-           "library": library_f32}
-    got = fns["kernel"]()
-    max_err[dtype] = max(max_err[dtype], max(
-        _grad_agrees(torch, g, w, dtype, f"{name} kernel vs plain B={b} S={s}")
-        for name, g, w in zip(("dq", "dk", "dv"), got, fns["plain"]())))
-    again = fns["kernel"]()
-    check(all(torch.equal(x, y) for x, y in zip(got, again)),
-          f"attn-bwd: two float32 backward calls at B={b} S={s} differ")
-    log(f"attn-bwd: B={b} S={s} {dtype}: two backward calls bit-equal (dq, dk, dv)")
-    del got, again
-    t = _time_alternating(torch, fns, iters=2, rounds=3)
-    dev_ms = _queued_ms(torch, fns["kernel"], 5)
-    lib_dev_ms = _queued_ms(torch, library_f32, 5)
-    split = _profiled_split_ms(
-        torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
-    bd = analysis.bound(*analysis.attention_bwd_work(b, s, h, hkv, d, dtype), dtype)
-    timings[(b, s, dtype)] = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms,
-                                  library_device_ms=lib_dev_ms, device_split=split)
-    log(f"attn-bwd: B={b} S={s} {dtype} kernel_ms={t['kernel']:.5f} "
-        f"kernel_device_ms={dev_ms:.5f} plain_ms={t['plain']:.5f} "
-        f"library_ms={t['library']:.5f} library_device_ms={lib_dev_ms:.5f} (SDPA causal "
-        f"GQA backward, float32) "
-        + _bound_text(bd, t["kernel"], f"attn-bwd: B={b} S={s} {dtype}", dev_ms)
-        + f" achieved_tflops={bd.ops / t['kernel'] / 1e9:.3f}")
-    log(f"attn-bwd: B={b} S={s} {dtype} device ms by kernel (profiler): " + (
-        ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
-        if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
-                      f"kernel records)"))
-    del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
+    # group sizes that are not powers of two (deepseek-coder-33b's G=7), G
+    # padded to the next power of two: both routes against the plain
+    # backward, every launch fenced; a NaN or inf in the next group's first
+    # head; coder's shape timed
+    ch, chkv = coder_cfg.n_heads, coder_cfg.n_kv_heads
+    check(coder_cfg.d_head == d and (ch // chkv) & (ch // chkv - 1) != 0 and ch % chkv == 0,
+          f"{coder_cfg.name}'s group size {ch // chkv} is a power of two")
+    for key in ("float32_g7", "bfloat16_g7"):
+        max_err[key] = lse_err[key] = 0.0
+    for g in G7_GROUPS:
+        for s_ in G7_S:
+            for dtype in ("float32", "bfloat16"):
+                key = f"{dtype}_g7"
+                q, k, v, dout = _bwd_inputs(torch, gen, 2, s_, g * chkv, chkv, d, dtype)
+                tag = f"B=2 S={s_} H={g * chkv} Hkv={chkv} G={g} fenced"
+                out, lse = _fenced_launch(torch, q, k, v, with_lse=True)
+                want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+                e = (lse - want_lse).abs().max().item()
+                check(e <= LSE_TOLERANCE[dtype], f"attn-bwd: forward lse {tag} {dtype}: "
+                                                 f"max_abs_err {e} > {LSE_TOLERANCE[dtype]}")
+                lse_err[key] = max(lse_err[key], e)
+                _attn_agrees(torch, out, want_out, dtype, f"forward with lse vs plain {tag}")
+                got = _fenced_bwd(torch, q, k, v, out, lse, dout)
+                want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+                for name, gg, w in zip(("dq", "dk", "dv"), got, want):
+                    max_err[key] = max(max_err[key], _grad_agrees(
+                        torch, gg, w, dtype, f"{name} kernel vs plain {tag}"))
+                del q, k, v, dout, out, lse, got, want
+    log(f"attn-bwd: G={'/'.join(map(str, G7_GROUPS))} over Hkv={chkv}, S in {G7_S}: forward "
+        f"lse max_abs_err float32 {lse_err['float32_g7']:.3e}, bfloat16 "
+        f"{lse_err['bfloat16_g7']:.3e}; every backward launch wrote all of dq, dk, dv and "
+        f"nothing around them ok")
     torch.cuda.empty_cache()
+    # isolation: inf and NaN in q and dout of head G, group 1's first, which
+    # a box of Gp heads from group 0's first would hold
+    own = ch // chkv
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, dout = _bwd_inputs(torch, gen, 2, 130, ch, chkv, d, dtype)
+        q[:, 5::9, own, :4] = float("inf")
+        q[:, 3::11, own, 9] = float("nan")
+        dout[:, 2::7, own, :] = float("nan")
+        dout[:, 4::13, own, 3] = float("-inf")
+        out, lse = FA._launch(q, k, v, with_lse=True)
+        got = FA._launch_bwd(q, k, v, out, lse, dout)   # NaN where group 1's are: no fence
+        want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        parts = (("dq of group 0", got[0][:, :, :own], want[0][:, :, :own]),
+                 ("dk of KV head 0", got[1][:, :, 0], want[1][:, :, 0]),
+                 ("dv of KV head 0", got[2][:, :, 0], want[2][:, :, 0]))
+        for what, gg, w in parts:
+            check(bool(torch.isfinite(w).all()), f"attn-bwd: plain {what} not finite")
+            _grad_agrees(torch, gg, w, dtype, f"{what}, inf/NaN in head {own} (group 1's "
+                                              f"first), H={ch} Hkv={chkv} S=130")
+        ok = not bool(torch.isfinite(got[1][:, :, 1]).all())
+        log(f"attn-bwd: {dtype} group 1's own dk holds its NaN: {'ok' if ok else 'FAIL'}")
+        check(ok, "attn-bwd: group 1's dk is finite beside a NaN in its own dout")
+        del q, k, v, dout, out, lse, got, want
+    torch.cuda.empty_cache()
+    b, s = TRAIN_B, TRAIN_S
+    timings[(b, s, "g7")] = _bwd_timed(torch, b, s, ch, chkv, d, gen, max_err, lse_err,
+                                       "bfloat16_g7")
+    timings[(*BWD_TIMED_F32, "float32_g7")] = _bwd_timed_f32(
+        torch, *BWD_TIMED_F32, ch, chkv, d, gen, max_err, "float32_g7")
 
     b, s = BWD_TIMED[0]
     q, k, v, dout = inputs(b, s, "bfloat16")
@@ -3550,23 +3716,65 @@ def phase_lm_train(torch, cfg, seed: int) -> dict:
             "loss": (first, last), "roofline": roof}
 
 
-# -------------------------------------------------------- lm-granite-train --
+# ------------------------------------------- lm-granite-train, lm-coder-train --
 
-def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
-    """granite-3-2b's training path on the card, its attention on the d=64
-    kernels both ways. (a) At full width cut to GRANITE_CHECK_LAYERS layers:
-    the bfloat16 loss and the gradient of every leaf through the kernels
-    against float32 plain autograd ("chunked") from the same weights, every
-    leaf nonzero, the kernels launched twice forward (remat) and once
-    backward a layer, and remat off against on. (b) The full model from
-    the launcher's ``build(..., full=True)`` trained TRAIN_STEPS steps of
-    TRAIN_B x TRAIN_S through ``Trainer(donate=True)`` + ``adamw`` (the
-    launcher's schedule); both attention counters are set to 0 just before
-    and read just after: 80 forward and 40 backward launches a step; the
-    loss falls; step ms, tokens/s, peak memory (GRANITE_SPARE of the card
-    left), busy share, the step's roofline share. (c) ``python -m
-    repro_torch.launch.train`` with GRANITE_CLI, exiting 0."""
+def _train_clis(phase: str, n_params: int, clis) -> None:
+    """``python -m repro_torch.launch.train`` with each command line of
+    ``clis``, all started together on the card, each exiting 0 with the JAX
+    launcher's ``arch=`` line first (with ``--full`` at the full model's
+    ``n_params``) and a ``final:`` line last; a reduced LM (float32, d_head
+    16: no attention kernel) also prints the launcher's ``attn=chunked``
+    line second."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = [(cli, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *cli],
+                                    env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)) for cli in clis]
+    outs = []
+    try:
+        for _, proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+    for (cli, proc), (stdout, stderr) in zip(procs, outs):
+        lines = stdout.strip().splitlines()
+        cli_arch = cli[cli.index("--arch") + 1]
+        first = f"arch={cli_arch} family=lm params=" + (f"{n_params:,}" if "--full" in cli
+                                                        else "")
+        ok = (proc.returncode == 0 and len(lines) >= 2 and lines[0].startswith(first)
+              and lines[-1].startswith("final:"))
+        if "--full" not in cli:
+            ok = ok and lines[1] == "attn=chunked (no CUDA kernel for float32 d_head 16)"
+        log(f"{phase}: python -m repro_torch.launch.train {' '.join(cli)}: exit "
+            f"{proc.returncode} ({time.perf_counter() - t0:.3f} s since the launches): "
+            f"{' | '.join(lines[:2] + lines[-1:])} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{phase}: the launcher failed: {stderr[-2000:]}")
+
+
+def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
+                        clis=()) -> dict:
+    """A bfloat16 LM's training path on the card, its attention on the
+    kernels both ways (granite-3-2b as "lm-granite-train" on the d=64
+    instances, deepseek-coder-33b as "lm-coder-train" at G=7). (a) At full
+    width cut to GRANITE_CHECK_LAYERS layers: the bfloat16 loss and the
+    gradient of every leaf through the kernels against float32 plain
+    autograd ("chunked") from the same weights, every leaf nonzero, the
+    kernels launched twice forward (remat) and once backward a layer, and
+    remat off against on. (b) The model at full width: at full depth from
+    the launcher's ``build(..., full=True)``, or, with ``n_layers``, cut to
+    that depth and built as ``build`` builds an LM (``init_lm`` from a
+    ``torch.Generator`` seeded 0 on the card, ``loss_fn``,
+    ``token_batches``); trained TRAIN_STEPS steps of TRAIN_B x TRAIN_S
+    through ``Trainer(donate=True)`` + ``adamw`` (the launcher's schedule);
+    both attention counters are set to 0 just before and read just after:
+    2 forward and 1 backward launches a layer a step; the loss falls; step
+    ms, tokens/s, peak memory (GRANITE_SPARE of the card left), busy share,
+    the step's roofline share at the (cut) config. (c) The launcher with
+    each command line of ``clis`` (``_train_clis``)."""
     import dataclasses
+    import functools
 
     from repro_torch.configs import LM_SHAPES
     from repro_torch.core.treepath import tree_leaves, tree_map
@@ -3597,7 +3805,7 @@ def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
                          tree_map(lambda t: t.float(), params))
     check(flash[2] == (2 * n_cut, n_cut) and flash_off[2] == (n_cut, n_cut)
           and ref[2] == (0, 0),
-          f"lm-granite-train: the check launched {flash[2]} (remat), {flash_off[2]} "
+          f"{phase}: the check launched {flash[2]} (remat), {flash_off[2]} "
           f"(no remat), {ref[2]} (chunked)")
     loss_rel = abs(flash[0] - ref[0]) / abs(ref[0])
     worst, zero, remat_worst, remat_equal = 0.0, 0, 0.0, 0
@@ -3611,7 +3819,7 @@ def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
     n_leaves = len(flash[1])
     ok = (loss_rel <= GRANITE_LOSS_REL and worst <= GRANITE_TRAIN_REL and zero == 0
           and remat_worst <= GRANITE_REMAT_REL)
-    log(f"lm-granite-train: {cfg.name} at full width cut to {n_cut} layers, "
+    log(f"{phase}: {cfg.name} at full width cut to {n_cut} layers, "
         f"B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: loss bfloat16 flash (kernels, remat) "
         f"{flash[0]:.6f} vs float32 chunked (plain autograd) {ref[0]:.6f} (rel "
         f"{loss_rel:.3e}, tol {GRANITE_LOSS_REL}); {n_leaves} gradient leaves, worst error "
@@ -3619,23 +3827,33 @@ def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
         f"launches fwd/bwd {flash[2]} with remat, {flash_off[2]} without; remat off vs on: "
         f"{remat_equal} of {n_leaves} leaves bit-equal, worst {remat_worst:.3e} (tol "
         f"{GRANITE_REMAT_REL}), loss {flash_off[0]:.6f} {'ok' if ok else 'FAIL'}")
-    check(ok, f"lm-granite-train: bfloat16 gradients through the kernels disagree: loss "
+    check(ok, f"{phase}: bfloat16 gradients through the kernels disagree: loss "
               f"rel {loss_rel}, worst leaf {worst}, {zero} zero leaves, remat {remat_worst}")
     del params, batch, flash, flash_off, ref
     torch.cuda.empty_cache()
 
-    # (b) full width and depth, bfloat16, through the launcher's build and a
-    # donating Trainer
+    # (b) full width, bfloat16, through a donating Trainer: at full depth
+    # from the launcher's build, or cut to n_layers and built as it builds
     t0 = time.perf_counter()
-    gcfg, params, loss_fn, data = launch_train.build(cfg.name, True, TRAIN_B, TRAIN_S, "cuda")
+    if n_layers is None:
+        tcfg, params, loss_fn, data = launch_train.build(cfg.name, True, TRAIN_B, TRAIN_S,
+                                                         "cuda")
+        source = "launch.train.build(full=True)"
+    else:
+        tcfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = tfm.init_lm(tcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        loss_fn = functools.partial(tfm.loss_fn, cfg=tcfg)
+        data = lm_data.token_batches(tcfg.vocab_size, TRAIN_B, TRAIN_S)
+        source = (f"its config cut to {n_layers} of {cfg.n_layers} layers, built as "
+                  f"launch.train.build builds an LM")
     n_params = sum(t.numel() for t in tree_leaves(params))
     tr = Trainer(loss_fn, adamw(warmup_cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)), params,
                  donate=True)
     del params
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    log(f"lm-granite-train: {gcfg.name} {gcfg.dtype} params={n_params:,} ({gcfg.n_layers} "
-        f"layers, remat={gcfg.remat}) from launch.train.build(full=True) on the card in "
+    log(f"{phase}: {tcfg.name} {tcfg.dtype} params={n_params:,} ({tcfg.n_layers} layers, "
+        f"remat={tcfg.remat}) from {source} on the card in "
         f"{time.perf_counter() - t0:.3f} s; params + adamw state {held / 1e9:.3f} GB "
         f"allocated; B={TRAIN_B} S={TRAIN_S} ({TRAIN_B * TRAIN_S} tokens a step), "
         f"Trainer(donate=True) + adamw(warmup_cosine_schedule({TRAIN_LR}, 10, {TRAIN_STEPS}))")
@@ -3653,53 +3871,44 @@ def phase_lm_granite_train(torch, cfg, seed: int) -> dict:
     total = torch.cuda.get_device_properties(0).total_memory
     losses = [hh["loss"] for hh in tr.history]
     step_ms = [hh["step_time_s"] * 1e3 for hh in tr.history]
-    check(all(math.isfinite(x) for x in losses), "lm-granite-train: a loss is not finite")
+    check(all(math.isfinite(x) for x in losses), f"{phase}: a loss is not finite")
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
     med = statistics.median(step_ms[1:])
-    log(f"lm-granite-train: {TRAIN_STEPS} steps in {train_s:.3f} s; step_ms "
+    log(f"{phase}: {TRAIN_STEPS} steps in {train_s:.3f} s; step_ms "
         f"first={step_ms[0]:.3f} median(2..{TRAIN_STEPS})={med:.3f} min={min(step_ms[1:]):.3f} "
         f"max={max(step_ms[1:]):.3f}; {TRAIN_B * TRAIN_S / med * 1e3:.1f} tokens/s; loss "
         f"{' '.join(f'{x:.4f}' for x in losses)}; peak allocated {peak / 1e9:.3f} GB, "
         f"reserved {reserved / 1e9:.3f} GB of the card's {total / 1e9:.3f} GB")
-    log(f"lm-granite-train: flash_attention launches={fwd}, flash_attention_bwd "
-        f"launches={bwd} over {TRAIN_STEPS} steps ({gcfg.n_layers} layers, remat)")
-    check(fwd > 0 and bwd > 0, "lm-granite-train: the training path launched an attention "
-                               "kernel no time")
-    check(fwd == 2 * bwd == 2 * gcfg.n_layers * TRAIN_STEPS,
-          f"lm-granite-train: expected {2 * gcfg.n_layers} forward and {gcfg.n_layers} "
+    log(f"{phase}: flash_attention launches={fwd}, flash_attention_bwd "
+        f"launches={bwd} over {TRAIN_STEPS} steps ({tcfg.n_layers} layers, remat)")
+    check(fwd > 0 and bwd > 0, f"{phase}: the training path launched an attention "
+                               f"kernel no time")
+    check(fwd == 2 * bwd == 2 * tcfg.n_layers * TRAIN_STEPS,
+          f"{phase}: expected {2 * tcfg.n_layers} forward and {tcfg.n_layers} "
           f"backward launches a step, got {fwd} and {bwd} over {TRAIN_STEPS} steps")
-    check(last < first, f"lm-granite-train: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check(last < first, f"{phase}: the loss did not fall ({first:.4f} -> {last:.4f})")
     check(peak <= total - GRANITE_SPARE,
-          f"lm-granite-train: peak allocated {peak / 1e9:.3f} GB leaves less than "
+          f"{phase}: peak allocated {peak / 1e9:.3f} GB leaves less than "
           f"{GRANITE_SPARE / 1e9:.0f} GB of the card's {total / 1e9:.3f} GB")
     busy = _busy_share(torch, lambda: tr.run(data, max_steps=tr.step + 1, log_every=0),
                        "flash", top=8)
-    log(f"lm-granite-train: one step B={TRAIN_B} S={TRAIN_S} {busy}")
+    log(f"{phase}: one step B={TRAIN_B} S={TRAIN_S} {busy}")
     train_4k = {s_.name: s_ for s_ in LM_SHAPES}["train_4k"]
     roof = _step_roofline(torch, cfg.name,
                           dataclasses.replace(train_4k, seq_len=TRAIN_S, global_batch=TRAIN_B),
                           lambda: tr.run(data, max_steps=tr.step + 1, log_every=0), med,
-                          "lm-granite-train")
-    log(f"lm-granite-train: the counter's FLOPs include remat's second forward "
-        f"({roof['flops']:.6e} counted against model_flops {roof['model_flops']:.6e}, 6 N T)")
+                          phase, cfg=tcfg)
+    log(f"{phase}: the counter's FLOPs include remat's second forward "
+        f"({roof['flops']:.6e} counted against model_flops {roof['model_flops']:.6e}, 6 N T "
+        f"at {tcfg.n_layers} layers)")
     del tr, data
     torch.cuda.empty_cache()
 
-    # (c) the launcher itself, at full width on the card
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *GRANITE_CLI],
-                          env=env, cwd=str(ROOT), capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    log(f"lm-granite-train: python -m repro_torch.launch.train {' '.join(GRANITE_CLI)}: exit "
-        f"{proc.returncode} in {cli_s:.3f} s: {' | '.join(lines[-3:])}")
-    check(proc.returncode == 0 and lines and lines[-1].startswith("final:")
-          and lines[0].startswith(f"arch={cfg.name} family=lm params={n_params:,}"),
-          f"lm-granite-train: the launcher failed: {proc.stderr[-2000:]}")
+    # (c) the launcher itself on the card
+    _train_clis(phase, n_params, clis)
     return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
-            "loss": (first, last), "roofline": roof, "grad_rel": worst}
+            "loss": (first, last), "roofline": roof, "grad_rel": worst,
+            "n_params": n_params, "n_layers": tcfg.n_layers}
 
 
 # -------------------------------------------------------------- bag-kernel --
@@ -4948,14 +5157,19 @@ def main(argv=None) -> int:
         phases["lm-coder"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
-    attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg)
+    attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg, coder_cfg)
     phases["attn-bwd"] = time.perf_counter() - t
     t = time.perf_counter()
     lm_train = phase_lm_train(torch, lm_cfg, args.seed)
     phases["lm-train"] = time.perf_counter() - t
     t = time.perf_counter()
-    granite_train = phase_lm_granite_train(torch, granite_cfg, args.seed)
+    granite_train = phase_lm_bf16_train(torch, granite_cfg, args.seed, "lm-granite-train",
+                                        clis=(GRANITE_CLI,))
     phases["lm-granite-train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    coder_train = phase_lm_bf16_train(torch, coder_cfg, args.seed, "lm-coder-train",
+                                      CODER_TRAIN_LAYERS, CODER_CLIS)
+    phases["lm-coder-train"] = time.perf_counter() - t
     with torch.inference_mode():
         rec_cfg = get_config("dlrm-mlperf")
         t = time.perf_counter()
@@ -5001,6 +5215,8 @@ def main(argv=None) -> int:
     tbw = attn_bwd["timings"][(TRAIN_B, TRAIN_S)]
     tb32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32")]
     tb64 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, granite_cfg.d_head)]
+    tbg7 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, "g7")]
+    tbg7_32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32_g7")]
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -5060,6 +5276,7 @@ def main(argv=None) -> int:
         "shape_g7": f"B={LM_BATCH} S={LM_SEQ} H={coder_cfg.n_heads} "
                     f"Hkv={coder_cfg.n_kv_heads} d={coder_cfg.d_head}",
         "launches_coder": lm_coder["launches"],
+        "launches_coder_train": coder_train["launches"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,
@@ -5086,6 +5303,18 @@ def main(argv=None) -> int:
         "ms_d64_b8": attn_bwd["timings"][(8, TRAIN_S, granite_cfg.d_head)]["kernel"],
         "shape_d64": f"B={TRAIN_B} S={TRAIN_S} H={granite_cfg.n_heads} "
                      f"Hkv={granite_cfg.n_kv_heads} d={granite_cfg.d_head}",
+        "max_abs_err_g7": attn_bwd["max_err"]["bfloat16_g7"],
+        "max_abs_err_g7_float32": attn_bwd["max_err"]["float32_g7"],
+        "lse_max_abs_err_g7": attn_bwd["lse_err"]["bfloat16_g7"],
+        "ms_g7": tbg7["kernel"], "device_ms_g7": tbg7["device_ms"],
+        "plain_ms_g7": tbg7["plain"], "bound_ms_g7": tbg7["bound_ms"],
+        "library_ms_g7": tbg7["library"], "library_device_ms_g7": tbg7["library_device_ms"],
+        "ms_g7_float32": tbg7_32["kernel"], "device_ms_g7_float32": tbg7_32["device_ms"],
+        "plain_ms_g7_float32": tbg7_32["plain"], "bound_ms_g7_float32": tbg7_32["bound_ms"],
+        "library_ms_g7_float32": tbg7_32["library"],
+        "shape_g7": f"B={TRAIN_B} S={TRAIN_S} H={coder_cfg.n_heads} "
+                    f"Hkv={coder_cfg.n_kv_heads} d={coder_cfg.d_head}",
+        "launches_coder_train": coder_train["bwd_launches"],
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
         "replaces": embedding_bag.REPLACES, "launches": rec["launches"],

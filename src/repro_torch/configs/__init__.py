@@ -3,9 +3,9 @@
 Every architecture of the JAX package's registry registers its full config
 and its shape set, so ``roofline.analysis.model_flops`` covers each
 (arch x shape) cell. ``ARCHS`` lists the ones the training launcher
-offers: the paper's own text-pair model, qwen3-0.6b and granite-3-2b of
-the LM family, dlrm-mlperf, fm, din and bert4rec of the recsys family and
-meshgraphnet of the GNN family. granite-3-2b (d_head 64, tied embeddings)
+offers: the paper's own text-pair model, qwen3-0.6b, granite-3-2b and
+deepseek-coder-33b of the LM family, dlrm-mlperf, fm, din and bert4rec of
+the recsys family and meshgraphnet of the GNN family. granite-3-2b (d_head 64, tied embeddings)
 serves and trains through ``models.transformer`` in bfloat16, on the
 attention kernels' d=64 instances both ways (the float32 kernels take
 d_head 128 only, so a float32 granite runs the plain attention or
@@ -16,9 +16,10 @@ int8 one; their training is not ported (ROADMAP.md §1 item 10f: at full
 width about 270 GB of training state). deepseek-coder-33b (56 query heads
 over 8 KV heads: G=7) serves through ``models.transformer`` in bfloat16,
 on the attention forward kernel at that group size, with the bfloat16 KV
-cache or, under ``kv_quant``, the int8 one; its training is not ported
-(the backward kernels take a G that divides 128, and its 3.3e10
-parameters' training state does not fit one card).
+cache or, under ``kv_quant``, the int8 one, and trains on the attention
+kernels both ways at that group size: its reduced config through the
+launcher, its full width on one card at a cut depth (the 533 GB of
+training state of all 62 layers waits for ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ _MODULES = {
 ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "sm-cnn")
 #: every architecture whose model is ported so far (the training
 #: launcher's ``--arch`` choices)
-ARCHS = ("bert4rec", "din", "dlrm-mlperf", "fm", "granite-3-2b", "meshgraphnet", "qwen3-0.6b",
-         "sm-cnn")
+ARCHS = ("bert4rec", "deepseek-coder-33b", "din", "dlrm-mlperf", "fm", "granite-3-2b",
+         "meshgraphnet", "qwen3-0.6b", "sm-cnn")
 
 
 def get_config(arch: str):

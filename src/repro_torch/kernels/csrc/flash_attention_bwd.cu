@@ -36,9 +36,28 @@
 // the same from run to run (a single pass that accumulates dq by float32
 // atomics would do 5 products a pair, not 7, and give that up). Rows are
 // the forward's: the G query heads of a KV head are folded into the rows,
-// row R = position * G + head (the heads of a position are adjacent in
-// memory), so one K/V tile serves all G heads and dk, dv sum over them
-// inside one block. Three kernels on the caller's stream:
+// row R = position * Gp + head, Gp the power of two at or above G (the
+// heads of a position are adjacent in memory), so one K/V tile serves all
+// G heads and dk, dv sum over them inside one block. G may be any group
+// size up to 128, as _flash_bwd_rule's is. Where G is a power of two (1,
+// 2, 4, 8: qwen3-0.6b, granite-3-2b, the MoE configs) Gp = G and every row
+// holds a query head. Otherwise (G = 7, deepseek-coder-33b's 56 over 8:
+// Gp = 8) a position's rows G .. Gp - 1 are idle, and, unlike the
+// forward's, an idle row of dk/dv would not just go unstored: dV += P^T dO
+// and dK += dS^T Q sum over every row of a tile, and 0 * NaN is NaN in the
+// tensor cores, so zeroing an idle row's P and dS is not enough. So an
+// idle row never holds another group's head: Q and dO are read through a
+// 5-D view (B, S, Hkv, G, d) whose box is Gp heads tall, and TMA fills the
+// Gp - G heads past the group's end with zeros. With zero Q and dO and a
+// neutral (0, 0) statistic (the statistics kernel reads no o, dout or lse
+// there: for the last group that head would lie past H), an idle row's
+// S, dP and dS are 0 and it adds exactly nothing to dK and dV; dq computes
+// it and never stores it (every dQ store asks head < G), and the float32
+// route's non-finite flags see only zeros there. Those guards and the 5-D
+// loads are a template parameter (PAD): a power-of-two G runs an instance
+// without them, the code it ran before any G was padded. An idle row's
+// products (1/8 of them at G = 7) are overhead above the bound, like the
+// masked pairs on the diagonal tiles. Three kernels on the caller's stream:
 //   (a) the statistics: each row's (lse, delta = rowsum(do * o)) in
 //       float32, a warp a row, into the caller's scratch in block-row order
 //       (for each batch row and KV head, rows R in order, padded with
@@ -69,9 +88,10 @@
 //   * tiles are bf16 rows of 64 dims (128 bytes) with the 128-byte swizzle,
 //     so one staged tile is read both K-major (as B of S^T = K Q^T, S = Q
 //     K^T, dP = dO V^T) and N-major (as B of dV += P^T dO, dK += dS^T Q,
-//     dQ += dS K): no tile is stored twice. A box of 64 dims x G heads x
-//     (rows / G) positions of the 4-D map (B, S, H, d) is a tile's rows in
-//     order; past 64 heads a 64-row tile is one position's run of heads;
+//     dQ += dS K): no tile is stored twice. A box of 64 dims x Gp heads x
+//     (rows / Gp) positions of the 4-D map (B, S, H, d) (PAD: of the 5-D
+//     map (B, S, Hkv, G, d)) is a tile's rows in order; past 64 heads a
+//     64-row tile is one position's run of heads;
 //   * (a) also reorders: for each (batch row, KV head) it writes (lse *
 //     log2 e, delta) of each row R in block-row order, padded with zeros to
 //     a multiple of 128 rows, so a 64-row tile's statistics are 512
@@ -89,8 +109,8 @@
 //     log2 e) runs while dP^T is in flight; dS^T = P^T (dP^T - delta)
 //     scale; both go from the accumulators to the A operand in registers
 //     as bf16 pairs (the C fragments of m64nN are its A fragments);
-//   * dq: a block holds the forward's 128 rows (BQ = 128 / G positions x
-//     G heads), Q and dO loaded once (64 KB at d=128); K and V of each
+//   * dq: a block holds the forward's 128 rows (BQ = 128 / Gp positions x
+//     Gp heads), Q and dO loaded once (64 KB at d=128); K and V of each
 //     64-key tile stream through the ring (32 KB a stage); each consumer
 //     keeps its rows' lse and delta in registers; dQ += dS K accumulates
 //     64 x D in float32 registers (setmaxnreg 232, the producer 40);
@@ -208,12 +228,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// (a) for each (batch row b, KV head) the rows R = position * G + head in
-// order, NR of them (S * G padded to STAT_ROWS): (lse * lse_mul,
-// rowsum(do * o)) in float32, zeros past S * G; a warp a row of D values,
+// a box of a 5-D tensor map into shared memory, completing on bar (PAD's
+// Q and dO: the view (B, S, Hkv, G, d), innermost first)
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// (a) for each (batch row b, KV head) the rows R = position * Gp + head in
+// order, NR of them (S * Gp padded to STAT_ROWS): (lse * lse_mul,
+// rowsum(do * o)) in float32, zeros past S * Gp; a warp a row of D values,
 // 4 a lane (at D = 64 lanes 16..31 add zeros). lse_mul is log2 e for the
-// bfloat16 route (exp2), 1 for float32 (exp).
-template <typename T, int D>
+// bfloat16 route (exp2), 1 for float32 (exp). PAD: an idle row (head G ..
+// Gp - 1 of a position) reads nothing and holds zeros too.
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ lse, float2* __restrict__ stats, int S, int H,
@@ -226,7 +259,15 @@ flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int kvh = (int)(bk % Hkv);
   const size_t b = bk / Hkv;
   float2 st = make_float2(0.f, 0.f);
-  if (R < (S << g_shift)) {
+  if constexpr (PAD) {
+    const int G = H / Hkv, head = R & ((1 << g_shift) - 1);
+    if (R < (S << g_shift) && head < G) {        // the row warp-uniform: one warp a row
+      const int pos = R >> g_shift, h = kvh * G + head;
+      const size_t src = ((b * S + pos) * H + h) * D + lane * 4;
+      st.y = warp_sum(lane * 4 < D ? dot4(load4f(o + src), load4f(dout + src), 0.f) : 0.f);
+      if (lane == 0) st.x = lse[(b * H + h) * S + pos] * lse_mul;
+    }
+  } else if (R < (S << g_shift)) {
     const int pos = R >> g_shift, h = (kvh << g_shift) + (R & ((1 << g_shift) - 1));
     const size_t src = ((b * S + pos) * H + h) * D + lane * 4;
     st.y = warp_sum(lane * 4 < D ? dot4(load4f(o + src), load4f(dout + src), 0.f) : 0.f);
@@ -361,11 +402,13 @@ __device__ __forceinline__ void dq_tile(const unsigned char* qs, const unsigned 
   }
 }
 
-// (c) dq of 128 rows (BQ = 128 / G positions x G heads) of one KV head, 8
-// warps of 16 rows: thread 0 loads Q and dO once, then the raw K and V of
-// each 32-key tile up to the block's last position, the next while the
+// (c) dq of 128 rows (BQ = 128 / Gp positions x Gp heads) of one KV head,
+// 8 warps of 16 rows: thread 0 loads Q and dO once, then the raw K and V
+// of each 32-key tile up to the block's last position, the next while the
 // block works on this one; the block splits each into the split tile, then
-// each warp with a visible key in the tile runs dq_tile.
+// each warp with a visible key in the tile runs dq_tile. PAD: Q and dO
+// through the 5-D map, idle rows zeros and never stored.
+template <bool PAD>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
@@ -382,7 +425,8 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int G = 1 << g_shift;
+  // PAD: G = H / Hkv below Gp = 1 << g_shift, rows G .. Gp - 1 of a position idle
+  const int G = PAD ? H / (int)gridDim.y : 1 << g_shift;
   const int BQ = QF_ROWS >> g_shift;
   const int qt = gridDim.x - 1 - blockIdx.x;         // the longest rows first
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -402,12 +446,17 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar_q, 1);
     mbar_init(bar_kv, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    // Q, dO: a box of 32 values x G heads x BQ positions is the 128 rows in
-    // order r = position * G + head, 128 bytes a row
+    // Q, dO: a box of 32 values x Gp heads x BQ positions is the 128 rows in
+    // order r = position * Gp + head, 128 bytes a row
     mbar_expect_tx(bar_q, 2 * QF_ROWS * 512);
     for (int a = 0; a < 4; ++a) {
-      tma_load_4d(base + QF_Q + a * QF_ROWS * 128, &tm_q, bar_q, 32 * a, kvh * G, q0, b);
-      tma_load_4d(base + QF_DO + a * QF_ROWS * 128, &tm_do, bar_q, 32 * a, kvh * G, q0, b);
+      if constexpr (PAD) {                           // heads past the group's G arrive as zeros
+        tma_load_5d(base + QF_Q + a * QF_ROWS * 128, &tm_q, bar_q, 32 * a, 0, kvh, q0, b);
+        tma_load_5d(base + QF_DO + a * QF_ROWS * 128, &tm_do, bar_q, 32 * a, 0, kvh, q0, b);
+      } else {
+        tma_load_4d(base + QF_Q + a * QF_ROWS * 128, &tm_q, bar_q, 32 * a, kvh * G, q0, b);
+        tma_load_4d(base + QF_DO + a * QF_ROWS * 128, &tm_do, bar_q, 32 * a, kvh * G, q0, b);
+      }
     }
     load_kv(0);
   }
@@ -423,8 +472,15 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float2 st0 = st[r0], st1 = st[r0 + 8];
   const size_t q_row = (size_t)H * TF_D;
   float* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * TF_D + 2 * t4;
-  float* dst0 = pos0 < S ? dqb + (size_t)pos0 * q_row + (r0 & (G - 1)) * TF_D : nullptr;
-  float* dst1 = pos1 < S ? dqb + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * TF_D : nullptr;
+  float *dst0, *dst1;
+  if constexpr (PAD) {                               // idle rows (head >= G) are never stored
+    const int head0 = r0 & ((1 << g_shift) - 1), head1 = (r0 + 8) & ((1 << g_shift) - 1);
+    dst0 = pos0 < S && head0 < G ? dqb + (size_t)pos0 * q_row + head0 * TF_D : nullptr;
+    dst1 = pos1 < S && head1 < G ? dqb + (size_t)pos1 * q_row + head1 * TF_D : nullptr;
+  } else {
+    dst0 = pos0 < S ? dqb + (size_t)pos0 * q_row + (r0 & (G - 1)) * TF_D : nullptr;
+    dst1 = pos1 < S ? dqb + (size_t)pos1 * q_row + ((r0 + 8) & (G - 1)) * TF_D : nullptr;
+  }
   float acc[TF_D / 8][4];
 #pragma unroll
   for (int n = 0; n < TF_D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -564,7 +620,9 @@ __device__ __forceinline__ void dkdv_tile(int role, int pair, const unsigned cha
 // 32-row tile from the first tile holding position k0 to the last, the
 // next while the block works on this one; the block splits Q and dO into
 // the split tile, then each pair with a key that a row of the tile sees
-// runs dkdv_tile.
+// runs dkdv_tile. PAD: Q and dO through the 5-D map, so an idle row holds
+// zeros and adds nothing.
+template <bool PAD>
 __global__ void __launch_bounds__(TF_THREADS, 1)
 flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
@@ -585,7 +643,7 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid & 31;
   const int role = warp >> 2, pair = warp & 3;
   const int g = lane >> 2, t4 = lane & 3;
-  const int G = 1 << g_shift;
+  [[maybe_unused]] const int G = 1 << g_shift;      // Gp; PAD reads the group's G from the map
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * KF_KEYS;
   const int n_rows = S << g_shift;
@@ -593,16 +651,28 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_iter = (n_rows + TF_TILE - 1) / TF_TILE - t_first;
   const float2* st = stats + ((size_t)b * Hkv + kvh) * NR;
 
-  // a box of 32 values x min(G, 32) heads x max(32 / G, 1) positions is
-  // the tile's 32 rows in order; rows past S arrive as zeros
+  // a box of 32 values x min(Gp, 32) heads x max(32 / Gp, 1) positions is
+  // the tile's 32 rows in order; rows past S (PAD: and heads past the
+  // group's G) arrive as zeros
   auto load_rows = [&](int i) {
     const int r0 = (t_first + i) * TF_TILE;
-    const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
-    mbar_expect_tx(bar_rows, 2 * TF_PART + TF_STATS);
-    for (int a = 0; a < 4; ++a) {
-      tma_load_4d(base + KF_RAW + a * TF_TILE * 128, &tm_q, bar_rows, 32 * a, head, pos, b);
-      tma_load_4d(base + KF_RAW + TF_PART + a * TF_TILE * 128, &tm_do, bar_rows, 32 * a, head,
-                  pos, b);
+    if constexpr (PAD) {
+      const int head = r0 & ((1 << g_shift) - 1), pos = r0 >> g_shift;
+      mbar_expect_tx(bar_rows, 2 * TF_PART + TF_STATS);
+      for (int a = 0; a < 4; ++a) {
+        tma_load_5d(base + KF_RAW + a * TF_TILE * 128, &tm_q, bar_rows, 32 * a, head, kvh, pos,
+                    b);
+        tma_load_5d(base + KF_RAW + TF_PART + a * TF_TILE * 128, &tm_do, bar_rows, 32 * a,
+                    head, kvh, pos, b);
+      }
+    } else {
+      const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
+      mbar_expect_tx(bar_rows, 2 * TF_PART + TF_STATS);
+      for (int a = 0; a < 4; ++a) {
+        tma_load_4d(base + KF_RAW + a * TF_TILE * 128, &tm_q, bar_rows, 32 * a, head, pos, b);
+        tma_load_4d(base + KF_RAW + TF_PART + a * TF_TILE * 128, &tm_do, bar_rows, 32 * a, head,
+                    pos, b);
+      }
     }
     bulk_load(base + KF_RAW_STATS, st + r0, TF_STATS, bar_rows);
   };
@@ -786,8 +856,9 @@ __device__ __forceinline__ void stage_out(unsigned char* smem, int box, int row0
 // (D / 16 wgmma m64n64k16 each, both by descriptor), then dV += P^T dO and
 // dK += dS^T Q (4 wgmma m64nDk16 each, P^T and dS^T from registers, dO and
 // Q N-major). The accumulator's rows are the group's keys, its columns the
-// tile's rows (S^T, dP^T) or the D dims (dK, dV).
-template <int D>
+// tile's rows (S^T, dP^T) or the D dims (dK, dV). PAD: Q and dO through the
+// 5-D map, so an idle row holds zeros and adds nothing.
+template <int D, bool PAD>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_do,
@@ -809,7 +880,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the warpgroup by a shuffle from lane 0, so the compiler sees the role
   // branches as warp-uniform
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG_THREADS, 0);
-  const int G = 1 << g_shift;
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * KD_KEYS;
   const int t_first = (k0 << g_shift) / BR;          // the first tile holding position k0
@@ -837,15 +907,25 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < n_iter; ++i) {
         const int s = i % WS_STAGES;
         if (i >= WS_STAGES) mbar_wait(bar_e + 8 * s, ((i / WS_STAGES) - 1) & 1);
-        // a box of 64 dims x min(G, 64) heads x max(64 / G, 1) positions
-        // is the tile's 64 rows in order; rows past S arrive as zeros
+        // a box of 64 dims x min(Gp, 64) heads x max(64 / Gp, 1) positions
+        // is the tile's 64 rows in order; rows past S (PAD: and heads past
+        // the group's G) arrive as zeros
         const int r0 = (t_first + i) * BR;
-        const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
         const uint32_t qd = base + L::KD_QD + s * L::KD_STAGE, full = bar_f + 8 * s;
         mbar_expect_tx(full, 2 * BOXES * TILE_BOX + STATS_BYTES);
-        for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(qd + x * TILE_BOX, &tm_q, full, 64 * x, head, pos, b);
-          tma_load_4d(qd + (BOXES + x) * TILE_BOX, &tm_do, full, 64 * x, head, pos, b);
+        if constexpr (PAD) {
+          const int head = r0 & ((1 << g_shift) - 1), pos = r0 >> g_shift;
+          for (int x = 0; x < BOXES; ++x) {
+            tma_load_5d(qd + x * TILE_BOX, &tm_q, full, 64 * x, head, kvh, pos, b);
+            tma_load_5d(qd + (BOXES + x) * TILE_BOX, &tm_do, full, 64 * x, head, kvh, pos, b);
+          }
+        } else {
+          const int G = 1 << g_shift;
+          const int head = kvh * G + (r0 & (G - 1)), pos = r0 >> g_shift;
+          for (int x = 0; x < BOXES; ++x) {
+            tma_load_4d(qd + x * TILE_BOX, &tm_q, full, 64 * x, head, pos, b);
+            tma_load_4d(qd + (BOXES + x) * TILE_BOX, &tm_do, full, 64 * x, head, pos, b);
+          }
         }
         bulk_load(base + L::KD_STATS + s * STATS_BYTES, st + r0, STATS_BYTES, full);
       }
@@ -955,14 +1035,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// (c) dq of 128 rows (BQ = 128 / G positions x G heads) of one KV head at
-// head width D: 3 warpgroups; warpgroup 0 loads Q and dO once, then K and
-// V of each 64-key tile up to the block's last position into a 2-stage
+// (c) dq of 128 rows (BQ = 128 / Gp positions x Gp heads) of one KV head
+// at head width D: 3 warpgroups; warpgroup 0 loads Q and dO once, then K
+// and V of each 64-key tile up to the block's last position into a 2-stage
 // ring; warpgroups 1 and 2 own rows 0..63 and 64..127. For each tile a
 // consumer runs S = Q K^T and dP = dO V^T (D / 16 wgmma m64n64k16 each,
 // both by descriptor), then dQ += dS K (4 wgmma m64nDk16, dS from
-// registers, K N-major).
-template <int D>
+// registers, K N-major). PAD: Q and dO through the 5-D map, idle rows
+// zeros and never stored.
+template <int D, bool PAD>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
@@ -985,7 +1066,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the warpgroup by a shuffle from lane 0, so the compiler sees the role
   // branches as warp-uniform
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG_THREADS, 0);
-  const int G = 1 << g_shift;
+  // PAD: G = H / Hkv below Gp = 1 << g_shift, rows G .. Gp - 1 of a position idle
+  const int G = PAD ? H / (int)gridDim.y : 1 << g_shift;
   const int BQ = DQ_ROWS >> g_shift;
   const int qt = gridDim.x - 1 - blockIdx.x;         // the longest rows first
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -1007,12 +1089,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      // Q, dO: a box of 64 dims x G heads x BQ positions is the 128 rows in
-      // order r = position * G + head, 128 bytes a row
+      // Q, dO: a box of 64 dims x Gp heads x BQ positions is the 128 rows in
+      // order r = position * Gp + head, 128 bytes a row
       mbar_expect_tx(bar_q, 2 * BOXES * L::DQ_BOX);
       for (int x = 0; x < BOXES; ++x) {
-        tma_load_4d(base + L::DQ_Q + x * L::DQ_BOX, &tm_q, bar_q, 64 * x, kvh * G, q0, b);
-        tma_load_4d(base + L::DQ_DO + x * L::DQ_BOX, &tm_do, bar_q, 64 * x, kvh * G, q0, b);
+        if constexpr (PAD) {                         // heads past the group's G arrive as zeros
+          tma_load_5d(base + L::DQ_Q + x * L::DQ_BOX, &tm_q, bar_q, 64 * x, 0, kvh, q0, b);
+          tma_load_5d(base + L::DQ_DO + x * L::DQ_BOX, &tm_do, bar_q, 64 * x, 0, kvh, q0, b);
+        } else {
+          tma_load_4d(base + L::DQ_Q + x * L::DQ_BOX, &tm_q, bar_q, 64 * x, kvh * G, q0, b);
+          tma_load_4d(base + L::DQ_DO + x * L::DQ_BOX, &tm_do, bar_q, 64 * x, kvh * G, q0, b);
+        }
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % WS_STAGES;
@@ -1113,32 +1200,35 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncwarp();
   const size_t q_row = (size_t)H * D;
   __nv_bfloat16* dqb = dq + (size_t)b * S * q_row + (size_t)kvh * G * D;
+  const int gmask = PAD ? (1 << g_shift) - 1 : G - 1;   // a row's head is row & gmask
 #pragma unroll
   for (int i = 0; i < 16 * CHUNKS / 32; ++i) {
     const int cidx = i * 32 + lane;
     const int r = 64 * c + 16 * warp + cidx / CHUNKS, ch = cidx % CHUNKS;
-    const int pos = q0 + (r >> g_shift);
-    if (pos < S)
-      *reinterpret_cast<uint4*>(dqb + (size_t)pos * q_row + (r & (G - 1)) * D + ch * 8) =
+    const int pos = q0 + (r >> g_shift), head = r & gmask;
+    if ((!PAD || head < G) && pos < S)               // idle rows are never stored
+      *reinterpret_cast<uint4*>(dqb + (size_t)pos * q_row + head * D + ch * 8) =
           *reinterpret_cast<const uint4*>(smem + L::DQ_Q + (ch >> 3) * L::DQ_BOX + r * 128 +
                                           (((ch & 7) ^ (r & 7)) << 4));
   }
 }
 
+// the shift of Gp, the power of two at or above g
 int log2_of(int g) {
   int shift = 0;
   while ((1 << shift) < g) ++shift;
   return shift;
 }
 
-// rows of a (batch row, KV head) in the bf16 statistics: S * G padded to STAT_ROWS
+// rows of a (batch row, KV head) in the statistics: S * Gp padded to STAT_ROWS
 int stat_rows(int S, int g_shift) {
   return (((S << g_shift) + STAT_ROWS - 1) / STAT_ROWS) * STAT_ROWS;
 }
 
-// Lets the six kernels take their dynamic shared memory. The sizes are
-// constants, so this runs once a device in a process (on every call past
-// device 63); two threads that race both set the same values.
+// Lets the twelve kernels (six, each with and without PAD) take their
+// dynamic shared memory. The sizes are constants, so this runs once a
+// device in a process (on every call past device 63); two threads that
+// race both set the same values.
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -1147,12 +1237,18 @@ cudaError_t allow_smem() {
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
   const struct { const void* fn; int bytes; } kernels[] = {
-      {(const void*)flash_bwd_dkdv_f32_kernel, KF_SMEM},
-      {(const void*)flash_bwd_dq_f32_kernel, QF_SMEM},
-      {(const void*)flash_bwd_dkdv_wgmma_kernel<128>, BwdSmem<128>::KD_SMEM},
-      {(const void*)flash_bwd_dq_wgmma_kernel<128>, BwdSmem<128>::DQ_SMEM},
-      {(const void*)flash_bwd_dkdv_wgmma_kernel<64>, BwdSmem<64>::KD_SMEM},
-      {(const void*)flash_bwd_dq_wgmma_kernel<64>, BwdSmem<64>::DQ_SMEM}};
+      {(const void*)flash_bwd_dkdv_f32_kernel<false>, KF_SMEM},
+      {(const void*)flash_bwd_dq_f32_kernel<false>, QF_SMEM},
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<128, false>, BwdSmem<128>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<128, false>, BwdSmem<128>::DQ_SMEM},
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<64, false>, BwdSmem<64>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<64, false>, BwdSmem<64>::DQ_SMEM},
+      {(const void*)flash_bwd_dkdv_f32_kernel<true>, KF_SMEM},
+      {(const void*)flash_bwd_dq_f32_kernel<true>, QF_SMEM},
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<128, true>, BwdSmem<128>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<128, true>, BwdSmem<128>::DQ_SMEM},
+      {(const void*)flash_bwd_dkdv_wgmma_kernel<64, true>, BwdSmem<64>::KD_SMEM},
+      {(const void*)flash_bwd_dq_wgmma_kernel<64, true>, BwdSmem<64>::DQ_SMEM}};
   for (const auto& kn : kernels) {
     err = cudaFuncSetAttribute(kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kn.bytes);
     if (err != cudaSuccess) return err;
@@ -1161,42 +1257,71 @@ cudaError_t allow_smem() {
   return cudaSuccess;
 }
 
+// (B, S, Hkv, G, width) as a 5-D map, innermost first (PAD's Q and dO),
+// read in boxes of 64 bf16 or 32 float32 values (128 bytes) x box_heads x
+// 1 KV head x box_rows positions with the 128-byte swizzle: a box box_heads
+// tall from a head of the group holds the group's own heads and zeros past
+// its G, TMA's out-of-bounds fill, never the next group's
+bool encode_group_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
+                      const void* ptr, bool f32, int B, int S, int Hkv, int G, int head_width,
+                      int box_heads, int box_rows) {
+  const cuuint64_t width = (cuuint64_t)head_width, bytes = f32 ? 4 : 2;
+  const cuuint64_t dims[5] = {width, (cuuint64_t)G, (cuuint64_t)Hkv, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {width * bytes, (cuuint64_t)G * width * bytes,
+                                 (cuuint64_t)Hkv * G * width * bytes,
+                                 (cuuint64_t)S * Hkv * G * width * bytes};
+  const cuuint32_t box[5] = {f32 ? 32u : 64u, (cuuint32_t)box_heads, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The statistics kernel, then dk/dv, then dq, on the caller's stream, at
-// head width D. Each is a 3xTF32 kernel for float32 (D = TF_D only) and a
-// wgmma one for bfloat16.
-template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, float* scratch, void* dq, void* dk,
-                   void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+// head width D, each the PAD instance where G is not a power of two. Each
+// is a 3xTF32 kernel for float32 (D = TF_D only) and a wgmma one for
+// bfloat16.
+template <int D, bool PAD>
+cudaError_t launch_as(int dtype, const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* scratch, void* dq, void* dk,
+                      void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const bool f32 = dtype == 0;   // only at D = TF_D (the entry point's check)
   const cudaError_t ctx = make_context_current();
   if (ctx != cudaSuccess) return ctx;
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int G = H / Hkv, g_shift = log2_of(G);
+  const int G = H / Hkv, g_shift = log2_of(G), Gp = 1 << g_shift;
   const int NR = stat_rows(S, g_shift);
   // dq reads the forward's 128-row boxes; dk/dv reads row tiles of
-  // kd_rows (bfloat16 64, float32 32), one position's run of heads where G
+  // kd_rows (bfloat16 64, float32 32), one position's run of heads where Gp
   // is larger; K and V arrive in the dq kernel's key tiles and the dk/dv
   // kernel's 128-key blocks
   static_assert(QF_ROWS == DQ_ROWS, "both routes' dq kernels take the forward's 128 rows");
   const int kd_rows = f32 ? TF_TILE : BR, dq_keys = f32 ? TF_TILE : BK;
   const int kd_keys = f32 ? KF_KEYS : KD_KEYS;
-  const int kd_heads = G < kd_rows ? G : kd_rows;
-  const int kd_positions = G < kd_rows ? kd_rows >> g_shift : 1;
+  const int kd_heads = Gp < kd_rows ? Gp : kd_rows;
+  const int kd_positions = Gp < kd_rows ? kd_rows >> g_shift : 1;
   const auto map = [f32](PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* m, const void* p,
                          int b, int s, int heads, int box_heads, int box_rows) {
     return f32 ? encode_map_f32(enc, m, p, b, s, heads, box_heads, box_rows)
                : encode_map(enc, m, p, b, s, heads, D, box_heads, box_rows);
   };
+  // Q and dO: (B, S, H, d) as 4-D maps, or PAD's 5-D view of the groups
+  const auto rows_map = [&](CUtensorMap* m, const void* p, int box_heads, int box_rows) {
+    return PAD ? encode_group_map(encode, m, p, f32, B, S, Hkv, G, D, box_heads, box_rows)
+               : map(encode, m, p, B, S, H, box_heads, box_rows);
+  };
   CUtensorMap q_dq, do_dq, k_dq, v_dq, q_kd, do_kd, k_kd, v_kd;
-  if (!map(encode, &q_dq, q, B, S, H, G, DQ_ROWS >> g_shift) ||
-      !map(encode, &do_dq, dout, B, S, H, G, DQ_ROWS >> g_shift) ||
+  if (!rows_map(&q_dq, q, Gp, DQ_ROWS >> g_shift) ||
+      !rows_map(&do_dq, dout, Gp, DQ_ROWS >> g_shift) ||
       !map(encode, &k_dq, k, B, S, Hkv, 1, dq_keys) ||
       !map(encode, &v_dq, v, B, S, Hkv, 1, dq_keys) ||
-      !map(encode, &q_kd, q, B, S, H, kd_heads, kd_positions) ||
-      !map(encode, &do_kd, dout, B, S, H, kd_heads, kd_positions) ||
+      !rows_map(&q_kd, q, kd_heads, kd_positions) ||
+      !rows_map(&do_kd, dout, kd_heads, kd_positions) ||
       !map(encode, &k_kd, k, B, S, Hkv, 1, kd_keys) ||
       !map(encode, &v_kd, v, B, S, Hkv, 1, kd_keys))
     return cudaErrorInvalidValue;
@@ -1208,41 +1333,52 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
   const dim3 grid_kd((S + kd_keys - 1) / kd_keys, Hkv, B), grid_dq(NR / DQ_ROWS, Hkv, B);
   if constexpr (D == TF_D) {
     if (f32) {
-      flash_bwd_stats_kernel<float, TF_D><<<stat_blocks, THREADS, 0, stream>>>(
+      flash_bwd_stats_kernel<float, TF_D, PAD><<<stat_blocks, THREADS, 0, stream>>>(
           static_cast<const float*>(o), static_cast<const float*>(dout), lse, stats, S, H, Hkv,
           g_shift, NR, n_rows, 1.f);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      flash_bwd_dkdv_f32_kernel<<<grid_kd, TF_THREADS, KF_SMEM, stream>>>(
+      flash_bwd_dkdv_f32_kernel<PAD><<<grid_kd, TF_THREADS, KF_SMEM, stream>>>(
           q_kd, do_kd, k_kd, v_kd, stats, static_cast<float*>(dk), static_cast<float*>(dv), S,
           Hkv, g_shift, NR, scale);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      flash_bwd_dq_f32_kernel<<<grid_dq, TF_THREADS, QF_SMEM, stream>>>(
+      flash_bwd_dq_f32_kernel<PAD><<<grid_dq, TF_THREADS, QF_SMEM, stream>>>(
           q_dq, do_dq, k_dq, v_dq, stats, static_cast<float*>(dq), S, H, Hkv, g_shift, NR,
           scale);
       return cudaGetLastError();
     }
   }
-  flash_bwd_stats_kernel<bf16, D><<<stat_blocks, THREADS, 0, stream>>>(
+  flash_bwd_stats_kernel<bf16, D, PAD><<<stat_blocks, THREADS, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, stats, S, H, Hkv,
       g_shift, NR, n_rows, LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_wgmma_kernel<D><<<grid_kd, WS_THREADS, BwdSmem<D>::KD_SMEM, stream>>>(
+  flash_bwd_dkdv_wgmma_kernel<D, PAD><<<grid_kd, WS_THREADS, BwdSmem<D>::KD_SMEM, stream>>>(
       q_kd, do_kd, k_kd, v_kd, stats, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hkv,
       g_shift, NR, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<D><<<grid_dq, WS_THREADS, BwdSmem<D>::DQ_SMEM, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D, PAD><<<grid_dq, WS_THREADS, BwdSmem<D>::DQ_SMEM, stream>>>(
       q_dq, do_dq, k_dq, v_dq, stats, static_cast<bf16*>(dq), S, H, Hkv, g_shift, NR, scale,
       scale_log2);
   return cudaGetLastError();
 }
 
+// launch_as at head width D: the instances without the idle-row guards
+// where G is a power of two
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* scratch, void* dq, void* dk,
+                   void* dv, int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  const int G = H / Hkv;
+  const auto run = G == 1 << log2_of(G) ? launch_as<D, false> : launch_as<D, true>;
+  return run(dtype, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, scale, stream);
+}
+
 // float32 values of scratch the kernels need at this shape, for either
-// dtype: 2 * B * Hkv * (S * G padded to STAT_ROWS)
+// dtype: 2 * B * Hkv * (S * Gp padded to STAT_ROWS)
 long long scratch_values(int B, int S, int H, int Hkv) {
   return 2ll * B * Hkv * stat_rows(S, log2_of(H / Hkv));
 }
@@ -1255,20 +1391,22 @@ bool takes(int dtype, int d) {
 
 }  // namespace
 
-// dtype 0: float32 (d = 128), 1: bfloat16 (d = 64 or 128). scratch is the
-// caller's float32 scratch of scratch_len values, at least 2 * B * Hkv *
-// (S * H / Hkv padded to 128): each row's (lse, delta) pair in block-row
-// order (bfloat16: lse log2 e). Returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue, without launching, for a dtype, width
-// or shape it does not take, or a scratch too small).
+// dtype 0: float32 (d = 128), 1: bfloat16 (d = 64 or 128); any G = H /
+// Hkv up to 128. scratch is the caller's float32 scratch of scratch_len
+// values, at least 2 * B * Hkv * (S * Gp padded to 128), Gp the power of
+// two at or above G: each row's (lse, delta) pair in block-row order
+// (bfloat16: lse log2 e; an idle row's (0, 0)). Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue, without launching, for a
+// dtype, width or shape it does not take, or a scratch too small).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const float* lse,
                                    float* scratch, long long scratch_len, void* dq, void* dk,
                                    void* dv, int B, int S, int H, int Hkv, int d, float scale,
                                    void* stream) {
-  if (!takes(dtype, d) || B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
-      128 % (H / Hkv) != 0 || B > 65535 || Hkv > 65535 ||
-      (long long)S * (H / Hkv) > (1ll << 30) || scratch_len < scratch_values(B, S, H, Hkv))
+  if (!takes(dtype, d) || B < 1 || S < 1 || Hkv < 1 || H < Hkv || H % Hkv != 0 ||
+      H / Hkv > 128 || B > 65535 || Hkv > 65535 ||
+      ((long long)S << log2_of(H / Hkv)) > (1ll << 30) ||
+      scratch_len < scratch_values(B, S, H, Hkv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
@@ -1282,25 +1420,27 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, cons
 // for kernel 0 (dk/dv) and 1 (dq), info[0] registers and [1] local (spill)
 // bytes a thread, [2] static and [3] dynamic shared memory bytes a block,
 // [4] blocks resident on an SM, [5] threads a block, [6] the design (2:
-// wgmma + TMA, 3: 3xTF32 mma.sync + TMA). Returns a cudaError_t
+// wgmma + TMA, 3: 3xTF32 mma.sync + TMA): of the instances a power-of-two
+// G runs (a padded G's add the 5-D loads and the idle-row guards; the
+// build's ptxas report lists their registers). Returns a cudaError_t
 // (cudaErrorInvalidValue for a dtype and width with no kernel).
 extern "C" int flash_attention_bwd_route_info(int dtype, int which, int d, int* info) {
   if (!takes(dtype, d) || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
   const void* fn;
   int smem, threads;
   if (dtype == 1 && d == 128) {
-    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<128>
-                    : (const void*)flash_bwd_dq_wgmma_kernel<128>;
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<128, false>
+                    : (const void*)flash_bwd_dq_wgmma_kernel<128, false>;
     smem = which == 0 ? BwdSmem<128>::KD_SMEM : BwdSmem<128>::DQ_SMEM;
     threads = WS_THREADS;
   } else if (dtype == 1) {
-    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<64>
-                    : (const void*)flash_bwd_dq_wgmma_kernel<64>;
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_wgmma_kernel<64, false>
+                    : (const void*)flash_bwd_dq_wgmma_kernel<64, false>;
     smem = which == 0 ? BwdSmem<64>::KD_SMEM : BwdSmem<64>::DQ_SMEM;
     threads = WS_THREADS;
   } else {
-    fn = which == 0 ? (const void*)flash_bwd_dkdv_f32_kernel
-                    : (const void*)flash_bwd_dq_f32_kernel;
+    fn = which == 0 ? (const void*)flash_bwd_dkdv_f32_kernel<false>
+                    : (const void*)flash_bwd_dq_f32_kernel<false>;
     smem = which == 0 ? KF_SMEM : QF_SMEM;
     threads = TF_THREADS;
   }

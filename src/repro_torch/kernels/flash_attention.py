@@ -37,11 +37,12 @@ call that would need the gradient at a width the backward does not take
 (float32 at d=64), before the forward runs.
 
 Query head ``h`` attends with KV head ``h // G`` (``G = H / Hkv``). The
-forward takes any ``G`` up to ``KERNEL_ROWS`` (128), as the Pallas kernel
-does: deepseek-coder-33b's 56 heads over 8 give G=7, which the kernel pads
-to 8 rows a position and never stores the eighth. The backward takes a
-``G`` that divides 128, and a call that needs the gradient at another
-``G`` raises ``ValueError`` before the forward launches. Any ``S >= 1``
+forward and the backward take any ``G`` up to ``KERNEL_ROWS`` (128), as
+the Pallas kernel and ``_flash_bwd_rule`` do: deepseek-coder-33b's 56
+heads over 8 give G=7, which the kernels pad to 8 rows a position. The
+forward never stores the eighth; the backward reads Q and dO through a view
+whose eighth row is zeros, so it adds nothing to dk and dv, and never stores
+its dq. A ``G`` past 128 raises ``ValueError`` before anything launches. Any ``S >= 1``
 works: the kernel masks the ragged tail itself, where the Pallas kernel
 asserted ``S % block == 0``. It reads and writes the
 ``(B, S, H, d)`` layouts in place, so the wrapper makes no transposed copy.
@@ -101,9 +102,9 @@ KERNEL_HEAD_DIMS = {
     ("backward", torch.float32): (128,),
 }
 #: a block's query rows, positions x the query heads of one KV head: the
-#: forward takes any group size G = H / Hkv up to it (a G that is not a
-#: power of two leaves rows of a block idle), the backward a G that divides
-#: it
+#: forward and the backward take any group size G = H / Hkv up to it (a G
+#: that is not a power of two is padded to the next, leaving rows of a
+#: block idle)
 KERNEL_ROWS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the design of a kernel, by the code both C libraries report (the
@@ -280,10 +281,12 @@ def _bwd_kernel_fn():
 
 def _bwd_scratch_values(b: int, s: int, h: int, hkv: int) -> int:
     """float32 values of scratch the backward kernels take: each row's
-    (lse, delta) (bfloat16: lse log2 e), a (batch row, KV head)'s S x G rows
-    padded to 128 (``STAT_ROWS`` of ``csrc/flash_attention_bwd.cu``, which
-    refuses a smaller scratch)."""
-    return 2 * b * hkv * (-(-s * (h // hkv) // 128) * 128)
+    (lse, delta) (bfloat16: lse log2 e), a (batch row, KV head)'s S x Gp
+    rows padded to 128, Gp the power of two at or above G = H / Hkv (the
+    kernels' rows; ``STAT_ROWS`` and ``scratch_values`` of
+    ``csrc/flash_attention_bwd.cu``, which refuses a smaller scratch)."""
+    gp = 1 << (h // hkv - 1).bit_length()
+    return 2 * b * hkv * (-(-s * gp // 128) * 128)
 
 
 def route_info(dtype: torch.dtype, d: int = 128) -> dict:
@@ -350,30 +353,27 @@ def _check_head_width(dtype: torch.dtype, d: int, grad: bool) -> None:
                              f"in the {direction} of {dtype}, not {d}")
 
 
-def _check_group(g: int, grad: bool) -> None:
-    """Raises ``ValueError`` unless the forward kernel takes ``g`` query
-    heads a KV head (any up to ``KERNEL_ROWS``), and with ``grad`` the
-    backward kernels too (a ``g`` that divides ``KERNEL_ROWS``)."""
+def _check_group(g: int) -> None:
+    """Raises ``ValueError`` unless the kernels take ``g`` query heads a
+    KV head: any up to ``KERNEL_ROWS``, the forward and the backward
+    alike."""
     if g > KERNEL_ROWS:
-        raise ValueError(f"the CUDA kernel takes up to {KERNEL_ROWS} query heads per "
-                         f"KV head, not {g}")
-    if grad and KERNEL_ROWS % g:
-        raise ValueError(f"the CUDA backward kernel takes a number of query heads per KV "
-                         f"head that divides {KERNEL_ROWS}, not {g}")
+        raise ValueError(f"the CUDA kernels take up to {KERNEL_ROWS} query heads per KV "
+                         f"head, not {g}")
 
 
 def _check_kernel(*tensors: torch.Tensor, grad: bool = False) -> None:
     """What the CUDA kernels take beyond ``_check``: q, k, v (and, for the
     backward, out and dout) on the card, a head width ``KERNEL_HEAD_DIMS``
-    lists for the dtype and a G the forward takes (for the backward too
-    where ``grad``), B and Hkv within the grid, each tensor on a 16-byte
+    lists for the dtype (for the backward too where ``grad``), a G up to
+    ``KERNEL_ROWS``, B and Hkv within the grid, each tensor on a 16-byte
     boundary."""
     q, k = tensors[0], tensors[1]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, s, h, d = q.shape
     _check_head_width(q.dtype, d, grad)
-    _check_group(h // k.shape[2], grad)
+    _check_group(h // k.shape[2])
     if b > 65535 or k.shape[2] > 65535:
         raise ValueError(f"the CUDA kernel's grid takes B and Hkv up to 65535, "
                          f"not B={b} Hkv={k.shape[2]}")
@@ -420,8 +420,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                lse: torch.Tensor, dout: torch.Tensor):
-    """The backward kernels: ``(dq, dk, dv)``."""
+                lse: torch.Tensor, dout: torch.Tensor, grads=None):
+    """The backward kernels: ``(dq, dk, dv)``. ``grads``, where given, is
+    ``(dq, dk, dv)``: contiguous tensors like ``q``, ``k``, ``v`` that the
+    kernels write into (a check can fence them)."""
     global bwd_launches
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -434,7 +436,13 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
                          f"{q.dtype} and lse (B, H, S) float32, all contiguous on "
                          f"{q.device}")
     _check_kernel(q, k, v, out, dout, lse, grad=True)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if grads is None:
+        grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    elif any(g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+             or not g.is_contiguous() or g.data_ptr() % 16 for g, x in zip(grads, (q, k, v))):
+        raise ValueError("grads must be contiguous tensors like q, k, v, on a 16-byte "
+                         "boundary")
+    dq, dk, dv = grads
     # float32 scratch for each row's lse and delta, in the kernels' row order
     scratch = torch.empty(_bwd_scratch_values(b, s, h, hkv), dtype=torch.float32,
                           device=q.device)
@@ -493,8 +501,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     whose backward is the CUDA backward kernel (the plain backward on CPU
     tensors). A CUDA call at a head width ``KERNEL_HEAD_DIMS`` does not list
     for its dtype, or for the backward where grad is needed, or at a G past
-    ``KERNEL_ROWS`` (where grad is needed, one that does not divide it),
-    raises ``ValueError`` before anything launches. Under a ``roofline.counts``
+    ``KERNEL_ROWS``, raises ``ValueError`` before anything launches. Under a ``roofline.counts``
     counter either route counts as ``analysis.attention_work`` (with the lse
     where it goes through ``FlashAttention``), its backward as
     ``analysis.attention_bwd_work``."""

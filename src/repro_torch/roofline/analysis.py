@@ -40,9 +40,10 @@ def _mlp_flops(dims, n: int) -> float:
     return sum(2.0 * a * b for a, b in zip(dims[:-1], dims[1:])) * n
 
 
-def model_flops(arch: str, shape: Union[str, ShapeSpec]) -> float:
-    """Useful-math FLOPs for one step of the cell (global, not per device)."""
-    cfg = get_config(arch)
+def model_flops(arch: str, shape: Union[str, ShapeSpec], cfg=None) -> float:
+    """Useful-math FLOPs for one step of the cell (global, not per device);
+    ``cfg``, where given, stands for the registered config (a cut one)."""
+    cfg = get_config(arch) if cfg is None else cfg
     shape = _shape(arch, shape)
 
     if isinstance(cfg, LMConfig):
@@ -120,12 +121,13 @@ def model_flops(arch: str, shape: Union[str, ShapeSpec]) -> float:
     raise TypeError(type(cfg))
 
 
-def model_bytes(arch: str, shape: Union[str, ShapeSpec]) -> float:
+def model_bytes(arch: str, shape: Union[str, ShapeSpec], cfg=None) -> float:
     """Irreducible GLOBAL bytes one step must move through HBM (the memory-
     roofline floor): weights/optimizer state touched once, the KV cache read
     once (decode), per-layer residual/message streams written+read once.
-    Deliberately optimistic — the fraction vs this floor is the score."""
-    cfg = get_config(arch)
+    Deliberately optimistic — the fraction vs this floor is the score.
+    ``cfg``, where given, stands for the registered config (a cut one)."""
+    cfg = get_config(arch) if cfg is None else cfg
     shape = _shape(arch, shape)
 
     if isinstance(cfg, LMConfig):
@@ -294,13 +296,15 @@ class Roofline:
 
 def build_roofline(arch: str, shape: Union[str, ShapeSpec], mesh_name: str,
                    n_devices: int, counts: Counts,
-                   mfl: Optional[float] = None) -> Roofline:
+                   mfl: Optional[float] = None, cfg=None) -> Roofline:
     """``hlo_*`` fields hold the counter's numbers (``counts.count``), named
-    as the JAX package's report names them."""
+    as the JAX package's report names them; ``cfg``, where given, stands for
+    the registered config (a cut one)."""
     shape = _shape(arch, shape)
-    peak = hw.peak_flops(get_config(arch).dtype)
-    mfl = model_flops(arch, shape) if mfl is None else mfl
-    mby = model_bytes(arch, shape)
+    cfg = get_config(arch) if cfg is None else cfg
+    peak = hw.peak_flops(cfg.dtype)
+    mfl = model_flops(arch, shape, cfg) if mfl is None else mfl
+    mby = model_bytes(arch, shape, cfg)
     compute_s = counts.flops / peak
     memory_s = counts.bytes_accessed / hw.HBM_BW
     collective_s = counts.link_bytes / hw.NVLINK_BW

@@ -1,5 +1,5 @@
 """deepseek-coder-33b in the port against the JAX package: its config, and
-its serving path on a coder-shaped small config.
+its serving and training paths on a coder-shaped small config.
 
 deepseek-coder-33b is the one assigned config whose group size G = H / Hkv
 is not a power of two (56 query heads over 8 KV heads: G=7), with an untied
@@ -14,21 +14,26 @@ atol=1e-5``): ``forward``, ``prefill`` (logits and cache) and
 ``decode_step`` on the unquantized cache (the model's dtype: bfloat16 when
 serving, float32 here) and on the int8 one (``kv_quant``), whose
 quantized rows may sit one int8 step off JAX's where the two sides' float32
-K/V differ in their last bit (``tests/test_torch_kv_int8.py``'s bound).
+K/V differ in their last bit (``tests/test_torch_kv_int8.py``'s bound);
+``loss_fn`` and every gradient leaf against ``jax.value_and_grad`` with
+remat on and off (the attention's gradient through ``FlashAttention``'s
+plain backward at G=7), and three ``Trainer`` + ``adamw`` steps against the
+JAX ``Trainer``'s (``tests/test_torch_granite_train.py``'s comparison).
 
-The ``cuda``-marked test holds the one refusal G=7 brings: a call that
-needs the gradient raises before either attention kernel launches (the
-backward kernels take a G that divides 128). It skips where no card is
-present; the JAX side is imported by a fixture, so that it runs on a
-machine with the port's dependencies alone:
+The ``cuda``-marked test holds a gradient at G=7 on the card: the forward
+and backward kernels launch once each, and the gradients match the plain
+backward's. It skips where no card is present; the JAX side is imported by
+a fixture, so that it runs on a machine with the port's dependencies alone:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_coder.py
 
-The card side of the forward at G=7 is in ``tests/test_torch_flash.py``'s
-``cuda`` tests and ``chip_smoke.py``'s attn-g7, lm-coder-check and lm-coder
-phases.
+The card side of the forward and backward at G=7 is in
+``tests/test_torch_flash.py``'s and ``tests/test_torch_flash_bwd.py``'s
+``cuda`` tests and ``chip_smoke.py``'s attn-g7, attn-bwd, lm-coder-check,
+lm-coder and lm-coder-train phases.
 """
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -37,8 +42,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import export
+from repro_torch.core.treepath import tree_map
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import transformer as tfm
+from repro_torch.training import optimizer as opt
+from repro_torch.training.train_loop import Trainer
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -49,6 +57,8 @@ SMALL = dict(name="deepseek-coder-33b-small", n_layers=2, d_model=256, n_heads=1
 #: of the int8 values a decode step writes, the share that may be one step
 #: off JAX's (tests/test_torch_kv_int8.py's)
 OFF_BY_ONE_SHARE = 0.01
+#: the training tests' batch: S a multiple of attn_chunk (16)
+TRAIN_B, TRAIN_S = 2, 32
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +80,7 @@ def J():
 
 
 def _cfg(**kw):
-    return dataclasses.replace(get_config(ARCH), **SMALL, **kw)
+    return dataclasses.replace(get_config(ARCH), **dict(SMALL, **kw))
 
 
 def _np(x):
@@ -239,19 +249,103 @@ def test_decode_steps_from_an_empty_cache_match_forward(J):
         np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), **TOL)
 
 
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _train_cfgs(J, remat):
+    return dataclasses.replace(J.cfg, remat=remat), _cfg(remat=remat)
+
+
+def _train_batch(cfg, seed=3):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (TRAIN_B, TRAIN_S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_every_gradient_leaf_match_jax_grad_at_g7(J, remat):
+    """``loss_fn`` and d loss / d leaf for every leaf (the untied
+    ``lm_head`` among them) against ``jax.value_and_grad`` of the JAX
+    ``loss_fn``, with remat on and off in both packages; on the CPU the
+    attention runs ``FlashAttention``'s plain forward and backward at G=7.
+    Every leaf's gradient is nonzero; nothing launches."""
+    jcfg, cfg = _train_cfgs(J, remat)
+    batch = _train_batch(cfg)
+    (want, want_m), want_g = J.jax.jit(J.jax.value_and_grad(
+        functools.partial(J.tfm.loss_fn, cfg=jcfg), has_aux=True))(
+        J.params, {k: J.jnp.asarray(v) for k, v in batch.items()})
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), J.tparams)
+    before = (FA.launches, FA.bwd_launches)
+    loss, metrics = tfm.loss_fn(live, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+    leaves = _flat(live)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert (FA.launches, FA.bwd_launches) == before
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    np.testing.assert_allclose(metrics["ce"].item(), float(want_m["ce"]), rtol=1e-5)
+    want_flat = _flat(want_g)
+    assert set(grads) == set(want_flat) and "lm_head" in grads
+    for path, g in grads.items():
+        assert bool(g.abs().max() > 0), f"{path}: zero gradient"
+        np.testing.assert_allclose(_np(g), _np(want_flat[path]), err_msg=path, **TOL)
+
+
+def test_three_trainer_steps_match_jax_at_g7(J):
+    """Three ``Trainer`` + ``adamw`` steps (the launcher's warmup-cosine
+    schedule, clipping at 1.0; remat on, updates donated as the launcher's
+    ``--full`` runs them) against the JAX ``Trainer``'s: each step's loss at
+    rtol 1e-5 and every leaf after the third step at TOL."""
+    from repro.training import optimizer as jax_opt, train_loop as jax_train_loop
+    jcfg, cfg = _train_cfgs(J, True)
+    batches = [_train_batch(cfg, seed=10 + i) for i in range(3)]
+    sched = dict(peak_lr=1e-3, warmup=10, total=30)
+    jtr = jax_train_loop.Trainer(functools.partial(J.tfm.loss_fn, cfg=jcfg),
+                                 jax_opt.adamw(jax_opt.warmup_cosine_schedule(**sched)),
+                                 J.params)
+    jtr.run(iter(batches), max_steps=3, log_every=0)
+    tr = Trainer(functools.partial(tfm.loss_fn, cfg=cfg),
+                 opt.adamw(opt.warmup_cosine_schedule(**sched)),
+                 tree_map(lambda t: t.detach().clone(), J.tparams), donate=True)
+    tr.run(iter(batches), max_steps=3, log_every=0)
+    assert tr.step == jtr.step == 3
+    for got, want in zip(tr.history, jtr.history):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    want = _flat(J.jax.tree.map(np.asarray, jtr.params))
+    for path, leaf in _flat(tr.params).items():
+        np.testing.assert_allclose(_np(leaf.detach()), want[path], err_msg=path, **TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_gradient_at_g7_is_refused_before_any_launch():
+    """G=7, which the backward once refused before any launch (the name is
+    kept): a call that needs the gradient launches the forward and the
+    backward kernel once each, and its gradients match the plain
+    backward's; the forward alone launches once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator("cuda").manual_seed(0)
     q, k, v = (torch.randn((1, 64, n, 128), generator=gen, device="cuda",
                            dtype=torch.bfloat16).requires_grad_() for n in (56, 8, 8))
+    dout = torch.randn((1, 64, 56, 128), generator=gen, device="cuda", dtype=torch.bfloat16)
     before = (FA.launches, FA.bwd_launches)
-    with pytest.raises(ValueError, match="divides 128"):
-        FA.flash_attention(q, k, v)
-    assert (FA.launches, FA.bwd_launches) == before
+    out = FA.flash_attention(q, k, v)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.bwd_launches) == (before[0] + 1, before[1] + 1)
+    _, lse = FA.flash_attention_fwd_plain(q.detach(), k.detach(), v.detach())
+    want = FA.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(),
+                                        lse, dout)
+    for name, g, w in zip("qkv", (q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"d{name}: {m}")
     with torch.no_grad():
         out = FA.flash_attention(q, k, v)   # the forward alone launches
     torch.cuda.synchronize()
-    assert (FA.launches, FA.bwd_launches) == (before[0] + 1, before[1])
+    assert (FA.launches, FA.bwd_launches) == (before[0] + 2, before[1] + 1)
     assert bool(torch.isfinite(out).all())

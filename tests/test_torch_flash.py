@@ -7,8 +7,8 @@ jnp oracle ``ref.flash_attention_ref`` and the kv-chunked
 ``layers.flash_attention_jnp`` at those shapes and at ragged sequence
 lengths (37, 130), where the Pallas kernel asserts divisibility. Inputs are
 standard normal, so the softmax stays spread, not one-hot. The wrapper's
-group check (the forward any G up to 128, the backward a G dividing it)
-runs on the CPU too.
+group check (the forward and the backward any G up to 128) runs on the
+CPU too.
 
 The ``cuda``-marked tests hold the CUDA kernel itself against the plain
 version, by max absolute error and by the error's norm, at d=128 for
@@ -23,7 +23,7 @@ launch (float32 at d=64, with or without the gradient); both routes at G
 prefill (H=56, Hkv=8), written into a NaN-fenced buffer (every element of
 the output written, none around it), the float32 route's inf/NaN flag at
 G=7 blind to the next group's heads in its idle rows, and a gradient at
-G=3 refused before either kernel launches; they skip where no card is
+G=3 launching each kernel once; they skip where no card is
 present (``chip_smoke.py`` does the same at qwen3-0.6b's, granite-3-2b's
 and deepseek-coder-33b's widths). The JAX side is imported by a fixture, so
 that the card-only tests also run on a machine with the port's
@@ -157,18 +157,15 @@ def test_plain_flash_takes_a_slice_of_query_rows(s, start):
 
 @pytest.mark.parametrize("g", [1, 2, 3, 5, 6, 7, 8, 64, 96, 127, 128, 129])
 def test_group_check_forward_takes_any_g_backward_a_divisor(g):
-    """The forward kernel pads a G that is not a power of two to the next
-    one and takes any G up to 128; the backward takes a G dividing 128."""
+    """The kernels pad a G that is not a power of two to the next one, and
+    take any G up to 128 both ways (the backward once took only a G dividing
+    128; the name is kept); the backward's scratch holds every row."""
     if g > FA.KERNEL_ROWS:
         with pytest.raises(ValueError, match="up to 128"):
-            FA._check_group(g, grad=False)
+            FA._check_group(g)
     else:
-        FA._check_group(g, grad=False)
-    if g > FA.KERNEL_ROWS or FA.KERNEL_ROWS % g:
-        with pytest.raises(ValueError):
-            FA._check_group(g, grad=True)
-    else:
-        FA._check_group(g, grad=True)
+        FA._check_group(g)
+    assert FA._bwd_scratch_values(1, 3, g, 1) >= 2 * 3 * g
 
 
 def _good():
@@ -380,26 +377,38 @@ def test_cuda_kernel_refuses_the_gradient_at_d64(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_backward_refuses_a_group_that_does_not_divide_its_rows(cuda_device):
-    """G=3: the forward launches; a call that needs the gradient raises
-    before either kernel launches (the backward takes a G dividing 128)."""
+    """G=3, a G that does not divide 128, which the backward once refused
+    (the name is kept): the forward launches once; with the gradient each
+    kernel launches once and the gradients match the plain backward's."""
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 12, 4, 128))
     before, bwd_before = FA.launches, FA.bwd_launches
     FA.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert (FA.launches, FA.bwd_launches) == (before + 1, bwd_before)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
-    with pytest.raises(ValueError, match="divides 128"):
-        FA.flash_attention(q, k, v)
-    assert (FA.launches, FA.bwd_launches) == (before + 1, bwd_before)
+    out = FA.flash_attention(q, k, v)
+    dout = torch.ones_like(out)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.bwd_launches) == (before + 2, bwd_before + 1)
+    _, lse = FA.flash_attention_fwd_plain(q.detach(), k.detach(), v.detach())
+    want = FA.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(),
+                                        lse, dout)
+    for name, g, w in zip("qkv", (q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=lambda m: f"d{name}: {m}")
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_a_group_past_its_rows(cuda_device):
+    """G=129 raises before any launch, with or without the gradient."""
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(1, 8, 129, 1, 128))
-    before = FA.launches
+    before = (FA.launches, FA.bwd_launches)
     with pytest.raises(ValueError, match="up to 128"):
         FA.flash_attention(q, k, v)
-    assert FA.launches == before
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    with pytest.raises(ValueError, match="up to 128"):
+        FA.flash_attention(q, k, v)
+    assert (FA.launches, FA.bwd_launches) == before
 
 
 @pytest.mark.cuda

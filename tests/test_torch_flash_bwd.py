@@ -4,7 +4,7 @@ On the CPU: ``flash_attention_fwd_plain``'s log-sum-exp against the JAX
 package's ``_flash_fwd_impl``; ``flash_attention_bwd_plain`` against
 ``jax.vjp`` of ``flash_attention_jnp`` (its custom VJP, the real flash
 backward) and against torch autograd through ``flash_attention_plain``, for
-1, 2 and 4 query heads a KV head and ragged lengths, at test_layers.py's
+1, 2, 4, 3 and 7 query heads a KV head and ragged lengths, at test_layers.py's
 rtol/atol 1e-4; in bfloat16, within a rounding of the JAX rule; and
 ``FlashAttention`` (what ``flash_attention`` runs where grad is needed)
 giving those gradients on the CPU.
@@ -17,7 +17,11 @@ heads a KV head, in float32 and bfloat16, and two backward calls bit-equal
 (the kernels use no atomics; float32 also at 4 x 2048); in bfloat16 at
 d=64 (granite-3-2b's H=32 over 32 / G KV heads, G 1 to 8, the same lengths,
 and granite's 4 x 2048), where a float32 call raises before any launch;
-they skip where no card is present. The JAX
+both routes at G = 3, 5, 6, 7 (padded to the next power of two) over the
+same lengths, deepseek-coder-33b's H=56, Hkv=8 at 4 x 2048 in bfloat16,
+inf and NaN in the next group's first head leaving a group's gradients
+equal to the plain ones, and two calls at G=7 bit-equal; they skip where
+no card is present. The JAX
 side is imported by a fixture, so the card-only tests also run on a machine
 with the port's dependencies alone:
 
@@ -62,13 +66,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (b, s, h, hkv, d, kv_chunk): G = H / Hkv of 1, 2 and 4, ragged lengths
-# (37, 130) and a chunk that does not divide S, so the last chunk is short
+# (b, s, h, hkv, d, kv_chunk): G = H / Hkv of 1, 2, 4, 7 (deepseek-coder-33b's)
+# and 3, ragged lengths (37, 130) and a chunk that does not divide S, so the
+# last chunk is short
 GRAD_SHAPES = [
     (1, 32, 4, 4, 16, 16),
     (2, 64, 4, 2, 16, 16),
     (1, 37, 8, 2, 16, 16),
     (2, 130, 8, 4, 32, 64),
+    (1, 37, 14, 2, 16, 16),
+    (2, 130, 12, 4, 32, 64),
 ]
 # test_layers.py's tolerance for the custom VJP against autodiff
 GRAD_TOL = 1e-4
@@ -182,14 +189,19 @@ def test_flash_attention_without_grad_keeps_the_serving_path():
     torch.testing.assert_close(out, FA.flash_attention_plain(q.detach(), k.detach(), v.detach()))
 
 
-@pytest.mark.parametrize("b,s,h,hkv", [(1, 1, 16, 16), (2, 7, 16, 8), (1, 130, 16, 1),
-                                       (4, 2048, 16, 8), (1, 3, 128, 1)])
-def test_bwd_scratch_holds_every_row_statistic(b, s, h, hkv):
+@pytest.mark.parametrize("b,s,h,hkv,gp", [(1, 1, 16, 16, 1), (2, 7, 16, 8, 2),
+                                          (1, 130, 16, 1, 16), (4, 2048, 16, 8, 2),
+                                          (1, 3, 128, 1, 128), (4, 2048, 56, 8, 8),
+                                          (2, 17, 14, 2, 8), (1, 1, 7, 1, 8),
+                                          (1, 5, 96, 1, 128), (1, 3, 65, 1, 128)])
+def test_bwd_scratch_holds_every_row_statistic(b, s, h, hkv, gp):
     """The scratch the wrapper gives the backward kernels: two float32
-    values for each row, a (batch row, KV head)'s S x G rows padded to a
-    128-row block, which also holds float32's B x H x S deltas."""
+    values for each row, a (batch row, KV head)'s S x Gp rows (G padded to
+    the power of two at or above it, the kernels' rows: G=7 takes 8) padded
+    to a 128-row block, as the C side's ``scratch_values`` asks; it also
+    holds float32's B x H x S deltas."""
     n = FA._bwd_scratch_values(b, s, h, hkv)
-    rows = -(-s * (h // hkv) // 128) * 128
+    rows = -(-s * gp // 128) * 128
     assert n == 2 * b * hkv * rows and n >= 2 * b * h * s and rows % 128 == 0
 
 
@@ -405,3 +417,70 @@ def test_cuda_float32_bwd_is_deterministic_at_the_training_length(cuda_device):
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(x, y), name
+
+
+#: group sizes that are not powers of two (deepseek-coder-33b's 7 among
+#: them), over 2 KV heads so that group 0 has a next group
+ODD_GROUPS = [3, 5, 6, 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", ODD_GROUPS)
+@pytest.mark.parametrize("s", CUDA_BWD_LENGTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_matches_plain_at_odd_groups(cuda_device, g, s, dtype):
+    """G padded to the next power of two (7 and 5, 6 to 8, 3 to 4): each
+    position's idle rows load zeros, add nothing to dk and dv and store no
+    dq."""
+    _assert_bwd_matches_plain(1 if s == 257 else 2, s, 2 * g, 2, 128, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_bwd_kernel_matches_plain_at_coders_training_shape(cuda_device):
+    """deepseek-coder-33b's H=56, Hkv=8 (G=7), d=128 at 4 x 2048."""
+    _assert_bwd_matches_plain(4, 2048, 56, 8, 128, "bfloat16", cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_idle_rows_never_read_the_next_groups_head(cuda_device, dtype):
+    """G=7 over 2 KV heads: inf and NaN in q and dout of head 7, group 1's
+    first head, which a box of 8 heads from group 0's first would hold.
+    KV head 0's dk and dv and heads 0..6's dq stay finite and equal to the
+    plain backward's."""
+    tdt = getattr(torch, dtype)
+    q, k, v, dout = (torch.from_numpy(a).to(cuda_device, tdt)
+                     for a in _grad_inputs(2, 130, 14, 2, 128))
+    q[:, 5::9, 7, :4] = float("inf")
+    q[:, 3::11, 7, 9] = float("nan")
+    dout[:, 2::7, 7, :] = float("nan")
+    dout[:, 4::13, 7, 3] = float("-inf")
+    out, lse = FA._launch(q, k, v, with_lse=True)
+    got = FA._launch_bwd(q, k, v, out, lse, dout)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    rtol, atol, _ = BWD_TOL[dtype]
+    for name, g, w in (("dq", got[0][:, :, :7], want[0][:, :, :7]),
+                       ("dk", got[1][:, :, 0], want[1][:, :, 0]),
+                       ("dv", got[2][:, :, 0], want[2][:, :, 0])):
+        assert bool(torch.isfinite(w).all()), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
+    assert not bool(torch.isfinite(got[1][:, :, 1]).all())   # group 1's own NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bwd_kernel_is_deterministic_at_g7(cuda_device, dtype):
+    """Two backward calls at G=7 (coder's H=56, Hkv=8, 1 x 1024, and a
+    ragged 2 x 257 at H=14, Hkv=2) give bit-equal dq, dk and dv."""
+    tdt = getattr(torch, dtype)
+    for b, s, h, hkv in ((1, 1024, 56, 8), (2, 257, 14, 2)):
+        q, k, v, dout = (torch.from_numpy(a).to(cuda_device, tdt)
+                         for a in _grad_inputs(b, s, h, hkv, 128))
+        out, lse = FA._launch(q, k, v, with_lse=True)
+        first = FA._launch_bwd(q, k, v, out, lse, dout)
+        second = FA._launch_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(x, y), (name, b, s, h, hkv, dtype)

@@ -12,7 +12,11 @@ batches and trees and train through ``main``; a card that is not there
 raises; ``--arch`` offers only the ported architectures, while the
 registry also holds the configs whose models are not ported; reduced
 granite-3-2b trains through ``main``, and ``--full`` trains with the
-``Trainer``'s donated updates.
+``Trainer``'s donated updates; deepseek-coder-33b builds the JAX
+launcher's batches and tree; on the card an LM config with no attention
+kernel for its dtype and d_head (the reduced ones: float32, d_head 16)
+gets ``attn_impl="chunked"``, one the kernels take keeps ``"flash"``, and
+the CPU changes nothing.
 """
 import ast
 import math
@@ -47,7 +51,8 @@ def _shapes(tree):
 
 
 @pytest.mark.parametrize("arch,batch,seq_len", [("qwen3-0.6b", 4, 16), ("sm-cnn", 8, 64),
-                                                ("granite-3-2b", 4, 16)])
+                                                ("granite-3-2b", 4, 16),
+                                                ("deepseek-coder-33b", 4, 16)])
 def test_build_gives_the_jax_launchers_batches_and_tree(arch, batch, seq_len):
     jcfg, jparams, _, jdata = jax_train.build(arch, False, batch, seq_len)
     cfg, params, loss, data = train.build(arch, False, batch, seq_len, device="cpu")
@@ -86,7 +91,7 @@ def test_cli_trains_three_steps_on_the_cpu(arch, family, params):
 
 
 def test_params_line_counts_what_the_jax_launcher_counts():
-    for arch in ("sm-cnn", "qwen3-0.6b", "granite-3-2b"):
+    for arch in ("sm-cnn", "qwen3-0.6b", "granite-3-2b", "deepseek-coder-33b"):
         _, jparams, _, _ = jax_train.build(arch, False, 2, 8)
         _, params, _, _ = train.build(arch, False, 2, 8, device="cpu")
         assert sum(int(np.prod(p.shape)) for p in jax.tree.leaves(jparams)) == \
@@ -188,14 +193,16 @@ def test_cuda_without_a_card_raises():
 
 def test_arch_offers_only_the_ported_architectures(capsys):
     """The MoE configs register for the roofline and their models serve,
-    but MoE training is not ported: ``--arch`` offers only ``ARCHS``. Their
-    reduced configs build and run ``forward``, and a decode step on the
-    int8 KV cache, as the JAX launcher serves a model above 5e9
+    but MoE training is not ported: ``--arch`` offers only ``ARCHS``, which
+    since deepseek-coder-33b trains (G=7 both ways) holds it too. The MoE
+    configs' reduced configs build and run ``forward``, and a decode step on
+    the int8 KV cache, as the JAX launcher serves a model above 5e9
     parameters."""
     import dataclasses
 
     from repro_torch.configs import ARCHS, get_config, reduced
     from repro_torch.models import transformer as tfm
+    assert "deepseek-coder-33b" in ARCHS and "granite-3-2b" in ARCHS
     offered = "{" + ",".join(ARCHS) + "}"   # the usage line's choices
     for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b"):
         assert arch not in ARCHS
@@ -215,3 +222,38 @@ def test_arch_offers_only_the_ported_architectures(capsys):
                                         torch.zeros((1,), dtype=torch.int32), cfgq)
         assert tuple(logits.shape) == (1, cfg.vocab_padded)
         assert bool(torch.isfinite(logits).all()) and bool((cache["v_scale"][:, 0, 0] > 0).all())
+
+
+@pytest.mark.parametrize("arch,full,dtype,want", [
+    ("qwen3-0.6b", False, None, "chunked"),          # reduced: float32, d_head 16
+    ("deepseek-coder-33b", False, None, "chunked"),
+    ("granite-3-2b", False, None, "chunked"),
+    ("qwen3-0.6b", True, None, "flash"),             # bfloat16, d_head 128
+    ("granite-3-2b", True, None, "flash"),           # bfloat16, d_head 64
+    ("deepseek-coder-33b", True, None, "flash"),     # bfloat16, d_head 128, G=7
+    ("qwen3-0.6b", True, "float32", "flash"),        # float32 at 128: both ways
+    ("granite-3-2b", True, "float32", "chunked"),    # float32 at 64: no kernel
+])
+def test_attention_on_the_card_follows_the_kernels_tables(arch, full, dtype, want):
+    """``attention_impl`` reads ``KERNEL_HEAD_DIMS`` before anything is
+    allocated: on the card an LM config with no kernel instance both ways
+    for its (dtype, d_head) gets ``"chunked"`` and ``kernel_gap`` says why;
+    one the kernels take keeps ``"flash"``; on the CPU nothing changes, and
+    ``build`` on the CPU keeps the config's own ``"flash"``. The kernel
+    wrapper itself still raises on such a CUDA call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch) if full else reduced(get_config(arch))
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    assert train.attention_impl(cfg, "cuda") == want
+    assert train.attention_impl(cfg, "cpu") == cfg.attn_impl == "flash"
+    gap = train.kernel_gap(cfg)
+    if want == "chunked":
+        assert gap == f"no CUDA kernel for {cfg.dtype} d_head {cfg.d_head}"
+    else:
+        assert gap is None
+    if not full:
+        built, *_ = train.build(arch, False, 2, 8, device="cpu")
+        assert built.attn_impl == "flash"

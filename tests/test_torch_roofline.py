@@ -73,9 +73,9 @@ def test_registry_lists_the_jax_cells():
         assert [(a, dataclasses.asdict(s)) for a, s in C.cells(inapplicable)] == \
             [(a, dataclasses.asdict(s)) for a, s in J.cells(inapplicable)]
     assert len(C.cells(include_inapplicable=True)) == 40
-    # the ported architectures only: the MoE and larger dense configs are data
-    assert set(C.ARCHS) == {"bert4rec", "din", "dlrm-mlperf", "fm", "granite-3-2b",
-                            "meshgraphnet", "qwen3-0.6b", "sm-cnn"}
+    # the architectures the launcher trains: the MoE configs are data here
+    assert set(C.ARCHS) == {"bert4rec", "deepseek-coder-33b", "din", "dlrm-mlperf", "fm",
+                            "granite-3-2b", "meshgraphnet", "qwen3-0.6b", "sm-cnn"}
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
