@@ -232,8 +232,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             dv and group 0's dq equal to plain's, in both types; coder's
             H=56, Hkv=8 at 4 x 2048 timed in bfloat16 (two calls bit-equal,
             plain, SDPA with enable_gqa, the bound, device ms by kernel) and
-            in float32; under the port's counter a forward and backward on
-            the card read the formulas
+            in float32; then deepseek-moe-16b's heads (H=16, Hkv=16,
+            d=128: G=1) in both routes, the kernel and the forward's lse
+            against plain at the (B, S) set above, timed at TRAIN_B x
+            TRAIN_S in bfloat16 (with the forward with its lse: device ms and
+            bound too) and float32 as d=128 is; under the port's counter a
+            forward and backward on the card read the formulas
   lm-train  qwen3-0.6b's training path: float32 at full width cut to 2
             layers, the loss and every gradient leaf through the kernels
             ("flash") against plain autograd ("chunked"), every leaf
@@ -277,6 +281,30 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             no attention kernel is compiled, so the launcher trains them on
             "chunked" and prints attn=chunked (no CUDA kernel for float32
             d_head 16); each exits 0
+  lm-moe-train  deepseek-moe-16b's training path, its attention on the
+            kernels both ways at G=1 (held against plain in attn-bwd): (a) at
+            full width cut to 2 layers in float32, where routing cannot
+            differ (a bfloat16 x routes some tokens to other experts than
+            its float32 copy, whose expert gradients then differ far past
+            granite's 0.04): each layer's (idx, keep) through the float32
+            kernels equal to float32 chunked's, and to its own recompute
+            under remat, then the loss and every gradient leaf within
+            TRAIN_GRAD_REL of plain autograd, every leaf nonzero, 2 forward
+            and 1 backward launches a layer; remat off against on: the
+            loss, the gradients and the drop share; the bfloat16 model
+            (the same weights) through the bfloat16 kernels: its loss within
+            MOE_BF16_LOSS_REL of the float32 one, every gradient finite, the
+            share of (token, choice) pairs routed to another expert printed;
+            (b) full width cut to MOE_TRAIN_LAYERS = 4 layers, built as the
+            launcher builds an LM, 12 steps of 4 x 2048 through
+            Trainer(donate=True) + adamw: 8 forward and 4 backward launches
+            a step, the loss falling, step ms, tokens/s, peak memory (4 GB
+            of the card left), busy share, the step's roofline share, the
+            drop share (count_drops) and moe_aux at the first and last
+            steps; (c) python -m repro_torch.launch.train --arch
+            deepseek-moe-16b --steps 3 and --arch moonshot-v1-16b-a3b
+            --steps 3, reduced on the card, on "chunked" with the attn= line,
+            each printing moe_aux in its final line and exiting 0
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
             and bfloat16, with and without weights; ids outside the table
@@ -364,7 +392,7 @@ lm-granite-check, lm-granite, attn-g7, lm-coder-check, lm-coder,
 bag-kernel, rec-check and rec phases run under torch.inference_mode()
 (attn-d64's float32 and attn-g7's past-128 refusals with the gradient
 outside it); attn-bwd, lm-train, lm-granite-train, lm-coder-train,
-bag-bwd, rec-train,
+lm-moe-train, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -386,6 +414,8 @@ beside it, it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
 import json
 import math
 import os
@@ -608,6 +638,25 @@ GRANITE_CLI = ("--arch", "granite-3-2b", "--full", "--batch", "1", "--seq-len", 
 CODER_TRAIN_LAYERS = 4
 CODER_CLIS = (("--arch", "qwen3-0.6b", "--steps", "3"),
               ("--arch", "deepseek-coder-33b", "--steps", "3"))
+#: lm-moe-train: deepseek-moe-16b at full width, lm-coder-train's schedule.
+#: (a) Its check at GRANITE_CHECK_LAYERS layers compares float32 with
+#: float32: the router takes x in float32 whatever the model's type, so a
+#: bfloat16 model routes some tokens otherwise than its float32 copy (a CPU
+#: rehearsal at d_model 512 with deepseek's experts, heads and vocabulary
+#: moved 0.93-0.96% of the (token, choice) pairs, and the worst expert leaf
+#: by 0.11-0.13 of its norm), so the bfloat16 model is held by its loss
+#: only, within MOE_BF16_LOSS_REL of the float32 one (the rehearsal:
+#: 7.6e-5 and 2.0e-4). (b) The model cut to MOE_TRAIN_LAYERS layers: all 28
+#: hold 1.688e10 parameters, whose 16 B each of training state are 270 GB;
+#: 4 layers and both tables hold 2.771e9 (44.3 GB), coder's cut, and a step
+#: of 4 x 2048 under remat with the zero-filled stacked expert gradients
+#: (1.48 GB a leaf) of each layer's backward peaks at 57.0 GB allocated on
+#: an NVIDIA H100 80GB HBM3; each more layer adds 9.4 GB of state. (c) The
+#: launcher's reduced MoE configs on the card (float32, d_head 16:
+#: "chunked")
+MOE_TRAIN_LAYERS = 4
+MOE_BF16_LOSS_REL = 2e-3
+MOE_CLIS = (("--arch", MOE_ARCH, "--steps", "3"), ("--arch", MOONSHOT_ARCH, "--steps", "3"))
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -3331,6 +3380,8 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
         "fwd_lse_plain": lambda: FA.flash_attention_fwd_plain(q, k, v),
         "fwd_lse_library": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)}, iters=20))
+    fwd_dev_ms = _queued_ms(torch, lambda: FA._launch(q, k, v, with_lse=True), 20)
+    fwd_bd = analysis.bound(*analysis.attention_work(b, s, h, hkv, d, dtype, lse=True), dtype)
     dev_ms = _queued_ms(torch, fns["kernel"], 10)
     lib_dev_ms = _queued_ms(torch, library, 10)
     # the three kernels of a call: the statistics pass, dk/dv, dq
@@ -3338,7 +3389,8 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
         torch, fns["kernel"], ("flash_bwd_stats", "flash_bwd_dkdv", "flash_bwd_dq"), 3)
     bd = analysis.bound(*analysis.attention_bwd_work(b, s, h, hkv, d, dtype), dtype)
     timing = dict(t, bound_ms=bd.ms, bound_by=bd.by, device_ms=dev_ms,
-                  library_device_ms=lib_dev_ms, device_split=split)
+                  library_device_ms=lib_dev_ms, device_split=split,
+                  fwd_lse_device_ms=fwd_dev_ms, fwd_lse_bound_ms=fwd_bd.ms)
     log(f"attn-bwd: {tag} {dtype} kernel_ms={t['kernel']:.5f} "
         f"kernel_device_ms={dev_ms:.5f} "
         f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
@@ -3350,10 +3402,11 @@ def _bwd_timed(torch, b, s, h, hkv, d, gen, max_err, lse_err, key) -> dict:
         ", ".join(f"{name[len('flash_bwd_'):]} {ms:.5f}" for name, ms in split.items())
         if split else f"not measured (each of {PROFILE_ATTEMPTS} sessions lost "
                       f"kernel records)"))
-    log(f"attn-bwd: forward {tag} {dtype} with lse {t['fwd_lse']:.5f} ms, "
-        f"without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f}); plain "
-        f"forward with lse {t['fwd_lse_plain']:.5f} ms; SDPA forward with grad on "
-        f"{t['fwd_lse_library']:.5f} ms")
+    log(f"attn-bwd: forward {tag} {dtype} with lse {t['fwd_lse']:.5f} ms (device "
+        f"{fwd_dev_ms:.5f}), without {t['fwd']:.5f} ms (ratio {t['fwd_lse'] / t['fwd']:.4f}); "
+        f"plain forward with lse {t['fwd_lse_plain']:.5f} ms; SDPA forward with grad on "
+        f"{t['fwd_lse_library']:.5f} ms; "
+        + _bound_text(fwd_bd, t["fwd_lse"], f"attn-bwd: forward with lse {tag}", fwd_dev_ms))
     del q, k, v, dout, out, lse, qt, kt, vt, lib_out, dout_t, fns
     torch.cuda.empty_cache()
     return timing
@@ -3415,7 +3468,7 @@ def _bwd_timed_f32(torch, b, s, h, hkv, d, gen, max_err, key) -> dict:
 
 
 
-def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg) -> dict:
+def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg, moe_cfg) -> dict:
     """The attention's backward kernel against the plain backward on the
     card at qwen3-0.6b's widths, and the forward's lse against the plain
     lse; then the backward's times, the plain backward's, SDPA's backward
@@ -3434,7 +3487,11 @@ def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg) -> dict:
     (``_fenced_launch``, ``_fenced_bwd``); inf and NaN in q and dout of
     head G (group 1's first) leaving group 0's dq and KV head 0's dk and dv
     equal to plain's; coder's H=56, Hkv=8 at TRAIN_B x TRAIN_S timed in
-    bfloat16 as d=128 is and in float32 at BWD_TIMED_F32. Inputs are randn,
+    bfloat16 as d=128 is and in float32 at BWD_TIMED_F32. deepseek-moe-16b's
+    heads (``moe_cfg``: H=16, Hkv=16, d=128, G=1) in both routes: the
+    kernel and the forward's lse against plain at BWD_SHAPES and
+    BWD_DIAGONAL_S, and at TRAIN_B x TRAIN_S timed in bfloat16 as d=128 is
+    and in float32. Inputs are randn,
     the incoming gradient too. Last, the port's counter on the card: a
     forward and backward through FlashAttention, whose backward runs on
     autograd's own thread, reads the two work formulas."""
@@ -3451,10 +3508,15 @@ def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg) -> dict:
     # bfloat16 at granite-3-2b's d=64 (H=32, Hkv=8: G=4), each keyed by
     # dtype (and width) in routes, max_err and lse_err
     gh, ghkv, gd = granite_cfg.n_heads, granite_cfg.n_kv_heads, granite_cfg.d_head
+    mh, mhkv, md = moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.d_head
+    check(mh == mhkv and md == d, f"{moe_cfg.name}'s attention is not G=1 at d={d}")
     cases = (("float32", "float32", h, hkv, d), ("bfloat16", "bfloat16", h, hkv, d),
-             ("bfloat16_d64", "bfloat16", gh, ghkv, gd))
+             ("bfloat16_d64", "bfloat16", gh, ghkv, gd),
+             ("float32_g1", "float32", mh, mhkv, md), ("bfloat16_g1", "bfloat16", mh, mhkv, md))
     routes = {}
     for key, dtype, _, _, dd in cases:
+        if key.endswith("_g1"):   # G=1 runs d=128's instances
+            continue
         routes[key] = FA.bwd_route_info(getattr(torch, dtype), dd)
         for name, info in routes[key].items():
             log(f"attn-bwd: {dtype} d={dd} {name} kernel ({info['design']}): "
@@ -3500,6 +3562,11 @@ def phase_attn_bwd(torch, cfg, granite_cfg, coder_cfg) -> dict:
     # the float32 route (3xTF32), timed as above
     timings[(*BWD_TIMED_F32, "float32")] = _bwd_timed_f32(torch, *BWD_TIMED_F32, h, hkv, d,
                                                           gen, max_err, "float32")
+    # G=1 (deepseek-moe-16b's MHA), the training step's shape in both types
+    timings[(TRAIN_B, TRAIN_S, "g1")] = _bwd_timed(torch, TRAIN_B, TRAIN_S, mh, mhkv, md, gen,
+                                                   max_err, lse_err, "bfloat16_g1")
+    timings[(*BWD_TIMED_F32, "float32_g1")] = _bwd_timed_f32(
+        torch, *BWD_TIMED_F32, mh, mhkv, md, gen, max_err, "float32_g1")
 
     # group sizes that are not powers of two (deepseek-coder-33b's G=7), G
     # padded to the next power of two: both routes against the plain
@@ -3724,7 +3791,9 @@ def _train_clis(phase: str, n_params: int, clis) -> None:
     launcher's ``arch=`` line first (with ``--full`` at the full model's
     ``n_params``) and a ``final:`` line last; a reduced LM (float32, d_head
     16: no attention kernel) also prints the launcher's ``attn=chunked``
-    line second."""
+    line second. The ``final:`` line holds ``moe_aux``, above 0 for an MoE
+    config and 0 for a dense one."""
+    from repro_torch.configs import get_config
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     procs = [(cli, subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *cli],
@@ -3747,50 +3816,40 @@ def _train_clis(phase: str, n_params: int, clis) -> None:
               and lines[-1].startswith("final:"))
         if "--full" not in cli:
             ok = ok and lines[1] == "attn=chunked (no CUDA kernel for float32 d_head 16)"
+        if ok:
+            aux = ast.literal_eval(lines[-1][len("final:"):].strip()).get("moe_aux")
+            ok = aux is not None and (aux > 0) == (get_config(cli_arch).moe is not None)
         log(f"{phase}: python -m repro_torch.launch.train {' '.join(cli)}: exit "
             f"{proc.returncode} ({time.perf_counter() - t0:.3f} s since the launches): "
             f"{' | '.join(lines[:2] + lines[-1:])} {'ok' if ok else 'FAIL'}")
         check(ok, f"{phase}: the launcher failed: {stderr[-2000:]}")
 
 
-def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
-                        clis=()) -> dict:
-    """A bfloat16 LM's training path on the card, its attention on the
-    kernels both ways (granite-3-2b as "lm-granite-train" on the d=64
-    instances, deepseek-coder-33b as "lm-coder-train" at G=7). (a) At full
-    width cut to GRANITE_CHECK_LAYERS layers: the bfloat16 loss and the
-    gradient of every leaf through the kernels against float32 plain
-    autograd ("chunked") from the same weights, every leaf nonzero, the
-    kernels launched twice forward (remat) and once backward a layer, and
-    remat off against on. (b) The model at full width: at full depth from
-    the launcher's ``build(..., full=True)``, or, with ``n_layers``, cut to
-    that depth and built as ``build`` builds an LM (``init_lm`` from a
-    ``torch.Generator`` seeded 0 on the card, ``loss_fn``,
-    ``token_batches``); trained TRAIN_STEPS steps of TRAIN_B x TRAIN_S
-    through ``Trainer(donate=True)`` + ``adamw`` (the launcher's schedule);
-    both attention counters are set to 0 just before and read just after:
-    2 forward and 1 backward launches a layer a step; the loss falls; step
-    ms, tokens/s, peak memory (GRANITE_SPARE of the card left), busy share,
-    the step's roofline share at the (cut) config. (c) The launcher with
-    each command line of ``clis`` (``_train_clis``)."""
-    import dataclasses
-    import functools
-
-    from repro_torch.configs import LM_SHAPES
-    from repro_torch.core.treepath import tree_leaves, tree_map
+def _check_batch(torch, cfg, seed: int) -> dict:
+    """The training checks' batch: TRAIN_CHECK_B x TRAIN_CHECK_S tokens of
+    ``data/lm.py`` on the card."""
     from repro_torch.data import lm as lm_data
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch import train as launch_train
-    from repro_torch.models import transformer as tfm
-    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
-    from repro_torch.training.train_loop import Trainer
+    return {k: torch.from_numpy(v).cuda() for k, v in next(lm_data.token_batches(
+        cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S, seed=seed)).items()}
 
-    # (a) bfloat16 through the kernels against float32 plain autograd
+
+def _bf16_grad_check(torch, cfg, seed: int, phase: str) -> float:
+    """phase_lm_bf16_train's (a) for a dense LM: the model at full width cut
+    to GRANITE_CHECK_LAYERS layers, its bfloat16 loss and every gradient
+    leaf through the kernels (remat) against float32 plain autograd
+    ("chunked") from the same weights, every leaf nonzero, 2 forward and 1
+    backward launches a layer, and remat off against on. Returns the worst
+    leaf's error norm over its gradient's."""
+    import dataclasses
+
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+
     n_cut = GRANITE_CHECK_LAYERS
     cut = dataclasses.replace(cfg, n_layers=n_cut)
     params = tfm.init_lm(cut, torch.Generator("cuda").manual_seed(seed), "cuda")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in next(lm_data.token_batches(
-        cfg.vocab_size, TRAIN_CHECK_B, TRAIN_CHECK_S, seed=seed)).items()}
+    batch = _check_batch(torch, cfg, seed)
 
     def loss_and_grads(c, p):
         live = tree_map(lambda t: t.detach().requires_grad_(True), p)
@@ -3831,6 +3890,181 @@ def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
               f"rel {loss_rel}, worst leaf {worst}, {zero} zero leaves, remat {remat_worst}")
     del params, batch, flash, flash_off, ref
     torch.cuda.empty_cache()
+    return worst
+
+
+@contextlib.contextmanager
+def _routings():
+    """Records each ``moe_apply`` call's routing while open: ``(idx, keep)``
+    as integers, in call order (``models.moe.slots`` wrapped)."""
+    from repro_torch.models import moe
+    slots, seen = moe.slots, []
+
+    def recorded(idx, n_routed, c):
+        pos, keep = slots(idx, n_routed, c)
+        seen.append((idx.clone(), keep.clone()))
+        return pos, keep
+
+    moe.slots = recorded
+    try:
+        yield seen
+    finally:
+        moe.slots = slots
+
+
+def _moe_grad_check(torch, cfg, seed: int, phase: str) -> float:
+    """phase_lm_bf16_train's (a) for an MoE LM (G=1), where a bfloat16 and a
+    float32 model route some tokens to other experts: the model at full
+    width cut to GRANITE_CHECK_LAYERS layers in float32, through the float32
+    (3xTF32) kernels both ways ("flash", remat) against float32 plain
+    autograd ("chunked") from the same weights. Every layer's (idx, keep)
+    first, equal in both and equal to its own recompute under remat; then
+    the loss and every gradient leaf within TRAIN_GRAD_REL, every leaf
+    nonzero, 2 forward and 1 backward launches a layer; remat off against
+    on: the loss and every leaf within GRANITE_REMAT_REL, the drop share
+    equal. The bfloat16 model (the same weights) through the bfloat16
+    kernels: its loss within MOE_BF16_LOSS_REL of the float32 one, every
+    gradient finite, and the share of (token, choice) pairs routed to
+    another expert than in float32 printed. Returns the worst float32
+    leaf's error norm over its gradient's."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import moe, transformer as tfm
+
+    n_cut = GRANITE_CHECK_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=n_cut)
+    params = tfm.init_lm(cut, torch.Generator("cuda").manual_seed(seed), "cuda")
+    params32 = tree_map(lambda t: t.float(), params)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    batch = _check_batch(torch, cfg, seed)
+
+    def run(c, p):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        before = (FA.launches, FA.bwd_launches)
+        with _routings() as routes, moe.count_drops() as n:
+            loss, metrics = tfm.loss_fn(live, batch, c)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        torch.cuda.synchronize()
+        return {"loss": loss.item(), "aux": metrics["moe_aux"].item(), "grads": grads,
+                "routes": routes, "dropped": n.dropped, "routed": n.routed,
+                "launches": (FA.launches - before[0], FA.bwd_launches - before[1])}
+
+    flash = run(cut32, params32)
+    flash_off = run(dataclasses.replace(cut32, remat=False), params32)
+    ref = run(dataclasses.replace(cut32, attn_impl="chunked"), params32)
+    bf16 = run(cut, params)
+    check(flash["launches"] == bf16["launches"] == (2 * n_cut, n_cut)
+          and flash_off["launches"] == (n_cut, n_cut) and ref["launches"] == (0, 0),
+          f"{phase}: the check launched {flash['launches']} (float32, remat), "
+          f"{flash_off['launches']} (no remat), {ref['launches']} (chunked), "
+          f"{bf16['launches']} (bfloat16)")
+
+    # the routing first: a pair routed otherwise would change the expert
+    # leaves' gradients without raising
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    fwd = flash["routes"][:n_cut]
+    recomputed = flash["routes"][n_cut:][::-1]     # the backward runs the layers in reverse
+    ok = (len(flash["routes"]) == len(ref["routes"]) == 2 * n_cut
+          and all(same(a, b) for a, b in zip(flash["routes"], ref["routes"]))
+          and all(same(a, b) for a, b in zip(fwd, recomputed))
+          and all(same(a, b) for a, b in zip(fwd, flash_off["routes"])))
+    log(f"{phase}: float32 {cfg.name} at full width cut to {n_cut} layers, "
+        f"B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}: every layer's routing (idx, keep) through the "
+        f"float32 kernels == chunked's, == its recompute under remat, == remat off's "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{phase}: the float32 routing through the kernels differs from chunked's "
+              f"or from its recompute")
+    loss_rel = abs(flash["loss"] - ref["loss"]) / abs(ref["loss"])
+    worst, zero, remat_worst = 0.0, 0, 0.0
+    for g, g_off, w in zip(flash["grads"], flash_off["grads"], ref["grads"]):
+        worst = max(worst, (torch.linalg.vector_norm(g - w)
+                            / torch.linalg.vector_norm(w)).item())
+        zero += int(not bool(g.abs().max() > 0))
+        remat_worst = max(remat_worst, (torch.linalg.vector_norm(g - g_off)
+                                        / torch.linalg.vector_norm(g_off)).item())
+    remat_loss_rel = abs(flash["loss"] - flash_off["loss"]) / abs(flash_off["loss"])
+    share_on = flash["dropped"] / flash["routed"]
+    share_off = flash_off["dropped"] / flash_off["routed"]
+    n_leaves = len(flash["grads"])
+    ok = (loss_rel <= TRAIN_GRAD_REL and worst <= TRAIN_GRAD_REL and zero == 0
+          and remat_loss_rel <= GRANITE_REMAT_REL and remat_worst <= GRANITE_REMAT_REL
+          and share_on == share_off and flash["routed"] == 2 * flash_off["routed"])
+    log(f"{phase}: float32 loss flash (kernels, remat) {flash['loss']:.6f} vs chunked (plain "
+        f"autograd) {ref['loss']:.6f} (rel {loss_rel:.3e}, tol {TRAIN_GRAD_REL}); moe_aux "
+        f"{flash['aux']:.6f} vs {ref['aux']:.6f}; {n_leaves} gradient leaves, worst error norm "
+        f"over gradient norm {worst:.3e} (tol {TRAIN_GRAD_REL}), {zero} all-zero; launches "
+        f"fwd/bwd {flash['launches']} with remat, {flash_off['launches']} without; remat off "
+        f"vs on: loss rel {remat_loss_rel:.3e}, worst leaf {remat_worst:.3e} (tol "
+        f"{GRANITE_REMAT_REL}), drop share {share_off:.6f} vs {share_on:.6f} (pairs counted "
+        f"{flash_off['routed']} vs {flash['routed']}: remat routes each layer twice) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{phase}: float32 gradients through the kernels disagree: loss rel "
+              f"{loss_rel}, worst leaf {worst}, {zero} zero leaves, remat {remat_loss_rel} "
+              f"{remat_worst}, drop share {share_off} vs {share_on}")
+
+    # bfloat16: the loss, finite gradients, and how much of the routing moved
+    moved = sum(int((F.one_hot(b[0], cfg.moe.n_routed).sum(-2)
+                     * (1 - F.one_hot(w[0], cfg.moe.n_routed).sum(-2))).sum())
+                for b, w in zip(bf16["routes"][:n_cut], ref["routes"][:n_cut]))
+    pairs = sum(b[0].numel() for b in bf16["routes"][:n_cut])
+    bf_rel = abs(bf16["loss"] - ref["loss"]) / abs(ref["loss"])
+    finite = all(bool(torch.isfinite(g).all()) for g in bf16["grads"])
+    ok = bf_rel <= MOE_BF16_LOSS_REL and finite
+    log(f"{phase}: bfloat16 (kernels, remat) loss {bf16['loss']:.6f} vs float32 "
+        f"{ref['loss']:.6f} (rel {bf_rel:.3e}, tol {MOE_BF16_LOSS_REL}); moe_aux "
+        f"{bf16['aux']:.6f}; every gradient finite: {finite}; (token, choice) pairs routed to "
+        f"another expert than in float32: {moved} of {pairs} ({moved / pairs:.5f}); drop "
+        f"share {bf16['dropped'] / bf16['routed']:.6f} (float32 {share_on:.6f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{phase}: the bfloat16 MoE loss {bf16['loss']} is {bf_rel} from float32's, "
+              f"or a gradient is not finite")
+    del params, params32, batch, flash, flash_off, ref, bf16
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
+                        clis=()) -> dict:
+    """A bfloat16 LM's training path on the card, its attention on the
+    kernels both ways (granite-3-2b as "lm-granite-train" on the d=64
+    instances, deepseek-coder-33b as "lm-coder-train" at G=7,
+    deepseek-moe-16b as "lm-moe-train" at G=1). (a) At full width cut to
+    GRANITE_CHECK_LAYERS layers: for a dense LM the bfloat16 loss and the
+    gradient of every leaf through the kernels against float32 plain
+    autograd ("chunked") from the same weights (``_bf16_grad_check``); for
+    an MoE LM, whose routing bfloat16 moves, float32 through the float32
+    kernels against float32 chunked, the routing first
+    (``_moe_grad_check``). (b) The model at full width: at full depth from
+    the launcher's ``build(..., full=True)``, or, with ``n_layers``, cut to
+    that depth and built as ``build`` builds an LM (``init_lm`` from a
+    ``torch.Generator`` seeded 0 on the card, ``loss_fn``,
+    ``token_batches``); trained TRAIN_STEPS steps of TRAIN_B x TRAIN_S
+    through ``Trainer(donate=True)`` + ``adamw`` (the launcher's schedule);
+    both attention counters are set to 0 just before and read just after:
+    2 forward and 1 backward launches a layer a step; the loss falls; step
+    ms, tokens/s, peak memory (GRANITE_SPARE of the card left), busy share,
+    the step's roofline share at the (cut) config; an MoE LM's drop share
+    (``count_drops``) and ``moe_aux`` at the first and the last step. (c)
+    The launcher with each command line of ``clis`` (``_train_clis``)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.core.treepath import tree_leaves
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    # (a) the gradients through the kernels against plain autograd
+    worst = (_moe_grad_check if cfg.moe is not None else _bf16_grad_check)(
+        torch, cfg, seed, phase)
 
     # (b) full width, bfloat16, through a donating Trainer: at full depth
     # from the launcher's build, or cut to n_layers and built as it builds
@@ -3862,7 +4096,14 @@ def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
     FA.reset_launches()
     FA.reset_bwd_launches()
     t0 = time.perf_counter()
-    tr.run(data, max_steps=TRAIN_STEPS, log_every=0)
+    if tcfg.moe is None:
+        tr.run(data, max_steps=TRAIN_STEPS, log_every=0)
+    else:   # drops counted apart for the first step, the middle ones and the last
+        drops = []
+        for upto in (1, TRAIN_STEPS - 1, TRAIN_STEPS):
+            with moe.count_drops() as n:
+                tr.run(data, max_steps=upto, log_every=0)
+            drops.append(n)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     fwd, bwd = FA.launches, FA.bwd_launches
@@ -3881,6 +4122,19 @@ def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
         f"reserved {reserved / 1e9:.3f} GB of the card's {total / 1e9:.3f} GB")
     log(f"{phase}: flash_attention launches={fwd}, flash_attention_bwd "
         f"launches={bwd} over {TRAIN_STEPS} steps ({tcfg.n_layers} layers, remat)")
+    moe_stats = {}
+    if tcfg.moe is not None:
+        first_n, last_n = drops[0], drops[-1]
+        moe_stats = {"drop_share": (first_n.share, last_n.share),
+                     "moe_aux": (tr.history[0]["moe_aux"], tr.history[-1]["moe_aux"])}
+        log(f"{phase}: dropped (token, choice) pairs (count_drops; remat routes each layer "
+            f"twice a step): first step {first_n.dropped} of {first_n.routed} (share "
+            f"{first_n.share:.6f}), last step {last_n.dropped} of {last_n.routed} (share "
+            f"{last_n.share:.6f}); moe_aux (summed over {tcfg.n_layers} layers) first step "
+            f"{moe_stats['moe_aux'][0]:.6f}, last {moe_stats['moe_aux'][1]:.6f}")
+        check(first_n.routed == last_n.routed == 2 * tcfg.n_layers * TRAIN_B * TRAIN_S
+              * tcfg.moe.top_k, f"{phase}: count_drops counted {first_n.routed} and "
+                                f"{last_n.routed} pairs a step")
     check(fwd > 0 and bwd > 0, f"{phase}: the training path launched an attention "
                                f"kernel no time")
     check(fwd == 2 * bwd == 2 * tcfg.n_layers * TRAIN_STEPS,
@@ -3906,9 +4160,9 @@ def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
 
     # (c) the launcher itself on the card
     _train_clis(phase, n_params, clis)
-    return {"launches": fwd, "bwd_launches": bwd, "step_ms": med, "peak": peak,
-            "loss": (first, last), "roofline": roof, "grad_rel": worst,
-            "n_params": n_params, "n_layers": tcfg.n_layers}
+    return dict(moe_stats, launches=fwd, bwd_launches=bwd, step_ms=med, peak=peak,
+                loss=(first, last), roofline=roof, grad_rel=worst, n_params=n_params,
+                n_layers=tcfg.n_layers)
 
 
 # -------------------------------------------------------------- bag-kernel --
@@ -5157,7 +5411,7 @@ def main(argv=None) -> int:
         phases["lm-coder"] = time.perf_counter() - t
     # training differentiates: outside inference_mode
     t = time.perf_counter()
-    attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg, coder_cfg)
+    attn_bwd = phase_attn_bwd(torch, lm_cfg, granite_cfg, coder_cfg, moe_cfg)
     phases["attn-bwd"] = time.perf_counter() - t
     t = time.perf_counter()
     lm_train = phase_lm_train(torch, lm_cfg, args.seed)
@@ -5170,6 +5424,10 @@ def main(argv=None) -> int:
     coder_train = phase_lm_bf16_train(torch, coder_cfg, args.seed, "lm-coder-train",
                                       CODER_TRAIN_LAYERS, CODER_CLIS)
     phases["lm-coder-train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_train = phase_lm_bf16_train(torch, moe_cfg, args.seed, "lm-moe-train",
+                                    MOE_TRAIN_LAYERS, MOE_CLIS)
+    phases["lm-moe-train"] = time.perf_counter() - t
     with torch.inference_mode():
         rec_cfg = get_config("dlrm-mlperf")
         t = time.perf_counter()
@@ -5217,6 +5475,10 @@ def main(argv=None) -> int:
     tb64 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, granite_cfg.d_head)]
     tbg7 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, "g7")]
     tbg7_32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32_g7")]
+    tbg1 = attn_bwd["timings"][(TRAIN_B, TRAIN_S, "g1")]
+    tbg1_32 = attn_bwd["timings"][(*BWD_TIMED_F32, "float32_g1")]
+    shape_g1_b4 = (f"B={TRAIN_B} S={TRAIN_S} H={moe_cfg.n_heads} Hkv={moe_cfg.n_kv_heads} "
+                   f"d={moe_cfg.d_head}")
     line = {"kernels": [{
         "name": "conv_tanh_maxpool", "route": "cuda", "source": sm_cnn_conv.SOURCE,
         "replaces": sm_cnn_conv.REPLACES, "launches": pipe["launches"],
@@ -5277,6 +5539,13 @@ def main(argv=None) -> int:
                     f"Hkv={coder_cfg.n_kv_heads} d={coder_cfg.d_head}",
         "launches_coder": lm_coder["launches"],
         "launches_coder_train": coder_train["launches"],
+        "ms_with_lse_g1_b4": tbg1["fwd_lse"], "device_ms_with_lse_g1_b4": tbg1["fwd_lse_device_ms"],
+        "ms_without_lse_g1_b4": tbg1["fwd"], "plain_ms_with_lse_g1_b4": tbg1["fwd_lse_plain"],
+        "library_ms_with_lse_g1_b4": tbg1["fwd_lse_library"],
+        "bound_ms_with_lse_g1_b4": tbg1["fwd_lse_bound_ms"],
+        "lse_max_abs_err_g1": attn_bwd["lse_err"]["bfloat16_g1"],
+        "lse_max_abs_err_g1_float32": attn_bwd["lse_err"]["float32_g1"],
+        "shape_g1_b4": shape_g1_b4, "launches_moe_train": moe_train["launches"],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,
@@ -5315,6 +5584,15 @@ def main(argv=None) -> int:
         "shape_g7": f"B={TRAIN_B} S={TRAIN_S} H={coder_cfg.n_heads} "
                     f"Hkv={coder_cfg.n_kv_heads} d={coder_cfg.d_head}",
         "launches_coder_train": coder_train["bwd_launches"],
+        "max_abs_err_g1": attn_bwd["max_err"]["bfloat16_g1"],
+        "max_abs_err_g1_float32": attn_bwd["max_err"]["float32_g1"],
+        "ms_g1": tbg1["kernel"], "device_ms_g1": tbg1["device_ms"],
+        "plain_ms_g1": tbg1["plain"], "bound_ms_g1": tbg1["bound_ms"],
+        "library_ms_g1": tbg1["library"], "library_device_ms_g1": tbg1["library_device_ms"],
+        "ms_g1_float32": tbg1_32["kernel"], "device_ms_g1_float32": tbg1_32["device_ms"],
+        "plain_ms_g1_float32": tbg1_32["plain"], "bound_ms_g1_float32": tbg1_32["bound_ms"],
+        "library_ms_g1_float32": tbg1_32["library"], "shape_g1": shape_g1_b4,
+        "launches_moe_train": moe_train["bwd_launches"],
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
         "replaces": embedding_bag.REPLACES, "launches": rec["launches"],

@@ -3,23 +3,27 @@
 Every architecture of the JAX package's registry registers its full config
 and its shape set, so ``roofline.analysis.model_flops`` covers each
 (arch x shape) cell. ``ARCHS`` lists the ones the training launcher
-offers: the paper's own text-pair model, qwen3-0.6b, granite-3-2b and
-deepseek-coder-33b of the LM family, dlrm-mlperf, fm, din and bert4rec of
-the recsys family and meshgraphnet of the GNN family. granite-3-2b (d_head 64, tied embeddings)
+offers: the paper's own text-pair model, qwen3-0.6b, granite-3-2b,
+deepseek-coder-33b, deepseek-moe-16b and moonshot-v1-16b-a3b of the LM
+family, dlrm-mlperf, fm, din and bert4rec of the recsys family and
+meshgraphnet of the GNN family. granite-3-2b (d_head 64, tied embeddings)
 serves and trains through ``models.transformer`` in bfloat16, on the
 attention kernels' d=64 instances both ways (the float32 kernels take
 d_head 128 only, so a float32 granite runs the plain attention or
 nothing on the card). The MoE configs (deepseek-moe-16b,
-moonshot-v1-16b-a3b) build and serve through ``models.transformer``
-(``models/moe.py``), with the bfloat16 KV cache or, under ``kv_quant``, the
-int8 one; their training is not ported (ROADMAP.md §1 item 10f: at full
-width about 270 GB of training state). deepseek-coder-33b (56 query heads
-over 8 KV heads: G=7) serves through ``models.transformer`` in bfloat16,
-on the attention forward kernel at that group size, with the bfloat16 KV
-cache or, under ``kv_quant``, the int8 one, and trains on the attention
-kernels both ways at that group size: its reduced config through the
-launcher, its full width on one card at a cut depth (the 533 GB of
-training state of all 62 layers waits for ROADMAP.md §1 item 11).
+moonshot-v1-16b-a3b) build, serve and train through ``models.transformer``
+(``models/moe.py``; G=1, the attention kernels both ways), serving with the
+bfloat16 KV cache or, under ``kv_quant``, the int8 one; their reduced
+configs train through the launcher, and deepseek-moe-16b's full width on
+one card only at a cut depth (all 28 layers' training state is about 270
+GB, moonshot's 48 about 462 GB: ROADMAP.md §1 item 11).
+deepseek-coder-33b (56 query heads over 8 KV heads: G=7) serves through
+``models.transformer`` in bfloat16, on the attention forward kernel at that
+group size, with the bfloat16 KV cache or, under ``kv_quant``, the int8
+one, and trains on the attention kernels both ways at that group size: its
+reduced config through the launcher, its full width on one card at a cut
+depth (the 533 GB of training state of all 62 layers waits for ROADMAP.md
+§1 item 11).
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ _MODULES = {
 ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "sm-cnn")
 #: every architecture whose model is ported so far (the training
 #: launcher's ``--arch`` choices)
-ARCHS = ("bert4rec", "deepseek-coder-33b", "din", "dlrm-mlperf", "fm", "granite-3-2b",
-         "meshgraphnet", "qwen3-0.6b", "sm-cnn")
+ARCHS = ("bert4rec", "deepseek-coder-33b", "deepseek-moe-16b", "din", "dlrm-mlperf", "fm",
+         "granite-3-2b", "meshgraphnet", "moonshot-v1-16b-a3b", "qwen3-0.6b", "sm-cnn")
 
 
 def get_config(arch: str):

@@ -22,6 +22,7 @@ loop (``training.train_loop``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-coder-33b --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-moe-16b --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full \\
       --batch 4 --seq-len 2048 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b --full \\
@@ -42,9 +43,18 @@ moments (384.5 GB), so it waits for the sharded table of ROADMAP.md §1
 item 11; so does ``--full`` deepseek-coder-33b (3.334e10 parameters at 16
 bytes each: 533 GB), whose reduced config trains here and whose full width
 trains on one card only at a cut depth (``chip_smoke.py``'s lm-coder-train,
-4 of its 62 layers). The data are the port's numpy generators with the JAX launcher's
-seeds, so both launchers see the same batches; the weights are drawn from
-``torch.Generator`` seed 0 on the device, so they are not JAX's.
+4 of its 62 layers). The MoE configs (deepseek-moe-16b,
+moonshot-v1-16b-a3b) train their reduced configs here (float32 at d_head 16:
+on the card on ``"chunked"``, with the ``attn=`` line) and print the summed
+load-balance loss, ``moe_aux``, among the final metrics, as the JAX
+launcher does; ``--full`` for them does not fit one card either:
+deepseek-moe-16b's 1.688e10 parameters need 270 GB of training state and
+moonshot-v1-16b-a3b's 2.889e10 need 462 GB, so they wait for item 11 too
+(deepseek-moe-16b's full width trains on one card at 4 of its 28 layers in
+``chip_smoke.py``'s lm-moe-train). The data are the port's numpy
+generators with the JAX launcher's seeds, so both launchers see the same
+batches; the weights are drawn from ``torch.Generator`` seed 0 on the
+device, so they are not JAX's.
 """
 from __future__ import annotations
 
@@ -154,8 +164,9 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="full config, trained with donated (in-place) updates "
                          "(qwen3-0.6b and granite-3-2b fit one 80 GB card; "
-                         "dlrm-mlperf's 384.5 GB and deepseek-coder-33b's 533 GB "
-                         "of state do not)")
+                         "dlrm-mlperf's 384.5 GB, deepseek-coder-33b's 533 GB, "
+                         "deepseek-moe-16b's 270 GB and moonshot-v1-16b-a3b's "
+                         "462 GB of state do not)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card cuda raises")
     args = ap.parse_args(argv)

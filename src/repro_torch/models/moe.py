@@ -23,9 +23,21 @@ Shared experts are one fused SwiGLU of width ``n_shared * d_expert`` added to
 every token. The expert products are plain torch (``torch.bmm``), as they are
 ``jnp.einsum`` outside any Pallas kernel in the JAX package.
 
+Training differentiates ``moe_apply`` with autograd, and its gradient is
+``jax.grad``'s of the JAX function for every input: the router's through the
+kept weights and, through ``probs``, the aux loss (the top-k's indices
+and the top-1 one-hot carry none); x's through the router, the shared
+experts and the dispatch gather, whose backward accumulates each token's
+rows; a dropped pair's slot, read at weight 0, gets exactly 0 from it, as
+in JAX.
+
 ``count_drops()`` counts the pairs ``moe_apply`` routes and drops while it
-is entered, for a caller that wants a run's drop share; ``moe_apply_dense``
-is the plain reference it is held against (every expert on every token).
+is entered, for a caller that wants a run's drop share. A count is of
+``moe_apply`` calls: under ``cfg.remat`` a training step runs each layer's
+``moe_apply`` twice (the forward, then again in the backward, routing the
+same pairs), so both counts double and the share is the step's.
+``moe_apply_dense`` is the plain reference ``moe_apply`` is held against
+(every expert on every token).
 ``moe_apply_a2a`` (expert parallelism across cards) is not ported
 (ROADMAP.md §1 item 11).
 """
@@ -134,7 +146,8 @@ _open_counts: List[DropCount] = []
 @contextlib.contextmanager
 def count_drops():
     """``with count_drops() as n:`` counts every ``moe_apply`` call of the
-    block (in any thread of the process) into ``n``."""
+    block (in any thread of the process, autograd's backward among them)
+    into ``n``; a rematerialised layer's recompute counts again."""
     n = DropCount()
     _open_counts.append(n)
     try:

@@ -29,13 +29,15 @@ Training differentiates ``forward`` with autograd. Under ``"flash"`` the
 attention's gradient is the attention module's own backward
 (``FlashAttention``: the CUDA backward kernel on the card, the plain
 backward on the CPU), the port of ``flash_attention_jnp``'s custom VJP, so
-every parameter gets its gradient and no (S, S) scores are kept. With
+every parameter gets its gradient and no (S, S) scores are kept; an MoE
+layer's is autograd's through ``moe.moe_apply`` (each layer's router and
+shared experts among the leaves). With
 ``cfg.remat`` (every LM config's default) each layer is rematerialised, the
 twin of the JAX package's ``jax.checkpoint``: ``forward`` keeps only each
 layer's input and runs the layer again in the backward
 (``torch.utils.checkpoint``, non-reentrant), so a training step runs the
 attention forward twice a layer and its backward once; the values are the
-same as without it. Remat acts only where grad is enabled: ``prefill`` and
+same as without it, an MoE layer's recomputed routing included. Remat acts only where grad is enabled: ``prefill`` and
 serving run under ``torch.inference_mode()`` and keep nothing.
 
 The int8 KV cache (``cfg.kv_quant``) is JAX's, KIVI-style: each new
@@ -230,7 +232,7 @@ def make_train_step(cfg: LMConfig, optimizer) -> Callable:
     metrics)``: ``loss_fn``'s value and its gradient with respect to every
     leaf of the parameter tree (``train_loop.value_and_grad``, the
     ``Trainer``'s own, which raises if a leaf is not reached: every leaf of a
-    dense LM is), then the optimizer's update. The step differentiates
+    dense or MoE LM is), then the optimizer's update. The step differentiates
     detached copies of the params and returns new trees, so it mutates none
     of its inputs."""
     def step(params, opt_state, batch):

@@ -9,9 +9,9 @@ qwen3-0.6b`` for 3 steps on the CPU and prints the JAX launcher's lines
 with a finite loss; the JAX launcher's flags are all there; a checkpoint
 directory resumes; BERT4Rec and the gnn family build the JAX launcher's
 batches and trees and train through ``main``; a card that is not there
-raises; ``--arch`` offers only the ported architectures, while the
-registry also holds the configs whose models are not ported; reduced
-granite-3-2b trains through ``main``, and ``--full`` trains with the
+raises; ``--arch`` offers the ported architectures, the MoE configs among
+them, whose reduced configs train through ``main`` and print ``moe_aux``;
+reduced granite-3-2b trains through ``main``, and ``--full`` trains with the
 ``Trainer``'s donated updates; deepseek-coder-33b builds the JAX
 launcher's batches and tree; on the card an LM config with no attention
 kernel for its dtype and d_head (the reduced ones: float32, d_head 16)
@@ -191,46 +191,56 @@ def test_cuda_without_a_card_raises():
         train.build("qwen3-0.6b", False, 2, 8)
 
 
-def test_arch_offers_only_the_ported_architectures(capsys):
-    """The MoE configs register for the roofline and their models serve,
-    but MoE training is not ported: ``--arch`` offers only ``ARCHS``, which
-    since deepseek-coder-33b trains (G=7 both ways) holds it too. The MoE
-    configs' reduced configs build and run ``forward``, and a decode step on
-    the int8 KV cache, as the JAX launcher serves a model above 5e9
-    parameters."""
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "moonshot-v1-16b-a3b"])
+def test_arch_offers_only_the_ported_architectures(arch, capsys):
+    """``--arch`` offers ``ARCHS``, every architecture whose model trains in
+    the port: the MoE configs among them since their training is ported.
+    ``main`` trains each MoE config's reduced config on the CPU and prints
+    the JAX launcher's ``arch=`` line and a ``final:`` line with the summed
+    load-balance loss (``moe_aux``, above 0); an architecture outside the
+    registry is refused with the usage line's choices. The reduced config
+    also decodes a step on the int8 KV cache, as the JAX launcher serves a
+    model above 5e9 parameters."""
     import dataclasses
 
     from repro_torch.configs import ARCHS, get_config, reduced
     from repro_torch.models import transformer as tfm
-    assert "deepseek-coder-33b" in ARCHS and "granite-3-2b" in ARCHS
+    assert len(ARCHS) == 11 and arch in ARCHS
+    assert {"deepseek-coder-33b", "granite-3-2b", "qwen3-0.6b"} <= set(ARCHS)
     offered = "{" + ",".join(ARCHS) + "}"   # the usage line's choices
-    for arch in ("deepseek-moe-16b", "moonshot-v1-16b-a3b"):
-        assert arch not in ARCHS
-        with pytest.raises(SystemExit):
-            train.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
-        assert offered in capsys.readouterr().err
-        cfg = reduced(get_config(arch))
-        params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
-        logits, aux = tfm.forward(params, torch.zeros((1, 8), dtype=torch.long), cfg)
-        assert tuple(logits.shape) == (1, 8, cfg.vocab_padded)
-        assert bool(torch.isfinite(logits).all()) and math.isfinite(float(aux))
-        assert get_config(arch).n_params() > 5e9
-        cfgq = dataclasses.replace(cfg, kv_quant=True)
-        cache = tfm.init_cache(cfgq, 1, 8, device="cpu")
-        assert cache["v"].dtype == torch.int8 and cache["v_scale"].dtype == torch.float32
-        logits, cache = tfm.decode_step(params, cache, torch.zeros((1,), dtype=torch.long),
-                                        torch.zeros((1,), dtype=torch.int32), cfgq)
-        assert tuple(logits.shape) == (1, cfg.vocab_padded)
-        assert bool(torch.isfinite(logits).all()) and bool((cache["v_scale"][:, 0, 0] > 0).all())
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "not-an-arch", "--steps", "1", "--device", "cpu"])
+    assert offered in capsys.readouterr().err
+    _, jparams, _, _ = jax_train.build(arch, False, 16, 64)
+    n = sum(int(np.prod(p.shape)) for p in jax.tree.leaves(jparams))
+    train.main(["--arch", arch, "--steps", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == f"arch={arch} family=lm params={n:,}"
+    assert lines[-1].startswith("final: {")
+    final = ast.literal_eval(lines[-1][len("final: "):])
+    assert math.isfinite(final["loss"]) and final["moe_aux"] > 0
+    cfg = reduced(get_config(arch))
+    assert get_config(arch).n_params() > 5e9
+    params = tfm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    cache = tfm.init_cache(cfgq, 1, 8, device="cpu")
+    assert cache["v"].dtype == torch.int8 and cache["v_scale"].dtype == torch.float32
+    logits, cache = tfm.decode_step(params, cache, torch.zeros((1,), dtype=torch.long),
+                                    torch.zeros((1,), dtype=torch.int32), cfgq)
+    assert tuple(logits.shape) == (1, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits).all()) and bool((cache["v_scale"][:, 0, 0] > 0).all())
 
 
 @pytest.mark.parametrize("arch,full,dtype,want", [
     ("qwen3-0.6b", False, None, "chunked"),          # reduced: float32, d_head 16
     ("deepseek-coder-33b", False, None, "chunked"),
     ("granite-3-2b", False, None, "chunked"),
+    ("deepseek-moe-16b", False, None, "chunked"),
+    ("moonshot-v1-16b-a3b", False, None, "chunked"),
     ("qwen3-0.6b", True, None, "flash"),             # bfloat16, d_head 128
     ("granite-3-2b", True, None, "flash"),           # bfloat16, d_head 64
     ("deepseek-coder-33b", True, None, "flash"),     # bfloat16, d_head 128, G=7
+    ("deepseek-moe-16b", True, None, "flash"),       # bfloat16, d_head 128, G=1
     ("qwen3-0.6b", True, "float32", "flash"),        # float32 at 128: both ways
     ("granite-3-2b", True, "float32", "chunked"),    # float32 at 64: no kernel
 ])

@@ -73,9 +73,10 @@ def test_registry_lists_the_jax_cells():
         assert [(a, dataclasses.asdict(s)) for a, s in C.cells(inapplicable)] == \
             [(a, dataclasses.asdict(s)) for a, s in J.cells(inapplicable)]
     assert len(C.cells(include_inapplicable=True)) == 40
-    # the architectures the launcher trains: the MoE configs are data here
-    assert set(C.ARCHS) == {"bert4rec", "deepseek-coder-33b", "din", "dlrm-mlperf", "fm",
-                            "granite-3-2b", "meshgraphnet", "qwen3-0.6b", "sm-cnn"}
+    # the architectures the launcher trains: every one the JAX launcher
+    # offers, since the MoE configs train
+    assert set(C.ARCHS) == set(J.ASSIGNED_ARCHS) | {"sm-cnn"}
+    assert {"deepseek-moe-16b", "moonshot-v1-16b-a3b"} <= set(C.ARCHS)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
