@@ -305,6 +305,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             deepseek-moe-16b --steps 3 and --arch moonshot-v1-16b-a3b
             --steps 3, reduced on the card, on "chunked" with the attn= line,
             each printing moe_aux in its final line and exiting 0
+  lm-moe-a2a  expert parallelism (models/moe.py moe_apply_a2a) through
+            real NCCL collectives at world size 1: a default process group
+            on the nccl backend (a file:// store under build/; a failed
+            initialisation fails the phase, nothing falls back to gloo or
+            the CPU) and make_mesh((1, 1), ("data", "model")) on the card,
+            destroyed before the later phases. (a) On reduced
+            deepseek-moe-16b in float32: at capacity 8.0 the a2a within
+            A2A_GATHER_TOL of moe_apply on the card; at the config's own
+            capacity (pairs drop) the card's a2a against the CPU's (a gloo
+            group and a CPU mesh) on the same inputs, each dispatch's
+            (slot, kept) equal first, then y within A2A_Y_ATOL; the MoE LM
+            (2 layers, "chunked") under activation_sharding(..., moe_a2a=
+            True): each layer's routing equal, then the loss and every
+            gradient leaf card == CPU within A2A_GRAD_REL (error norm over
+            gradient norm); compress_with_feedback's int8 payloads and
+            scales and compressed_psum's means and errors over the NCCL
+            group == the CPU's over gloo, bit for bit. (b) deepseek-moe-16b
+            at full width and depth in bfloat16, prefill 8 x 2048 through
+            the a2a under activation_sharding(mesh, lm_rules(mesh),
+            moe_a2a=True): tokens/s, the roofline share, the two-level drop
+            share, attention launches (one a layer a prefill) and the c10d
+            collectives the counter reads (3 all-to-alls and 2 all-reduces
+            a layer), beside lm-moe's gather-path prefill. (c) The model
+            cut to MOE_TRAIN_LAYERS layers, A2A_TRAIN_STEPS steps of 4 x
+            2048 through Trainer(donate=True) + adamw in the context: step
+            ms, tokens/s, peak, share, whether the loss fell (means of 3),
+            beside lm-moe-train
   bag-kernel  the EmbeddingBag kernel against its plain version: at
             tests/test_kernels.py's shapes and a ragged bag count, float32
             and bfloat16, with and without weights; ids outside the table
@@ -392,7 +419,7 @@ lm-granite-check, lm-granite, attn-g7, lm-coder-check, lm-coder,
 bag-kernel, rec-check and rec phases run under torch.inference_mode()
 (attn-d64's float32 and attn-g7's past-128 refusals with the gradient
 outside it); attn-bwd, lm-train, lm-granite-train, lm-coder-train,
-lm-moe-train, bag-bwd, rec-train,
+lm-moe-train, lm-moe-a2a, bag-bwd, rec-train,
 rec-family, bert4rec and gnn differentiate, outside it (their serving steps
 under it).
 A kernel's "ms" is the mean over calls between two CUDA events with the
@@ -657,6 +684,16 @@ CODER_CLIS = (("--arch", "qwen3-0.6b", "--steps", "3"),
 MOE_TRAIN_LAYERS = 4
 MOE_BF16_LOSS_REL = 2e-3
 MOE_CLIS = (("--arch", MOE_ARCH, "--steps", "3"), ("--arch", MOONSHOT_ARCH, "--steps", "3"))
+#: lm-moe-a2a: (a) reduced deepseek-moe-16b's MoE and its LM on A2A_CHECK_B x
+#: A2A_CHECK_S tokens, the MoE's sharing a direction of A2A_SKEW times their
+#: scale (uneven load: pairs drop at the config's capacity 1.5, as in
+#: tests/test_torch_moe_a2a.py); the a2a against moe_apply at
+#: capacity 8.0 within tests/test_moe_a2a.py's 2e-4; card against CPU: y
+#: within A2A_Y_ATOL, the LM's gradient leaves within A2A_GRAD_REL (error
+#: norm over gradient norm). (c) A2A_TRAIN_STEPS training steps
+A2A_CHECK_B, A2A_CHECK_S, A2A_SKEW = 4, 32, 1.5
+A2A_GATHER_TOL, A2A_Y_ATOL, A2A_GRAD_REL = 2e-4, 1e-5, 1e-5
+A2A_TRAIN_STEPS = 6
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -922,7 +959,9 @@ def _step_roofline(torch, arch: str, shape, run, median_ms: float, what: str,
                               f"ms is past {SHARE_CAP}")
     return {"bound_ms": r.bound_s * 1e3, "bound_by": r.bound_by, "share": share,
             "model_flops": r.model_flops, "flops": counted.flops,
-            "useful_ratio": r.useful_ratio}
+            "useful_ratio": r.useful_ratio, "collectives": dict(counted.n_collectives),
+            "collective_bytes": dict(counted.collective_bytes),
+            "link_bytes": counted.link_bytes}
 
 
 def phase_kernel(torch, cfg) -> dict:
@@ -2645,7 +2684,7 @@ def phase_lm(torch, cfg, seed: int, name: str = "lm", long_len: int = LM_LONG,
             torch, cfg.name,
             dataclasses.replace(prefill_32k, seq_len=LM_SEQ, global_batch=LM_BATCH),
             lambda: tfm.prefill(params, toks, cfg), med8 * 1e3,
-            f"{name}: prefill B={LM_BATCH} S={LM_SEQ}")
+            f"{name}: prefill B={LM_BATCH} S={LM_SEQ}", cfg=cfg)
     out = {"launches": launches, "prefill_ms": med8 * 1e3, "decode_ms": med_step * 1e3,
            "long_ms": best_long * 1e3, "peak": peak8, "init_peak": init_peak,
            "share": roof["share"]}
@@ -2784,7 +2823,7 @@ def _int8_decode(torch, cfg, params, cache: dict, gen_toks, name: str, b: int) -
     roof = _step_roofline(
         torch, cfg.name, dataclasses.replace(decode_32k, global_batch=b),
         lambda: tfm.decode_step(params, qcache, q_toks[:, LM_DECODE - 1], last, cfgq),
-        med * 1e3, f"{name}: int8 decode B={b}")
+        med * 1e3, f"{name}: int8 decode B={b}", cfg=cfg)
     # reference fault 10: model_bytes reads the cache at 2 B an element
     # under kv_quant too (parity keeps it); the int8 cache's own bytes beside
     weights = cfg.n_params() * 2.0
@@ -4165,6 +4204,293 @@ def phase_lm_bf16_train(torch, cfg, seed: int, phase: str, n_layers=None,
                 n_layers=tcfg.n_layers)
 
 
+# -------------------------------------------------------------- lm-moe-a2a --
+
+def _a2a_inputs(torch, cfg, seed: int):
+    """reduced(deepseek-moe-16b)'s MoE parameters (float32, on the CPU, from
+    ``seed``) and x (A2A_CHECK_B x A2A_CHECK_S tokens sharing a direction of
+    A2A_SKEW times their scale)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.moe_params(gen, cfg, torch.float32)
+    x = torch.randn(A2A_CHECK_B, A2A_CHECK_S, cfg.d_model, generator=gen)
+    return p, x + A2A_SKEW * torch.randn(1, 1, cfg.d_model, generator=gen)
+
+
+def _a2a_checks(torch, cfg, seed: int, mesh, cpu_mesh, cpu_group) -> dict:
+    """lm-moe-a2a (a): the all-to-all on the card against moe_apply and
+    against the CPU's all-to-all, the MoE LM's gradients through it card ==
+    CPU, the compression collectives card == CPU."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.data import lm as lm_data
+    from repro_torch.distributed.context import activation_sharding, lm_rules
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.training import compression
+
+    @contextlib.contextmanager
+    def recorded():     # each _local_dispatch call's (slot, kept), in call order
+        orig, seen = moe._local_dispatch, []
+
+        def rec(x, ids, n_buckets, cap, valid=None):
+            buf, slot, kept = orig(x, ids, n_buckets, cap, valid)
+            seen.append((slot.cpu(), kept.cpu()))
+            return buf, slot, kept
+        moe._local_dispatch = rec
+        try:
+            yield seen
+        finally:
+            moe._local_dispatch = orig
+
+    def cuda(tree):
+        return tree_map(lambda t: t.cuda(), tree)
+
+    out = {}
+    p, x = _a2a_inputs(torch, cfg, seed)
+    # capacity 8.0: no pair drops, the a2a == the gather formulation
+    ample = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    with torch.inference_mode():
+        y, _ = moe.moe_apply_a2a(cuda(p), x.cuda(), ample, mesh)
+        y_ref, _ = moe.moe_apply(cuda(p), x.cuda(), ample)
+    err = (y - y_ref).abs().max().item()
+    log(f"lm-moe-a2a: (a) {cfg.name} float32 MoE on {A2A_CHECK_B}x{A2A_CHECK_S} tokens, "
+        f"capacity 8.0: moe_apply_a2a vs moe_apply on the card max abs err {err:.3e} "
+        f"(tol {A2A_GATHER_TOL}) {'ok' if err <= A2A_GATHER_TOL else 'FAIL'}")
+    check(err <= A2A_GATHER_TOL, f"lm-moe-a2a: a2a vs moe_apply {err}")
+    out["gather_err"] = err
+
+    # the config's own capacity (pairs drop): card == CPU, routing first
+    with torch.inference_mode():
+        with recorded() as seen_card, moe.count_drops() as n_card:
+            y_card, aux_card = moe.moe_apply_a2a(cuda(p), x.cuda(), cfg, mesh)
+        with recorded() as seen_cpu, moe.count_drops() as n_cpu:
+            y_cpu, aux_cpu = moe.moe_apply_a2a(p, x, cfg, cpu_mesh)
+    same = len(seen_card) == len(seen_cpu) == 3 and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(seen_card, seen_cpu))
+    check(same, "lm-moe-a2a: the card's dispatches differ from the CPU's")
+    err = (y_card.cpu() - y_cpu).abs().max().item()
+    aux_err = abs(aux_card.item() - aux_cpu.item())
+    ok = err <= A2A_Y_ATOL and aux_err <= A2A_Y_ATOL and n_card.dropped == n_cpu.dropped > 0
+    log(f"lm-moe-a2a: (a) capacity {cfg.moe.capacity_factor}: every dispatch's (slot, kept) "
+        f"card == CPU; {n_card.dropped} of {n_card.routed} pairs dropped (CPU "
+        f"{n_cpu.dropped}); y max abs err {err:.3e} (tol {A2A_Y_ATOL}), aux "
+        f"{aux_card.item():.6f} vs {aux_cpu.item():.6f} {'ok' if ok else 'FAIL'}")
+    check(ok, f"lm-moe-a2a: card vs CPU a2a: y {err}, aux {aux_err}, drops "
+              f"{n_card.dropped} vs {n_cpu.dropped}")
+    out["y_err"] = err
+
+    # the MoE LM through the a2a: routing, loss and every gradient leaf
+    lcfg = dataclasses.replace(cfg, attn_impl="chunked")
+    params = tfm.init_lm(lcfg, torch.Generator().manual_seed(seed), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in next(lm_data.token_batches(
+        lcfg.vocab_size, A2A_CHECK_B, A2A_CHECK_S, seed=seed)).items()}
+
+    def grads(m, on_card: bool):
+        live = tree_map(lambda t: (t.cuda() if on_card else t).detach().requires_grad_(True),
+                        params)
+        b = cuda(batch) if on_card else batch
+        with recorded() as seen:
+            with activation_sharding(m, lm_rules(m), moe_a2a=True):
+                loss, _ = tfm.loss_fn(live, b, lcfg)
+            g = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.item(), [t.detach().cpu() for t in g], seen
+
+    loss_card, g_card, seen_card = grads(mesh, True)
+    loss_cpu, g_cpu, seen_cpu = grads(cpu_mesh, False)
+    same = len(seen_card) == len(seen_cpu) == 6 * lcfg.n_layers and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(seen_card, seen_cpu))
+    check(same, "lm-moe-a2a: the LM's routing on the card differs from the CPU's")
+    worst = max((torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+                for a, b in zip(g_card, g_cpu))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    ok = worst <= A2A_GRAD_REL and loss_rel <= A2A_GRAD_REL
+    log(f"lm-moe-a2a: (a) the MoE LM ({lcfg.n_layers} layers, chunked) under "
+        f"activation_sharding(moe_a2a=True), B={A2A_CHECK_B} S={A2A_CHECK_S}: each "
+        f"layer's dispatches (forward and remat's recompute) card == CPU; loss {loss_card:.6f} "
+        f"vs {loss_cpu:.6f} (rel {loss_rel:.3e}); {len(g_card)} gradient leaves, worst error "
+        f"norm over gradient norm {worst:.3e} (tol {A2A_GRAD_REL}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"lm-moe-a2a: LM gradients card vs CPU: worst {worst}, loss {loss_rel}")
+    out["grad_rel"] = worst
+
+    # the compression collectives: int8 payloads, scales, means, errors
+    g_tree = {str(i): g for i, g in enumerate(g_cpu)}
+    e_tree = {k: torch.randn(v.shape, generator=torch.Generator().manual_seed(i)) * 1e-3
+              for i, (k, v) in enumerate(g_tree.items())}
+    q_cpu, s_cpu, _ = compression.compress_with_feedback(g_tree, e_tree)
+    q_card, s_card, _ = compression.compress_with_feedback(cuda(g_tree), cuda(e_tree))
+    m_cpu, ne_cpu = compression.compressed_psum(g_tree, e_tree, cpu_group)
+    m_card, ne_card = compression.compressed_psum(cuda(g_tree), cuda(e_tree),
+                                                  mesh.get_group("model"))
+    bits = all(torch.equal(q_card[k].cpu(), q_cpu[k]) and torch.equal(s_card[k].cpu(), s_cpu[k])
+               and torch.equal(m_card[k].cpu(), m_cpu[k])
+               and torch.equal(ne_card[k].cpu(), ne_cpu[k]) for k in g_tree)
+    log(f"lm-moe-a2a: (a) compress_with_feedback's int8 payloads and scales, and "
+        f"compressed_psum's means and errors over the NCCL group "
+        f"({dist.get_backend(mesh.get_group('model'))}), == the CPU's over gloo bit for bit "
+        f"on {len(g_tree)} gradient leaves: {bits}")
+    check(bits, "lm-moe-a2a: compression on the card differs from the CPU's")
+    return out
+
+
+def phase_lm_moe_a2a(torch, cfg, seed: int, gather: dict, gather_train: dict) -> dict:
+    """Expert parallelism through real NCCL collectives at world size 1
+    (the module docstring's lm-moe-a2a): (a) ``_a2a_checks``; (b) the full
+    model's prefill through the all-to-all, beside ``gather`` (lm-moe's
+    prefill); (c) the model cut to MOE_TRAIN_LAYERS layers trained through
+    it, beside ``gather_train`` (lm-moe-train)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import LM_SHAPES, reduced
+    from repro_torch.core.treepath import tree_leaves
+    from repro_torch.data import lm as lm_data
+    from repro_torch.distributed.context import activation_sharding, lm_rules
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.training.optimizer import adamw, warmup_cosine_schedule
+    from repro_torch.training.train_loop import Trainer
+
+    store = ROOT / "build" / f"nccl-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl", f"lm-moe-a2a: backend {dist.get_backend()}")
+        mesh = make_mesh((1, 1), ("data", "model"))
+        # the CPU's reference all-to-all: a gloo group and a CPU mesh over it
+        cpu_group = dist.new_group(ranks=[0], backend="gloo")
+        cpu_mesh = DeviceMesh.from_group([cpu_group, cpu_group], "cpu",
+                                         mesh=torch.tensor([[0]]),
+                                         mesh_dim_names=("data", "model"))
+        log(f"lm-moe-a2a: default process group on {dist.get_backend()} (world size "
+            f"{dist.get_world_size()}), mesh {mesh.device_type} {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            f"model group on {dist.get_backend(mesh.get_group('model'))}, in "
+            f"{time.perf_counter() - t0:.3f} s")
+        check(mesh.device_type == "cuda"
+              and dist.get_backend(mesh.get_group("model")) == "nccl",
+              "lm-moe-a2a: the card's mesh is not on NCCL")
+        out = {"check": _a2a_checks(torch, reduced(cfg), seed, mesh, cpu_mesh, cpu_group)}
+        rules = lm_rules(mesh)
+
+        # (b) serving: the full model's prefill through the all-to-all
+        params = tfm.init_lm(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+        toks = torch.from_numpy(next(lm_data.token_batches(
+            cfg.vocab_size, LM_BATCH, LM_SEQ, seed=seed))["tokens"]).cuda()
+
+        def prefill(t):
+            with activation_sharding(mesh, rules, moe_a2a=True):
+                return tfm.prefill(params, t, cfg)
+
+        with torch.inference_mode():
+            prefill(toks[:, :128])                         # warm-up
+            torch.cuda.synchronize()
+            FA.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            prefill_s = []
+            with moe.count_drops() as drops:
+                for _ in range(LM_PREFILLS):
+                    logits = cache = None
+                    t = time.perf_counter()
+                    logits, cache = prefill(toks)
+                    torch.cuda.synchronize()
+                    prefill_s.append(time.perf_counter() - t)
+            launches = FA.launches
+            peak = torch.cuda.max_memory_allocated()
+            check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_padded)
+                  and bool(torch.isfinite(logits).all()), "lm-moe-a2a: prefill logits")
+            del logits, cache
+            med = statistics.median(prefill_s)
+            prefill_32k = {s_.name: s_ for s_ in LM_SHAPES}["prefill_32k"]
+            roof = _step_roofline(
+                torch, cfg.name,
+                dataclasses.replace(prefill_32k, seq_len=LM_SEQ, global_batch=LM_BATCH),
+                lambda: prefill(toks), med * 1e3,
+                f"lm-moe-a2a: prefill B={LM_BATCH} S={LM_SEQ} (a2a)")
+        n_coll = roof["collectives"]
+        log(f"lm-moe-a2a: (b) {cfg.name} {cfg.n_layers} layers {cfg.dtype}, prefill "
+            f"B={LM_BATCH} S={LM_SEQ} through moe_apply_a2a: "
+            f"{','.join(f'{x * 1e3:.3f}' for x in prefill_s)} ms, median {med * 1e3:.3f} ms, "
+            f"{LM_BATCH * LM_SEQ / med:.1f} tokens/s, share {roof['share']:.4f}, peak "
+            f"allocated {peak / 1e9:.3f} GB; lm-moe's gather path in this run: "
+            f"{gather['prefill_ms']:.3f} ms, {LM_BATCH * LM_SEQ / gather['prefill_ms'] * 1e3:.1f} "
+            f"tokens/s, share {gather['share']:.4f}")
+        log(f"lm-moe-a2a: (b) drop share {drops.share:.5f} ({drops.dropped} of {drops.routed} "
+            f"pairs over {LM_PREFILLS} prefills: not kept at the dispatch to the owner rank, or "
+            f"at the owner's dispatch by expert at 1.1 of an even share); gather path "
+            f"{gather['drop_share']:.5f}; flash_attention launches={launches} over "
+            f"{LM_PREFILLS} prefills; c10d collectives of one prefill (roofline.counts, on the "
+            f"NCCL group): all-to-all {n_coll['all-to-all']}, all-reduce "
+            f"{n_coll['all-reduce']}, {roof['collective_bytes']['all-to-all'] / 1e9:.3f} GB "
+            f"all-to-all, link bytes {roof['link_bytes']:.0f} (a group of one)")
+        check(launches == cfg.n_layers * LM_PREFILLS,
+              f"lm-moe-a2a: {launches} attention launches over {LM_PREFILLS} prefills")
+        check(n_coll["all-to-all"] == 3 * cfg.n_layers and n_coll["all-reduce"] == 2 * cfg.n_layers,
+              f"lm-moe-a2a: collectives {n_coll}")
+        check(drops.routed == LM_PREFILLS * cfg.n_layers * LM_BATCH * LM_SEQ * cfg.moe.top_k,
+              f"lm-moe-a2a: {drops.routed} pairs counted")
+        out.update(prefill_ms=med * 1e3, prefill_share=roof["share"], drop_share=drops.share,
+                   launches=launches, collectives=n_coll, prefill_peak=peak)
+        del params
+        torch.cuda.empty_cache()
+
+        # (c) training through the all-to-all at a cut depth
+        tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+        tparams = tfm.init_lm(tcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+
+        def loss_fn(p, b):
+            with activation_sharding(mesh, rules, moe_a2a=True):
+                return tfm.loss_fn(p, b, tcfg)
+
+        data = lm_data.token_batches(tcfg.vocab_size, TRAIN_B, TRAIN_S)
+        tr = Trainer(loss_fn, adamw(warmup_cosine_schedule(TRAIN_LR, 10, TRAIN_STEPS)),
+                     tparams, donate=True)
+        del tparams
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        FA.reset_bwd_launches()
+        tr.run(data, max_steps=A2A_TRAIN_STEPS, log_every=0)
+        torch.cuda.synchronize()
+        fwd, bwd = FA.launches, FA.bwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in tr.history]
+        step_ms = [h["step_time_s"] * 1e3 for h in tr.history]
+        med = statistics.median(step_ms[1:])
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(all(math.isfinite(v) for v in losses), "lm-moe-a2a: a loss is not finite")
+        check(fwd == 2 * bwd == 2 * tcfg.n_layers * A2A_TRAIN_STEPS,
+              f"lm-moe-a2a: training launches {fwd} and {bwd}")
+        train_4k = {s_.name: s_ for s_ in LM_SHAPES}["train_4k"]
+        troof = _step_roofline(torch, cfg.name,
+                               dataclasses.replace(train_4k, seq_len=TRAIN_S, global_batch=TRAIN_B),
+                               lambda: tr.run(data, max_steps=tr.step + 1, log_every=0), med,
+                               "lm-moe-a2a: training step (a2a)", cfg=tcfg)
+        log(f"lm-moe-a2a: (c) {tcfg.name} cut to {tcfg.n_layers} layers, "
+            f"{sum(t.numel() for t in tree_leaves(tr.params)):,} params, {A2A_TRAIN_STEPS} steps of "
+            f"{TRAIN_B}x{TRAIN_S} through moe_apply_a2a, Trainer(donate=True) + adamw: step_ms "
+            f"first={step_ms[0]:.3f} median(2..)={med:.3f}; {TRAIN_B * TRAIN_S / med * 1e3:.1f} "
+            f"tokens/s; peak allocated {peak / 1e9:.3f} GB; share {troof['share']:.4f}; loss "
+            f"{' '.join(f'{v:.4f}' for v in losses)}: means of 3 {first:.4f} -> {last:.4f} "
+            f"({'fell' if last < first else 'did not fall'}); attention launches {fwd} + {bwd}; "
+            f"lm-moe-train (gather path, this run): {gather_train['step_ms']:.3f} ms, "
+            f"{gather_train['peak'] / 1e9:.3f} GB, share {gather_train['roofline']['share']:.4f}")
+        out.update(step_ms=med, train_peak=peak, train_share=troof["share"],
+                   loss=(first, last), train_launches=(fwd, bwd))
+        del tr, data
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out
+
+
 # -------------------------------------------------------------- bag-kernel --
 
 def _bag_agrees(torch, EB, table, ids, weights, dtype: str, what: str) -> float:
@@ -5297,7 +5623,9 @@ def phase_gnn(torch, seed: int) -> dict:
         f"(E, {cfg.d_hidden}) bf16 edge latent is {s_.n_edges * cfg.d_hidden * 2 / 1e9:.1f} GB "
         f"and the (E, {3 * cfg.d_hidden}) message input "
         f"{s_.n_edges * 3 * cfg.d_hidden * 2 / 1e9:.1f} GB, past one card even for a forward "
-        f"pass; it waits for sharded node and edge latents (ROADMAP.md item 11)")
+        f"pass; it waits for node and edge latents sharded over more than one card "
+        f"(ROADMAP.md item 11: the rules are ported, the planner and multi-card cells "
+        f"are not)")
     del batches, params, graph, feats, targets, sampler
     torch.cuda.empty_cache()
     _gnn_reduced_on_card_vs_cpu(torch, cfg, seed)
@@ -5326,6 +5654,7 @@ def main(argv=None) -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import dataclasses
     # inductor's and Triton's caches (the backends phase) inside the checkout
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
@@ -5428,6 +5757,9 @@ def main(argv=None) -> int:
     moe_train = phase_lm_bf16_train(torch, moe_cfg, args.seed, "lm-moe-train",
                                     MOE_TRAIN_LAYERS, MOE_CLIS)
     phases["lm-moe-train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_a2a = phase_lm_moe_a2a(torch, moe_cfg, args.seed, lm_moe, moe_train)
+    phases["lm-moe-a2a"] = time.perf_counter() - t
     with torch.inference_mode():
         rec_cfg = get_config("dlrm-mlperf")
         t = time.perf_counter()
@@ -5546,6 +5878,8 @@ def main(argv=None) -> int:
         "lse_max_abs_err_g1": attn_bwd["lse_err"]["bfloat16_g1"],
         "lse_max_abs_err_g1_float32": attn_bwd["lse_err"]["float32_g1"],
         "shape_g1_b4": shape_g1_b4, "launches_moe_train": moe_train["launches"],
+        "launches_moe_a2a": moe_a2a["launches"],
+        "launches_moe_a2a_train": moe_a2a["train_launches"][0],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,
@@ -5593,6 +5927,7 @@ def main(argv=None) -> int:
         "plain_ms_g1_float32": tbg1_32["plain"], "bound_ms_g1_float32": tbg1_32["bound_ms"],
         "library_ms_g1_float32": tbg1_32["library"], "shape_g1": shape_g1_b4,
         "launches_moe_train": moe_train["bwd_launches"],
+        "launches_moe_a2a_train": moe_a2a["train_launches"][1],
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
         "replaces": embedding_bag.REPLACES, "launches": rec["launches"],

@@ -16,14 +16,17 @@ moonshot-v1-16b-a3b) build, serve and train through ``models.transformer``
 bfloat16 KV cache or, under ``kv_quant``, the int8 one; their reduced
 configs train through the launcher, and deepseek-moe-16b's full width on
 one card only at a cut depth (all 28 layers' training state is about 270
-GB, moonshot's 48 about 462 GB: ROADMAP.md §1 item 11).
+GB, moonshot's 48 about 462 GB). Their expert-parallel MoE
+(``models.moe.moe_apply_a2a``) and the sharding rules (``distributed/``)
+are ported and run at world size 1; the full depths wait for more than one
+card and the dry-run planner (ROADMAP.md §1 item 11).
 deepseek-coder-33b (56 query heads over 8 KV heads: G=7) serves through
 ``models.transformer`` in bfloat16, on the attention forward kernel at that
 group size, with the bfloat16 KV cache or, under ``kv_quant``, the int8
 one, and trains on the attention kernels both ways at that group size: its
 reduced config through the launcher, its full width on one card at a cut
-depth (the 533 GB of training state of all 62 layers waits for ROADMAP.md
-§1 item 11).
+depth (the 533 GB of training state of all 62 layers waits for more than
+one card: ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.treepath import keystr
+from repro_torch.core.treepath import keystr, tree_paths
 
 MAGIC = b"RPROAVRO1\n"
 SCHEMA_VERSION = 1
@@ -40,20 +40,9 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _walk(tree, path=()):
-    if isinstance(tree, dict):
-        for k in tree:
-            yield from _walk(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, item in enumerate(tree):
-            yield from _walk(item, path + (i,))
-    else:
-        yield path, tree
-
-
 def flatten_named(params) -> Dict[str, np.ndarray]:
     """A parameter tree as ``{"conv_q/w": array, ...}`` (numpy, on the host)."""
-    return {keystr(path): _to_numpy(leaf) for path, leaf in _walk(params)}
+    return {keystr(path): _to_numpy(leaf) for path, leaf in tree_paths(params)}
 
 
 def _lists(node):

@@ -40,3 +40,24 @@ def tree_map(fn, tree, *rest):
         return [tree_map(fn, item, *(r[i] for r in rest))
                 for i, item in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping the nesting
+    (dicts, lists and tuples stay what they were); ``path`` holds the dict
+    keys and item indices down to the leaf, as ``keystr`` renders them
+    (``jax.tree_util.tree_map_with_path``'s paths)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+        return items if isinstance(tree, list) else tuple(items)
+    return fn(path, tree)
+
+
+def tree_paths(tree) -> list:
+    """``[(path, leaf), ...]`` in the tree's own order (dict keys as
+    inserted), on ``tree_map_with_path``'s walk."""
+    out = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out

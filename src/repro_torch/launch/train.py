@@ -39,8 +39,10 @@ and ``gnn`` (meshgraphnet, on synthetic 200-node, 800-edge graphs with 16
 node features, a new graph a step, as the JAX launcher builds them).
 ``--full`` dlrm-mlperf does not fit one card: its 24.03e9 table elements
 need 16 bytes each for the parameter, its float32 master copy and the two
-moments (384.5 GB), so it waits for the sharded table of ROADMAP.md §1
-item 11; so does ``--full`` deepseek-coder-33b (3.334e10 parameters at 16
+moments (384.5 GB), so it waits for the table sharded over more than one
+card (the rules that shard it, ``distributed/sharding.py``, are ported;
+the planner and multi-card cells are ROADMAP.md §1 item 11's next steps);
+so does ``--full`` deepseek-coder-33b (3.334e10 parameters at 16
 bytes each: 533 GB), whose reduced config trains here and whose full width
 trains on one card only at a cut depth (``chip_smoke.py``'s lm-coder-train,
 4 of its 62 layers). The MoE configs (deepseek-moe-16b,
@@ -49,9 +51,10 @@ on the card on ``"chunked"``, with the ``attn=`` line) and print the summed
 load-balance loss, ``moe_aux``, among the final metrics, as the JAX
 launcher does; ``--full`` for them does not fit one card either:
 deepseek-moe-16b's 1.688e10 parameters need 270 GB of training state and
-moonshot-v1-16b-a3b's 2.889e10 need 462 GB, so they wait for item 11 too
-(deepseek-moe-16b's full width trains on one card at 4 of its 28 layers in
-``chip_smoke.py``'s lm-moe-train). The data are the port's numpy
+moonshot-v1-16b-a3b's 2.889e10 need 462 GB, so they wait for more than one
+card too (deepseek-moe-16b's full width trains on one card at 4 of its 28
+layers in ``chip_smoke.py``'s lm-moe-train, and through the expert-parallel
+``moe_apply_a2a`` at world size 1 in its lm-moe-a2a). The data are the port's numpy
 generators with the JAX launcher's seeds, so both launchers see the same
 batches; the weights are drawn from ``torch.Generator`` seed 0 on the
 device, so they are not JAX's.

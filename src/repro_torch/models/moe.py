@@ -1,9 +1,10 @@
 """Mixture-of-Experts FFN: shared + fine-grained routed experts (DeepSeekMoE),
-the gather formulation.
+the gather formulation and the expert-parallel all-to-all.
 
 The port of the JAX package's ``models/moe.py`` (``moe_params``,
-``_capacity``, ``route``, ``moe_apply``), with its parameter tree and its
-routing, dropped slots included:
+``_capacity``, ``route``, ``moe_apply``, ``_local_dispatch``,
+``moe_apply_a2a``), with its parameter tree and its routing, dropped slots
+included. The gather formulation, ``moe_apply``:
 
 * tokens are cut into groups of ``sg = min(group_size, B*S)`` (G, sg, d);
   a decode step of B rows is one group of B;
@@ -31,15 +32,40 @@ experts and the dispatch gather, whose backward accumulates each token's
 rows; a dropped pair's slot, read at weight 0, gets exactly 0 from it, as
 in JAX.
 
-``count_drops()`` counts the pairs ``moe_apply`` routes and drops while it
-is entered, for a caller that wants a run's drop share. A count is of
-``moe_apply`` calls: under ``cfg.remat`` a training step runs each layer's
-``moe_apply`` twice (the forward, then again in the backward, routing the
-same pairs), so both counts double and the share is the step's.
+Expert parallelism, ``moe_apply_a2a``, is JAX's ``shard_map`` block run by
+every rank of a ``DeviceMesh`` on its own block of tokens (x sharded as
+``P(data axes, "model", None)``) and its own ``E / M`` experts (M the size
+of the ``model`` axis): route the local tokens over all E experts; send each
+(token, choice) pair's row to the rank that owns its expert through a
+buffer of ``cap`` rows a destination (``_local_dispatch``, first come first
+served, in token-major order: token t's choice j is row ``t*k + j``), with
+a meta buffer of (local expert, 1) beside it; all-to-all both over the
+``model`` group; dispatch the received rows again by local expert into
+``cap2`` rows each (1.1 of an even share); run the experts; gather the
+outputs back into the received layout (rows not kept there times 0),
+all-to-all them home, and combine each token's k rows (rows not kept at the
+first dispatch times 0) with its router weights. A pair drops at either
+dispatch. The aux loss is each rank's GShard loss over its tokens, then its
+mean over ``model`` and over the data axes: each rank holds the same value,
+whose cotangent each rank holds alike, so its backward is that cotangent
+over the ranks, with no collective (``_MeanOver``). The all-to-alls are
+``torch.distributed.nn.functional.all_to_all_single``, whose backward is
+the reverse all-to-all. The router and the shared experts are replicated
+and each rank's gradient of them is its own tokens' share: their local
+views declare a ``Partial`` gradient over every mesh dim they are
+replicated on, so the leaf's gradient is the sum over the mesh, JAX's; the
+experts' gradient is ``Partial`` over the data axes alike.
+
+``count_drops()`` counts the pairs ``moe_apply`` and ``moe_apply_a2a``
+route and drop while it is entered, for a caller that wants a run's drop
+share. A count is of calls: under ``cfg.remat`` a training step runs each
+layer's MoE twice (the forward, then again in the backward, routing the
+same pairs), so both counts double and the share is the step's. Under
+``moe_apply_a2a`` each rank counts its own tokens' pairs and, as dropped,
+its pairs not kept at the first dispatch and the received rows not kept at
+the second: summed over the ranks, the world's.
 ``moe_apply_dense`` is the plain reference ``moe_apply`` is held against
 (every expert on every token).
-``moe_apply_a2a`` (expert parallelism across cards) is not ported
-(ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 
@@ -48,6 +74,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig, MoESpec
@@ -226,3 +253,172 @@ def moe_apply_dense(p: Dict, x: torch.Tensor, spec: MoESpec,
     if "shared" in p:
         y = y + L.swiglu_apply(p["shared"], xt)
     return y.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE with explicit all-to-all
+# ---------------------------------------------------------------------------
+
+def a2a_capacity(t: int, spec, m_size: int) -> Tuple[int, int]:
+    """``moe_apply_a2a``'s buffer rows for ``t`` local tokens over ``m_size``
+    ranks of "model": ``cap`` a destination rank (the first dispatch) and
+    ``cap2`` a local expert (the second, 1.1 of an even share of the
+    received rows), each a multiple of 8 and at least 8."""
+    cap = max(8, int(math.ceil(t * spec.top_k * spec.capacity_factor / m_size / 8)) * 8)
+    e_local = spec.n_routed // m_size
+    return cap, max(8, int(math.ceil(m_size * cap * 1.1 / e_local / 8)) * 8)
+
+
+def _local_dispatch(x: torch.Tensor, expert_ids: torch.Tensor, n_buckets: int, cap: int,
+                    valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter rows of x (T, d) into (n_buckets, cap, d) by expert_ids,
+    first-come-first-served capacity. Rows with valid=False neither occupy
+    capacity nor get written. Returns (buffer, slot, kept): a row not kept
+    has slot ``cap``. The buffer is a contiguous view (the collectives take
+    it as it is); rows not kept are written to one spare row past it.
+
+    The one-hot is laid out (n_buckets, T), transposed from JAX's, so that
+    each bucket's running count scans its row's innermost dim: torch's scan
+    along an outer dim runs one thread a column through all T rows (47 ms
+    of a 61 ms deepseek-moe-16b layer at 8 x 2048 tokens on an H100)."""
+    buckets = torch.arange(n_buckets, device=expert_ids.device)
+    oh = (expert_ids[None, :] == buckets[:, None]).long()               # (M, T)
+    if valid is not None:
+        oh = oh * valid[None, :]
+    pos = torch.cumsum(oh, dim=1) - oh                                 # exclusive
+    slot = torch.gather(pos, 0, expert_ids[None, :])[0]
+    kept = slot < cap
+    if valid is not None:
+        kept = kept & valid
+    slot_c = torch.where(kept, slot, cap)
+    row = torch.where(kept, expert_ids * cap + slot, n_buckets * cap)
+    buf = x.new_zeros((n_buckets * cap + 1, x.shape[1])).index_put((row,), x)
+    return buf[:-1].view(n_buckets, cap, x.shape[1]), slot_c, kept
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean over a process group of a scalar each rank holds, which
+    every rank then holds alike (``lax.pmean``): an all-reduce forward; the
+    backward gives each rank its alike cotangent over the group's size."""
+
+    @staticmethod
+    def forward(ctx, a, group):
+        ctx.n = dist.get_world_size(group)
+        total = a.detach().reshape(1).clone()
+        dist.all_reduce(total, group=group)
+        return total.reshape(()) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _local_block(t: torch.Tensor, spec, mesh, world: int) -> torch.Tensor:
+    """A parameter leaf's block on this rank, placed by ``spec``: a DTensor
+    leaf's local shard, whose gradient is declared ``Partial`` over the mesh
+    dims it is replicated on (each rank's is its own tokens' share, and the
+    leaf's is their sum); a plain tensor as it is on a mesh of one rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed.sharding import placements
+    if not isinstance(t, DTensor):
+        if world > 1:
+            raise ValueError("moe_apply_a2a on a mesh of more than one rank takes its "
+                             "parameters as DTensors (sharding.distribute)")
+        return t
+    place = placements(spec, mesh)
+    grad = [Partial() if isinstance(pl, Replicate) else pl for pl in place]
+    return t.redistribute(mesh, place).to_local(grad_placements=grad)
+
+
+def moe_apply_a2a(p: Dict, x, cfg: LMConfig, mesh, axis: str = "model"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y, aux) over ``mesh`` (a ``DeviceMesh``): experts
+    sharded over ``axis``, x a DTensor placed ``P(data axes, axis, None)``
+    (sequence parallel; redistributed there if placed otherwise), or a
+    plain tensor on a mesh of one rank. y comes back placed as x; aux is a
+    plain scalar every rank holds. The parameters are DTensors (the
+    experts sharded over ``axis`` on their expert dim, the router and the
+    shared experts replicated), or plain tensors on a mesh of one rank."""
+    import torch.distributed.nn.functional as dist_nn
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.mesh import data_axes, mesh_shape
+    from repro_torch.distributed.sharding import P, placements
+
+    spec = cfg.moe
+    sizes = mesh_shape(mesh)
+    world = math.prod(sizes.values())
+    m_size = sizes[axis]
+    if spec.n_routed % m_size:
+        raise ValueError(f"{spec.n_routed} experts do not divide over {m_size} ranks")
+    e_local = spec.n_routed // m_size
+    dp = data_axes(mesh)
+    x_place = placements(P(dp if len(dp) > 1 else dp[0], axis, None), mesh)
+    if isinstance(x, DTensor):
+        x_loc = x.redistribute(mesh, x_place).to_local()
+    elif world > 1:
+        raise ValueError("moe_apply_a2a on a mesh of more than one rank takes x as a "
+                         "DTensor")
+    else:
+        x_loc = x
+    router = _local_block(p["router"], P(None, None), mesh, world)
+    w_gate, w_up, w_down = (_local_block(p[n], P(axis, None, None), mesh, world)
+                            for n in ("w_gate", "w_up", "w_down"))
+    shared = None
+    if "shared" in p:
+        shared = {n: _local_block(t, P(None, None), mesh, world) for n, t in p["shared"].items()}
+    model_group = mesh.get_group(axis)
+
+    def all_to_all(t):
+        return dist_nn.all_to_all_single(torch.empty_like(t), t, group=model_group)
+
+    b_loc, s_loc, d = x_loc.shape
+    t = b_loc * s_loc
+    k = spec.top_k
+    xf = x_loc.reshape(t, d)
+    # --- route (local tokens, global experts) ---
+    w, idx, aux = route(router, xf[None], spec)
+    w, idx = w[0], idx[0]                                               # (T, k)
+    for group in (model_group, *(mesh.get_group(a) for a in dp)):
+        aux = _MeanOver.apply(aux, group)
+
+    # --- dispatch to owner ranks ---
+    flat_e = idx.reshape(t * k)                                         # expert id
+    dest = torch.div(flat_e, e_local, rounding_mode="floor")            # owner rank
+    cap, cap2 = a2a_capacity(t, spec, m_size)
+    x_rep = torch.repeat_interleave(xf, k, dim=0)                       # (T*k, d)
+    send, slot, kept = _local_dispatch(x_rep, dest, m_size, cap)
+    meta = torch.stack([flat_e % e_local, kept.long()], dim=1).to(torch.int32)
+    send_meta = _local_dispatch(meta, dest, m_size, cap)[0]
+    recv = all_to_all(send)                                             # (M, cap, d)
+    recv_meta = torch.empty_like(send_meta)
+    dist.all_to_all_single(recv_meta, send_meta, group=model_group)
+
+    # --- local expert compute (second, local dispatch by expert) ---
+    rx = recv.reshape(m_size * cap, d)
+    rmeta = recv_meta.reshape(m_size * cap, 2).long()
+    eid = torch.clamp_max(rmeta[:, 0], e_local - 1)
+    rvalid = rmeta[:, 1] > 0
+    ebuf, eslot, ekept = _local_dispatch(rx, eid, e_local, cap2, valid=rvalid)
+    h = F.silu(torch.bmm(ebuf, w_gate)) * torch.bmm(ebuf, w_up)
+    eo = torch.bmm(h, w_down)                                           # (E_l, cap2, d)
+    # gather back into the recv layout; drop invalid + over-capacity
+    back = eo[eid, torch.clamp_max(eslot, cap2 - 1)]
+    back = (back * ekept[:, None].to(back.dtype)).reshape(m_size, cap, d)
+    ret = all_to_all(back)                                              # (M, cap, d)
+    for n in _open_counts:
+        n.routed += t * k
+        n._dropped.append(torch.count_nonzero(~kept) + torch.count_nonzero(rvalid & ~ekept))
+
+    # --- combine: each token reads its k slots from its send buffer ---
+    vals = ret[dest, torch.clamp_max(slot, cap - 1)]                    # (T*k, d)
+    vals = (vals * kept[:, None].to(vals.dtype)).reshape(t, k, d)
+    y = torch.einsum("tkd,tk->td", vals, w.to(vals.dtype))
+    if shared is not None:
+        y = y + L.swiglu_apply(shared, xf)
+    y = y.reshape(b_loc, s_loc, d)
+    if isinstance(x, DTensor):
+        y = DTensor.from_local(y, mesh, x_place, run_check=False)
+    return y, aux

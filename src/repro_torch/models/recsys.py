@@ -37,8 +37,10 @@ and 18 are not multiples of its 4), and their gradient is autograd's.
 ``loss_fn`` is the JAX package's binary cross-entropy for the CTR models
 and BERT4Rec's sampled softmax.
 
-The JAX code's ``constrain`` calls are sharding hints and are left out
-until ``distributed/`` is ported. Nothing here disables autograd: serving
+The JAX code's ``constrain`` calls are sharding hints; ``distributed/
+context.py`` has them, and they come here with the dry-run planner, which
+runs these models sharded (ROADMAP.md §1 item 11), as they do to
+``models/gnn.py``. Nothing here disables autograd: serving
 callers run under ``torch.inference_mode()``.
 """
 from __future__ import annotations

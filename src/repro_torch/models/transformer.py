@@ -25,6 +25,15 @@ it to XLA. An MoE config (``cfg.moe``) puts ``models/moe.py``'s gather
 formulation in place of the dense FFN, in every pass; ``forward`` returns
 the sum of the layers' load-balance losses, which ``loss_fn`` adds.
 
+The sharding context (``distributed/context.py``) reaches the model at
+JAX's places: ``constrain`` on the embedded input, on the residual stream
+after each block's attention and after its FFN, and on the logits (an
+identity on plain tensors); under ``activation_sharding(...,
+moe_a2a=True)`` an MoE layer runs ``moe.moe_apply_a2a`` on the context's
+mesh in ``forward``, ``loss_fn`` and ``prefill``, remat's recompute under
+the same context, while ``decode_step`` runs ``moe_apply`` under any
+context, as JAX's does.
+
 Training differentiates ``forward`` with autograd. Under ``"flash"`` the
 attention's gradient is the attention module's own backward
 (``FlashAttention``: the CUDA backward kernel on the card, the plain
@@ -59,6 +68,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import export
+from repro_torch.distributed import context as shctx
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -100,10 +111,17 @@ def _head(params: Dict) -> torch.Tensor:
 def _ffn(cfg: LMConfig, lp: Dict, h: torch.Tensor
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's FFN on its normed input: (y, moe_aux); moe_aux is None
-    for a dense layer."""
-    if cfg.moe is not None:
-        return moe.moe_apply(lp["moe"], h, cfg)
-    return L.swiglu_apply(lp["mlp"], h), None
+    for a dense layer. An MoE layer picks its strategy from the sharding
+    context, as JAX's ``_moe`` does: the all-to-all expert parallelism
+    (``moe.moe_apply_a2a`` on the context's mesh) under
+    ``activation_sharding(..., moe_a2a=True)``, the gather formulation
+    elsewhere."""
+    if cfg.moe is None:
+        return L.swiglu_apply(lp["mlp"], h), None
+    ctx = shctx.current()
+    if ctx is not None and ctx.moe_a2a:
+        return moe.moe_apply_a2a(lp["moe"], h, cfg, ctx.mesh)
+    return moe.moe_apply(lp["moe"], h, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +204,20 @@ def _block(cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor
                             cfg.d_head, positions, cfg.rope_theta)
     o = _attend(cfg, q, k, v)
     b, s, _, _ = o.shape
-    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    x = constrain(x + o.reshape(b, s, -1) @ lp["attn"]["wo"], "residual")
     y, aux = _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))
-    return x + y, k, v, aux
+    return constrain(x + y, "residual"), k, v, aux
+
+
+def _block_in(sharding, cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor):
+    """``_block`` under ``sharding``, the sharding context the pass began
+    in (``context.current()``): a rematerialised layer runs again in the
+    backward, outside the caller's ``activation_sharding`` (and on another
+    thread on the card), and must place and route as it did."""
+    if sharding is None:
+        return _block(cfg, x, lp, positions)
+    with shctx.activation_sharding(sharding.mesh, sharding.rules, sharding.moe_a2a):
+        return _block(cfg, x, lp, positions)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
@@ -197,20 +226,23 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     load-balance losses (float32; 0 for a dense model). With ``cfg.remat``
     and grad enabled each layer runs under ``checkpoint``: its activations
     are made again in the backward instead of kept."""
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    x = constrain(params["embed"][tokens.long()].to(_dtype(cfg)), "residual")
     positions = torch.arange(tokens.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    sharding = shctx.current()
     auxes = []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if remat:
-            x, _, _, aux = checkpoint(_block, cfg, x, lp, positions, use_reentrant=False)
+            x, _, _, aux = checkpoint(_block_in, sharding, cfg, x, lp, positions,
+                                      use_reentrant=False)
         else:
             x, _, _, aux = _block(cfg, x, lp, positions)
         if aux is not None:
             auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"])
-    logits = x @ _head(params)
+    # vocab-sharded logits: CE reduces over the sharded vocab dim in place
+    logits = constrain(constrain(x, "pre_logits") @ _head(params), "logits")
     aux = (torch.sum(torch.stack(auxes)) if auxes
            else torch.zeros((), dtype=torch.float32, device=x.device))
     return _mask_padded_vocab(logits, cfg), aux
@@ -345,7 +377,11 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
             k_read, v_read = cache["k"][li], cache["v"][li]
         o = L.decode_attention(q, k_read, v_read, kv_len=pos + 1)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
-        x = x + _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))[0]
+        h = L.rms_norm(x, lp["mlp_norm"])
+        # the gather formulation under any sharding context, as JAX's
+        # decode_step: a one-token sequence does not shard over "model"
+        x = x + (moe.moe_apply(lp["moe"], h, cfg)[0] if cfg.moe is not None
+                 else L.swiglu_apply(lp["mlp"], h))
     x = L.rms_norm(x, params["final_norm"])
     logits = _mask_padded_vocab((x @ _head(params))[:, 0, :], cfg)
     return logits, cache

@@ -13,8 +13,15 @@ program dispatches as it runs, not from compiled HLO.
 * Eager execution runs every loop iteration through the counter, so a loop
   is counted as many times as it runs: there is no trip-count correction,
   where ``hlo_parse`` multiplies a ``while`` body by its trip count.
-* Collectives are zero: the port runs at world size 1 (ROADMAP.md §1
-  item 11).
+* Collectives are the c10d ones the program dispatches (``c10d`` ops,
+  which ``torch.distributed`` calls, and the functional
+  ``_c10d_functional`` ones DTensor uses): all-to-all, all-reduce,
+  all-gather and reduce-scatter. Each adds its result's bytes to
+  ``collective_bytes`` and one to ``n_collectives`` under its kind, and to
+  ``link_bytes`` its ring-model bytes over the links at the group's size g,
+  ``hlo_parse``'s model: 2 (g-1)/g of the result for an all-reduce, (g-1)/g
+  for an all-gather or an all-to-all, (g-1) times the result for a
+  reduce-scatter; a group of one adds 0.
 
 A hand-written kernel counts as its work formula on either route. Its
 wrapper opens ``kernel(work)`` around the call: the active counter adds
@@ -84,6 +91,57 @@ def op_bytes(func, args, kwargs, out) -> int:
     return _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
 
 
+#: c10d op -> its kind; a ``c10d`` op's first argument holds its result
+#: (the output tensors, or the tensors reduced in place), a functional op
+#: returns it
+_COLLECTIVE_OPS = {
+    "alltoall_base_": "all-to-all", "alltoall_": "all-to-all",
+    "all_to_all_single": "all-to-all",
+    "allreduce_": "all-reduce", "all_reduce": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter",
+}
+
+
+def _group_size(args) -> int:
+    """The size of the process group a c10d op names: a boxed
+    ``ProcessGroup`` argument (``c10d``) or a group name (functional)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:        # another boxed class (a ReduceOp)
+                continue
+        if isinstance(a, str):
+            return _resolve_process_group(a).size()
+    raise ValueError("a collective with no process group among its arguments")
+
+
+def collective(func, args, out) -> Optional[Tuple[str, int, int]]:
+    """(kind, result bytes, group size) of a c10d collective, else None."""
+    if func.namespace not in ("c10d", "_c10d_functional"):
+        return None
+    kind = _COLLECTIVE_OPS.get(func.overloadpacket.__name__)
+    if kind is None:
+        return None
+    result = args[0] if func.namespace == "c10d" else out
+    return kind, _tensor_bytes(result), _group_size(args)
+
+
+def link_bytes(kind: str, size: float, g: int) -> float:
+    """Ring-model bytes over the links of one collective of ``size`` result
+    bytes over ``g`` ranks (``hlo_parse.HLOAnalysis._op_counts``)."""
+    if kind == "all-reduce":
+        return 2.0 * (g - 1) / g * size
+    if kind == "reduce-scatter":
+        return (g - 1) * size  # input = g x result
+    return (g - 1) / g * size  # all-gather, all-to-all
+
+
 def op_flops(func, args, kwargs, out) -> int:
     formula = flop_registry.get(func.overloadpacket)
     return 0 if formula is None else formula(*args, **kwargs, out_val=out)
@@ -112,6 +170,12 @@ class Counter(TorchDispatchMode):
         if self._kernel_depth == 0:
             self.counts.flops += op_flops(func, args, kwargs, out)
             self.counts.bytes_accessed += op_bytes(func, args, kwargs, out)
+            coll = collective(func, args, out)
+            if coll is not None:
+                kind, size, g = coll
+                self.counts.collective_bytes[kind] += size
+                self.counts.n_collectives[kind] += 1
+                self.counts.link_bytes += link_bytes(kind, size, g)
         return out
 
 

@@ -91,16 +91,17 @@ class CheckpointManager:
         return registry.publish_checkpoint(self, step=step)
 
     def restore(self, params_template: Any, opt_template: Any = None,
-                step: Optional[int] = None, shardings: Any = None
+                step: Optional[int] = None, shardings: Any = None, mesh=None
                 ) -> Tuple[Any, Any, int]:
         """Restore into templates: each leaf takes its template leaf's
-        dtype, and a tensor leaf its device. ``shardings`` must be None
-        (placing a restore on a new mesh belongs to ``distributed/``,
-        which the port does not have yet)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore with shardings needs the distributed package, which "
-                "is not ported; restore unsharded into device templates")
+        dtype, and a tensor leaf its device. With ``shardings``, a tree of
+        ``distributed.sharding.P`` matching the params, and ``mesh``, a
+        ``DeviceMesh`` (elastic restore onto a different mesh, JAX's
+        ``shardings`` of ``NamedSharding``), each restored param is placed
+        by its spec through ``sharding.distribute``: a DTensor whose
+        shard on each rank is the rank's block of the values restored."""
+        if (shardings is None) != (mesh is None):
+            raise ValueError("restore places params with shardings and a mesh together")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -112,4 +113,7 @@ class CheckpointManager:
         if opt_template is not None:
             flat_o, _ = export_lib.load(os.path.join(d, "opt.rpro"))
             opt_state = export_lib.restore_into(opt_template, flat_o)
+        if shardings is not None:
+            from repro_torch.distributed import sharding
+            params = sharding.distribute(params, shardings, mesh)
         return params, opt_state, step

@@ -59,7 +59,10 @@ def test_slice_modules_are_all_there():
               "repro_torch.roofline.counts", "repro_torch.configs.deepseek_moe_16b",
               "repro_torch.configs.moonshot_v1_16b_a3b",
               "repro_torch.configs.deepseek_coder_33b",
-              "repro_torch.configs.granite_3_2b"):
+              "repro_torch.configs.granite_3_2b", "repro_torch.distributed",
+              "repro_torch.distributed.mesh", "repro_torch.distributed.sharding",
+              "repro_torch.distributed.context", "repro_torch.launch.mesh",
+              "repro_torch.training.compression"):
         assert m in mods, m
 
 
@@ -119,6 +122,18 @@ def test_the_gnn_path_alone_loads_no_jax_and_no_repro(module):
                                     "repro_torch.roofline.counts"])
 def test_the_roofline_alone_loads_no_jax_and_no_repro(module):
     """Each module of the roofline, imported alone in a fresh process."""
+    assert _alone(module) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.distributed.mesh",
+                                    "repro_torch.distributed.sharding",
+                                    "repro_torch.distributed.context",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.training.compression",
+                                    "repro_torch.models.moe"])
+def test_the_distributed_slice_alone_loads_no_jax_and_no_repro(module):
+    """Each module of expert parallelism and the sharding rules, imported
+    alone in a fresh process."""
     assert _alone(module) == []
 
 

@@ -260,10 +260,15 @@ def test_checkpoint_restores_optimizer_state(tmp_path):
 
 
 def test_checkpoint_refuses_shardings(tmp_path):
+    """Shardings place a restore on a mesh: without one (or a mesh without
+    shardings) the restore is refused. Placing is
+    ``tests/test_torch_sharding.py``'s, on gloo ranks."""
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="distributed"):
-        mgr.restore({"w": torch.zeros(2)}, shardings=object())
+    with pytest.raises(ValueError, match="shardings and a mesh"):
+        mgr.restore({"w": torch.zeros(2)}, shardings={"w": None})
+    with pytest.raises(ValueError, match="shardings and a mesh"):
+        mgr.restore({"w": torch.zeros(2)}, mesh=object())
 
 
 def test_retry_step_recovers():
