@@ -356,7 +356,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
             counter is set to 0 just before and read just after, and must
             show 1 launch per serve_step and 2 per retrieval_step; peak
             memory, the busy share of one serve_bulk step, serve_bulk read
-            against its bound; then the 48 GB table is freed
+            against its bound
+  planner   the dry-run planner (launch/specs.py, launch/dryrun.py) on
+            the card, on an NCCL group of one rank and its (1, 1) mesh:
+            (b) dlrm-mlperf x serve_p99 planned, the rec phase's 48 GB
+            table wrapped as DTensors in place, the planned serve step
+            against serve_step (PLANNER_SERVE_ATOL) with 1 bag launch; then
+            the table is freed; (a) qwen3-0.6b x train_4k planned at full
+            width, its global batch cut from 256 to PLANNER_BATCH (seq_len
+            4096), the arguments materialised from the plan on the card:
+            PLANNER_STEPS planned steps against make_train_step + adamw on
+            plain tensors from the same weights (loss, every updated leaf),
+            the attention kernels' launches counted both ways (56 + 28 a
+            step); (c) python -m repro_torch.launch.dryrun --both-meshes in
+            a subprocess (a fake group cannot share a process with NCCL) for
+            PLANNER_CELLS at 256 and 512 fake ranks: every record ok, its
+            roofline_frac within SHARE_CAP, per-rank peak GB, bottleneck and
+            step bound printed; (d) (a)'s cut cell dry-run at world size 1:
+            its FLOPs equal to counts.count of (a)'s executed step, its
+            bytes within 1%, the ratio of its peak estimate to the card's
+            max_memory_allocated printed
   bag-bwd   the EmbeddingBag backward kernel (csrc/embedding_bag_bwd.cu)
             against its plain version, bit for bit, float32 and bfloat16,
             with and without weights: at the bag-kernel phase's shapes, a
@@ -694,6 +713,18 @@ MOE_CLIS = (("--arch", MOE_ARCH, "--steps", "3"), ("--arch", MOONSHOT_ARCH, "--s
 A2A_CHECK_B, A2A_CHECK_S, A2A_SKEW = 4, 32, 1.5
 A2A_GATHER_TOL, A2A_Y_ATOL, A2A_GRAD_REL = 2e-4, 1e-5, 1e-5
 A2A_TRAIN_STEPS = 6
+#: the planner phase: (a) qwen3-0.6b x train_4k's global batch cut from 256
+#: to this, PLANNER_STEPS planned steps against plain ones (loss within
+#: PLANNER_LOSS_REL, every updated leaf's error norm within PLANNER_LEAF_REL
+#: of its norm: bfloat16 steps whose ops are the same on the same tensors);
+#: (b) the planned serve step within PLANNER_SERVE_ATOL of serve_step's
+#: scores; (c) the cells the dry run runs at 256 and 512 fake ranks, in a
+#: subprocess given PLANNER_DRYRUN_TIMEOUT seconds
+PLANNER_BATCH, PLANNER_STEPS = 2, 2
+PLANNER_LOSS_REL, PLANNER_LEAF_REL, PLANNER_SERVE_ATOL = 1e-3, 1e-2, 1e-2
+PLANNER_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "prefill_32k"),
+                 ("dlrm-mlperf", "serve_p99"))
+PLANNER_DRYRUN_TIMEOUT = 300
 #: the EmbeddingBag kernel against its plain version: tests/test_kernels.py's
 #: tolerances for it, its (V, d, B, L) shapes, and ragged bag counts (not a
 #: multiple of a block's 8 bags)
@@ -4491,6 +4522,244 @@ def phase_lm_moe_a2a(torch, cfg, seed: int, gather: dict, gather_train: dict) ->
     return out
 
 
+# ----------------------------------------------------------------- planner --
+
+def _nccl_world_one(torch, tag: str):
+    """A default process group of one rank on NCCL (a ``file://`` store under
+    build/) and the (1, 1) mesh of ("data", "model") on the card; the caller
+    destroys the group."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import make_mesh
+    store = ROOT / "build" / f"nccl-store-{tag}-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    check(dist.get_backend() == "nccl", f"{tag}: backend {dist.get_backend()}")
+    return make_mesh((1, 1), ("data", "model")), store
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def phase_planner_serve(torch, cfg, params, seed: int) -> dict:
+    """(b) of the planner phase: dlrm-mlperf x serve_p99 planned by
+    ``specs._plan_recsys`` on the (1, 1) mesh of an NCCL group of one rank,
+    its arguments the rec phase's parameters (the 48 GB table wrapped as
+    DTensors, not copied) and a batch of PLANNER_SERVE_BATCH: the planned
+    serve step against ``recsys.serve_step`` on the same tensors, and the
+    bag kernel launched once by the planned step (its count set to 0 just
+    before and read just after)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.launch import specs
+    from repro_torch.models import recsys as rec
+
+    mesh, store = _nccl_world_one(torch, "planner-serve")
+    try:
+        shape = {s_.name: s_ for s_ in RECSYS_SHAPES}["serve_p99"]
+        t0 = time.perf_counter()
+        plan = specs._plan_recsys(cfg.name, cfg, shape, mesh)
+        batch = _rec_batch(torch, rec_data.batch_for(cfg, shape.batch, seed=seed + 7))
+        args = specs.dtensor_args(plan, mesh, (params, batch))
+        check(args[0]["emb"].to_local().data_ptr() == params["emb"].data_ptr(),
+              "planner: the planned step copied the table")
+        plan.fn(*args)                      # warm-up
+        torch.cuda.synchronize()
+        EB.reset_launches()
+        got = _full(plan.fn(*args))
+        torch.cuda.synchronize()
+        launches = EB.launches
+        want = rec.serve_step(params, batch, cfg)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        equal = bool(torch.equal(got, want))
+        log(f"planner: (b) {cfg.name} x {shape.name} ({shape.batch} examples) planned on "
+            f"mesh (1, 1) over {dist.get_backend()}, the rec phase's "
+            f"{params['emb'].numel() * params['emb'].element_size() / 1e9:.2f} GB table "
+            f"wrapped in place: scores {tuple(got.shape)} {got.dtype}, max abs err vs "
+            f"serve_step {err:.3e} ({'bit-equal' if equal else 'not bit-equal'}), bag "
+            f"launches {launches}, in {time.perf_counter() - t0:.3f} s")
+        check(tuple(got.shape) == (shape.batch,) and bool(torch.isfinite(got).all()),
+              "planner: planned serve scores not finite (B,)")
+        check(err <= PLANNER_SERVE_ATOL, f"planner: planned serve differs by {err}")
+        check(launches == 1, f"planner: planned serve launched the bag kernel {launches} times")
+        return {"launches": launches, "max_err": err, "equal": equal}
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def _dryrun(argv, out: Path, timeout: float) -> list:
+    """``python -m repro_torch.launch.dryrun`` in a subprocess (a fake
+    process group cannot share a process with the NCCL one): its records."""
+    import shutil
+    import subprocess
+
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                           "--out", str(out)], capture_output=True, text=True,
+                          timeout=timeout, env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("ok", "FAIL", "SKIP", "done")):
+            log(f"planner: dryrun | {line}")
+    check(proc.returncode == 0, f"planner: dryrun {' '.join(argv)} exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    recs = [json.loads(p_.read_text()) for p_ in sorted(out.glob("*.json"))]
+    log(f"planner: dryrun {' '.join(argv)}: {len(recs)} records in {wall:.3f} s")
+    return recs
+
+
+def phase_planner(torch, seed: int, serve: dict) -> dict:
+    """The dry-run planner on the card (the module docstring's planner):
+    (a) qwen3-0.6b x train_4k planned by ``specs._plan_lm`` on the (1, 1)
+    mesh of an NCCL group of one rank at full width, its global batch cut
+    from 256 to PLANNER_BATCH (seq_len 4096 kept), the arguments
+    materialised on the card from the plan: PLANNER_STEPS planned steps
+    against as many ``make_train_step`` + ``adamw`` steps on plain tensors
+    from the same weights (the loss, and every updated leaf by its error
+    norm), the attention kernels' launches counted both ways; (c) the dry
+    run of PLANNER_CELLS at 256 and 512 fake ranks, every record ok within
+    SHARE_CAP; (d) (a)'s cut cell dry-run at world size 1, its FLOPs equal
+    to ``counts.count`` of (a)'s executed step and its bytes within 1%."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.core.treepath import tree_leaves, tree_map
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import counts
+
+    out = {"serve": serve}
+    cfg = get_config("qwen3-0.6b")
+    shape = dataclasses.replace({s_.name: s_ for s_ in LM_SHAPES}["train_4k"],
+                                global_batch=PLANNER_BATCH)
+    mesh, store = _nccl_world_one(torch, "planner")
+    try:
+        t0 = time.perf_counter()
+        plan = specs._plan_lm(cfg.name, cfg, shape, mesh)
+        params = tfm.init_lm(cfg, torch.Generator("cuda").manual_seed(seed), "cuda")
+        opt = specs.train_optimizer()
+        state = opt.init(params)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(lm_data.token_batches(
+            cfg.vocab_size, shape.global_batch, shape.seq_len, seed=seed)).items()}
+        clone = lambda tree: tree_map(lambda t: t.clone(), tree)  # noqa: E731
+        args = specs.dtensor_args(plan, mesh, (clone(params), clone(state), batch))
+        step = tfm.make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        log(f"planner: (a) {cfg.name} x train_4k cut to global batch {shape.global_batch} "
+            f"(from 256) at seq_len {shape.seq_len}, full width ({cfg.n_layers} layers, "
+            f"{sum(t.numel() for t in tree_leaves(params)):,} params, {cfg.dtype}), planned on "
+            f"mesh (1, 1) over {dist.get_backend()}; arguments materialised in "
+            f"{time.perf_counter() - t0:.3f} s")
+        losses, planned_ms = [], []
+        FA.reset_launches()
+        FA.reset_bwd_launches()
+        for _ in range(PLANNER_STEPS):
+            t = time.perf_counter()
+            p_new, s_new, loss = plan.fn(*args)
+            torch.cuda.synchronize()
+            planned_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(_full(loss)))
+            args = (p_new, s_new, args[2])
+        planned_launches = (FA.launches, FA.bwd_launches)
+        FA.reset_launches()
+        FA.reset_bwd_launches()
+        ref_losses = []
+        for _ in range(PLANNER_STEPS):
+            params, state, metrics = step(params, state, batch)
+            ref_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        plain_launches = (FA.launches, FA.bwd_launches)
+        worst, where = 0.0, ""
+        for name, got_tree, want_tree in (("params", args[0], params), ("opt", args[1], state)):
+            from repro_torch.core.treepath import keystr, tree_paths
+            want_flat = dict((keystr(p_), t_) for p_, t_ in tree_paths(want_tree))
+            for path, t_ in tree_paths(got_tree):
+                g, w = _full(t_).float(), want_flat[keystr(path)].float()
+                rel = (torch.linalg.vector_norm(g - w)
+                       / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+                if rel > worst:
+                    worst, where = rel, f"{name}/{keystr(path)}"
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        log(f"planner: (a) {PLANNER_STEPS} planned steps: loss "
+            f"{' '.join(f'{v:.6f}' for v in losses)} vs plain "
+            f"{' '.join(f'{v:.6f}' for v in ref_losses)} (rel {loss_rel:.3e}); every updated "
+            f"leaf: worst error norm over norm {worst:.3e} ({where}); step ms "
+            f"{' '.join(f'{v:.1f}' for v in planned_ms)}; attention launches planned "
+            f"{planned_launches[0]} + {planned_launches[1]}, plain {plain_launches[0]} + "
+            f"{plain_launches[1]}")
+        check(loss_rel <= PLANNER_LOSS_REL, f"planner: planned loss rel {loss_rel}")
+        check(worst <= PLANNER_LEAF_REL, f"planner: planned leaf {where} off by {worst}")
+        want_launches = (2 * cfg.n_layers * PLANNER_STEPS, cfg.n_layers * PLANNER_STEPS)
+        check(planned_launches == plain_launches == want_launches,
+              f"planner: attention launches planned {planned_launches}, plain "
+              f"{plain_launches}, want {want_launches}")
+        out["launches"] = planned_launches
+        # (d)'s reference: one more planned step, counted on the card
+        torch.cuda.reset_peak_memory_stats()
+        counted = counts.count(lambda: plan.fn(*args))
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated()
+        del args, params, state, p_new, s_new, loss
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    # (c) the dry run at 256 and 512 fake ranks
+    cells = [c for a, s_ in PLANNER_CELLS for c in ("--cell", f"{a}:{s_}")]
+    recs = _dryrun([*cells, "--both-meshes"], ROOT / "build" / "planner" / "cells",
+                   PLANNER_DRYRUN_TIMEOUT)
+    check(len(recs) == 2 * len(PLANNER_CELLS), f"planner: {len(recs)} dry-run records")
+    for r in recs:
+        check(r["ok"], f"planner: dry run of {r['arch']} x {r['shape']} on {r['mesh']} "
+                       f"failed: {r.get('error')}")
+        roof = r["roofline"]
+        log(f"planner: (c) {r['arch']} x {r['shape']} on {r['mesh']}: per-rank peak "
+            f"{r['memory']['peak_estimate_bytes'] / 1e9:.3f} GB (arguments "
+            f"{r['memory']['argument_bytes'] / 1e9:.3f} GB), bottleneck {roof['bottleneck']}, "
+            f"step bound {roof['step_s'] * 1e3:.3f} ms, roofline_frac "
+            f"{roof['roofline_frac']:.4f}, collectives {roof['n_collectives']}, run "
+            f"{r['run_s']:.2f} s")
+        check(roof["roofline_frac"] <= SHARE_CAP,
+              f"planner: {r['arch']} x {r['shape']} roofline_frac {roof['roofline_frac']}")
+    out["cells"] = recs
+
+    # (d) (a)'s cut cell at world size 1, against (a)'s executed step
+    (rec,) = _dryrun(["--cell", f"{cfg.name}:train_4k", "--mesh", "1x1", "--global-batch",
+                      str(PLANNER_BATCH)], ROOT / "build" / "planner" / "world1",
+                     PLANNER_DRYRUN_TIMEOUT)
+    check(rec["ok"], f"planner: world-1 dry run failed: {rec.get('error')}")
+    dry = rec["counts"]
+    bytes_rel = abs(dry["bytes_accessed"] - counted.bytes_accessed) / counted.bytes_accessed
+    log(f"planner: (d) world-1 dry run of the cut cell: {dry['flops']:.6e} FLOPs, "
+        f"{dry['bytes_accessed']:.6e} bytes; the executed step counted on the card "
+        f"{counted.flops:.6e} FLOPs, {counted.bytes_accessed:.6e} bytes (rel {bytes_rel:.3e}); "
+        f"peak estimate {rec['memory']['peak_estimate_bytes'] / 1e9:.3f} GB vs the card's "
+        f"max_memory_allocated {card_peak / 1e9:.3f} GB over the counted step (ratio "
+        f"{rec['memory']['peak_estimate_bytes'] / card_peak:.4f})")
+    check(dry["flops"] == counted.flops, f"planner: world-1 FLOPs {dry['flops']} != "
+                                         f"{counted.flops}")
+    check(bytes_rel <= 0.01, f"planner: world-1 bytes off by {bytes_rel}")
+    out.update(flops=counted.flops, bytes_rel=bytes_rel,
+               peak_ratio=rec["memory"]["peak_estimate_bytes"] / card_peak)
+    return out
+
+
 # -------------------------------------------------------------- bag-kernel --
 
 def _bag_agrees(torch, EB, table, ids, weights, dtype: str, what: str) -> float:
@@ -5624,7 +5893,7 @@ def phase_gnn(torch, seed: int) -> dict:
         f"and the (E, {3 * cfg.d_hidden}) message input "
         f"{s_.n_edges * 3 * cfg.d_hidden * 2 / 1e9:.1f} GB, past one card even for a forward "
         f"pass; it waits for node and edge latents sharded over more than one card "
-        f"(ROADMAP.md item 11: the rules are ported, the planner and multi-card cells "
+        f"(ROADMAP.md item 11: the rules and the planner are ported, multi-card cells "
         f"are not)")
     del batches, params, graph, feats, targets, sampler
     torch.cuda.empty_cache()
@@ -5772,8 +6041,15 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         rec = phase_rec(torch, rec_cfg, params, args.seed)
         phases["rec"] = time.perf_counter() - t
+        t = time.perf_counter()
+        planner_serve = phase_planner_serve(torch, rec_cfg, params, args.seed)
+        phases["planner"] = time.perf_counter() - t
         del params   # the 48 GB serving table
         torch.cuda.empty_cache()
+    # the planned training step differentiates: outside inference_mode
+    t = time.perf_counter()
+    planner = phase_planner(torch, args.seed, planner_serve)
+    phases["planner"] += time.perf_counter() - t
     # recsys training differentiates: outside inference_mode
     t = time.perf_counter()
     bag_bwd = phase_bag_bwd(torch, rec_cfg, args.seed)
@@ -5880,6 +6156,7 @@ def main(argv=None) -> int:
         "shape_g1_b4": shape_g1_b4, "launches_moe_train": moe_train["launches"],
         "launches_moe_a2a": moe_a2a["launches"],
         "launches_moe_a2a_train": moe_a2a["train_launches"][0],
+        "launches_planner": planner["launches"][0],
     }, {
         "name": "flash_attention_bwd", "route": "cuda", "source": flash_attention.BWD_SOURCE,
         "replaces": flash_attention.BWD_REPLACES,
@@ -5928,6 +6205,7 @@ def main(argv=None) -> int:
         "library_ms_g1_float32": tbg1_32["library"], "shape_g1": shape_g1_b4,
         "launches_moe_train": moe_train["bwd_launches"],
         "launches_moe_a2a_train": moe_a2a["train_launches"][1],
+        "launches_planner": planner["launches"][1],
     }, {
         "name": "embedding_bag", "route": "cuda", "source": embedding_bag.SOURCE,
         "replaces": embedding_bag.REPLACES, "launches": rec["launches"],
@@ -5937,6 +6215,7 @@ def main(argv=None) -> int:
         "bound_by": tbg["bound_by"], "library_ms": tbg["library"],
         "device_ms": tbg["device_ms"], "launches_train": rec_train["launches"],
         "launches_bert4rec": b4r["launches"],
+        "launches_planner": planner["serve"]["launches"],
         "dtype": "bfloat16", "shape": f"serve_bulk {tbg['shape']}",
     }, {
         "name": "embedding_bag_bwd", "route": "cuda", "source": embedding_bag.BWD_SOURCE,

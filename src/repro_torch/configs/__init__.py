@@ -18,8 +18,9 @@ configs train through the launcher, and deepseek-moe-16b's full width on
 one card only at a cut depth (all 28 layers' training state is about 270
 GB, moonshot's 48 about 462 GB). Their expert-parallel MoE
 (``models.moe.moe_apply_a2a``) and the sharding rules (``distributed/``)
-are ported and run at world size 1; the full depths wait for more than one
-card and the dry-run planner (ROADMAP.md §1 item 11).
+are ported and run at world size 1, and the dry-run planner plans them
+at 256 and 512 ranks; the full depths wait for more than one card
+(ROADMAP.md §1 item 11).
 deepseek-coder-33b (56 query heads over 8 KV heads: G=7) serves through
 ``models.transformer`` in bfloat16, on the attention forward kernel at that
 group size, with the bfloat16 KV cache or, under ``kv_quant``, the int8

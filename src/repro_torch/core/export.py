@@ -137,6 +137,14 @@ def loads(data: bytes) -> Tuple[Dict[str, np.ndarray], Dict]:
     return out, header
 
 
+def save(path: str, params, model: str = "", meta: Optional[Dict] = None) -> None:
+    """Write ``dumps(params, model, meta)`` to ``path``: the bytes the JAX
+    package's ``save`` writes for the same tree, which either ``load``
+    reads."""
+    with open(path, "wb") as f:
+        f.write(dumps(params, model, meta))
+
+
 def load(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     with open(path, "rb") as f:
         return loads(f.read())

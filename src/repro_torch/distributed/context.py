@@ -10,7 +10,9 @@ skipping a rule whose axes do not divide ``x``'s dims, as JAX's
 context is a ``contextvars.ContextVar``: it holds in the thread (and task)
 that entered it, so code that runs a model's layers elsewhere (a
 rematerialised layer's recompute in the backward) captures ``current()``
-and enters it again there.
+and enters it again there. Under ``fsdp`` (the planner's dense LM
+training) a model gathers each layer's weights whole before running it
+(``gather_layer``), where JAX leaves that all-gather to XLA.
 """
 from __future__ import annotations
 
@@ -31,11 +33,13 @@ class ShardingRules:
     mesh: object
     rules: Dict[str, P]
     moe_a2a: bool = False       # route MoE through the all-to-all (moe_apply_a2a)
+    fsdp: bool = False          # gather each layer's weights whole before it runs
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, rules: Dict[str, P], moe_a2a: bool = False):
-    tok = _CTX.set(ShardingRules(mesh, rules, moe_a2a))
+def activation_sharding(mesh, rules: Dict[str, P], moe_a2a: bool = False,
+                        fsdp: bool = False):
+    tok = _CTX.set(ShardingRules(mesh, rules, moe_a2a, fsdp))
     try:
         yield
     finally:
@@ -73,6 +77,23 @@ def constrain(x, kind: str):
     if spec is None or len(spec) > x.ndim or not _fits(spec, x.shape):
         return x
     return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+def gather_layer(tree):
+    """A layer's weights as it runs under the context: with ``fsdp`` set
+    (the FSDP layout of dense LM training), each DTensor leaf gathered
+    whole, the all-gather XLA's partitioner puts before the layer in the
+    JAX package; its gradient comes back reduce-scattered onto the leaf's
+    layout. Otherwise, or on plain tensors, the tree as it is."""
+    ctx = _CTX.get()
+    if ctx is None or not ctx.fsdp:
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(tree, dict):
+        return {k: gather_layer(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return tree.redistribute(tree.device_mesh, [Replicate()] * tree.device_mesh.ndim)
+    return tree
 
 
 def gnn_rules(mesh) -> Dict[str, P]:

@@ -19,11 +19,16 @@ read a leaf's path (``core.treepath.keystr``) and shape and the mesh's axis
 sizes only, so they run on an ``AbstractMesh`` as on a ``DeviceMesh``.
 ``placements(spec, mesh)`` turns a spec into DTensor placements, in place of
 JAX's ``NamedSharding``, and ``distribute`` places a tree by its specs.
+``NamedSharding(mesh, spec)`` keeps a spec beside its mesh and its
+placements; ``named`` and ``param_shardings`` make trees of them, as JAX's
+do of its own.
 """
 from __future__ import annotations
 
 import re
 from typing import Any, Tuple
+
+import torch
 
 from repro_torch.core.treepath import keystr, tree_map, tree_map_with_path
 from repro_torch.distributed.mesh import axis_size, data_axes, mesh_shape
@@ -160,6 +165,11 @@ def param_specs(params: Any, family: str, mesh) -> Any:
                                params)
 
 
+def param_shardings(params: Any, family: str, mesh) -> Any:
+    """``param_specs`` as a tree of ``NamedSharding`` on ``mesh``."""
+    return named(mesh, param_specs(params, family, mesh))
+
+
 # ---------------------------------------------------------------------------
 # optimizer-state sharding: ZeRO over the data axes
 # ---------------------------------------------------------------------------
@@ -278,6 +288,91 @@ def placements(spec: P, mesh) -> tuple:
                 raise ValueError(f"{spec}: axis {names[i]!r} shards two dims")
             out[i] = Shard(d)
     return tuple(out)
+
+
+class NamedSharding:
+    """A spec on a mesh, the twin of JAX's ``NamedSharding``: ``.mesh``,
+    ``.spec`` (a ``P``) and ``.placements``, the spec's DTensor placements
+    on the mesh (a ``DeviceMesh`` or an ``AbstractMesh``). Two are equal
+    when their specs and their meshes' axes are."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec: P):
+        self.mesh, self.spec = mesh, P(*spec)
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and self.spec == other.spec
+                and mesh_shape(self.mesh) == mesh_shape(other.mesh))
+
+    def __hash__(self) -> int:
+        return hash((self.spec, tuple(mesh_shape(self.mesh).items())))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+def named(mesh, tree_of_specs: Any) -> Any:
+    """A tree of ``P`` as a tree of ``NamedSharding`` on ``mesh`` (a ``P``
+    is a tuple, so it is a leaf here, not a node)."""
+    if isinstance(tree_of_specs, P):
+        return NamedSharding(mesh, tree_of_specs)
+    if isinstance(tree_of_specs, dict):
+        return {k: named(mesh, v) for k, v in tree_of_specs.items()}
+    if isinstance(tree_of_specs, (list, tuple)):
+        return [named(mesh, v) for v in tree_of_specs]
+    raise TypeError(f"not a tree of specs: {type(tree_of_specs).__name__}")
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (a planned step's), without importing
+    DTensor for a plain tensor."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def split_dims(t, dim: int) -> list:
+    """The mesh dims over which DTensor ``t`` splits its tensor dim ``dim``,
+    in mesh order."""
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim]
+
+
+def block_index(mesh, dims) -> int:
+    """This rank's block of a tensor dim split over mesh dims ``dims`` (the
+    first the outermost, as DTensor cuts it)."""
+    block = 0
+    for i in dims:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    return block
+
+
+def by_rows(fn, x, *params):
+    """``fn(x, *params)`` of a DTensor ``x`` whose rows (dim 0) are
+    independent, on each rank's own rows through ``local_map``: x keeps
+    its split by rows (gathered on any other dim), the params (DTensors or
+    plain tensors) are gathered whole, and their gradient is each rank's
+    share, ``Partial`` over the mesh dims that split the rows. The output
+    is split by rows as x."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = split_dims(x, 0)
+    x_place = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if i in rows else Replicate() for i in range(mesh.ndim)]
+    params = [p if isinstance(p, DTensor) else DTensor.from_local(p, mesh, whole, run_check=False)
+              for p in params]
+    return local_map(fn, out_placements=x_place,
+                     in_placements=(x_place, *[whole] * len(params)),
+                     in_grad_placements=(x_place, *[grad] * len(params)),
+                     device_mesh=mesh, redistribute_inputs=True)(x, *params)
 
 
 def distribute(tree: Any, specs: Any, mesh) -> Any:

@@ -32,6 +32,16 @@ ones on one row give 256; ROADMAP.md §3, reference fault 8), every sum here
 is float32, rounded once. The weights get no gradient: a ``weights`` that
 requires one raises.
 
+On ``meta`` tensors (the dry-run planner's) the wrapper is the kernel's
+shape function: the card's checks, then an empty output (and gradient) of
+the kernel's shape inside the same ``counts.kernel`` region. On a DTensor
+table (a step planned on a ``DeviceMesh``) the bag is row-wise sharded,
+through ``local_map``: every rank takes all the ids, looks up the rows its
+shard of the table holds (the others masked to weight 0, on the kernel or
+its plain version), and the (B, d) sums, ``Partial`` over the mesh dims the
+table's rows are split on, are reduced onto the ids' batch placement
+(``_sharded``).
+
 ``launches`` counts the forward kernel's launches and ``bwd_launches`` the
 backward's (one a call of its C entry, which runs its three kernels), so a
 run can show that its path went through them; ``reset_launches`` and
@@ -47,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import block_index, is_dtensor, split_dims
 from repro_torch.kernels import build
 from repro_torch.roofline import analysis, counts
 
@@ -171,6 +182,9 @@ def _forward(table: torch.Tensor, ids: torch.Tensor,
     with counts.kernel(lambda: _work(table, ids, weights)):
         if table.device.type == "cpu":
             return embedding_bag_plain(table, ids, weights)
+        if table.device.type == "meta":
+            _check_width(table.shape[1])
+            return table.new_empty((ids.shape[0], table.shape[1]))
         if table.device.type != "cuda":
             raise ValueError(f"no kernel for device {table.device}")
         if table.shape[1] % KERNEL_VEC:
@@ -186,8 +200,15 @@ def _forward(table: torch.Tensor, ids: torch.Tensor,
         return out
 
 
+def _check_width(d: int) -> None:
+    if d % KERNEL_VEC:
+        raise ValueError(f"the CUDA kernel is compiled for widths that are a "
+                         f"multiple of {KERNEL_VEC}, not {d}")
+
+
 def _work(table: torch.Tensor, ids: torch.Tensor, weights: Optional[torch.Tensor]):
-    return analysis.embedding_bag_work(ids, weights is not None, table.shape[1], table.dtype)
+    return analysis.embedding_bag_work(ids, weights is not None, table.shape[1], table.dtype,
+                                       table.shape[0])
 
 
 def _bwd_work(grad_out: torch.Tensor, ids: torch.Tensor, weights: Optional[torch.Tensor],
@@ -324,6 +345,9 @@ def embedding_bag_bwd(grad_out: torch.Tensor, ids: torch.Tensor,
     with counts.kernel(lambda: _bwd_work(grad_out, ids, weights, n_rows)):
         if grad_out.device.type == "cpu":
             return embedding_bag_bwd_plain(grad_out, ids, weights, n_rows)
+        if grad_out.device.type == "meta":
+            _check_width(grad_out.shape[1])
+            return grad_out.new_empty((n_rows, grad_out.shape[1]))
         if grad_out.device.type != "cuda":
             raise ValueError(f"no kernel for device {grad_out.device}")
         if grad_out.shape[1] % KERNEL_VEC:
@@ -381,7 +405,10 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     the table's type: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors. Where grad is enabled and the table requires it, through
     ``EmbeddingBag``, whose backward is the CUDA backward kernel (the plain
-    backward on CPU tensors)."""
+    backward on CPU tensors). Meta tensors get an empty output after the
+    card's checks; a DTensor table is looked up row-wise (``_sharded``)."""
+    if is_dtensor(table):
+        return _sharded(embedding_bag, table, ids, weights)
     _check(table, ids, weights)
     _refuse_weight_grad(weights)
     if torch.is_grad_enabled() and table.requires_grad:
@@ -389,11 +416,63 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return _forward(table, ids, weights)
 
 
+def _sharded(bag, table, ids, weights):
+    """``bag`` (a wrapper) over a DTensor table, row-wise: the table stays
+    where it is (rows split over the mesh dims it is ``Shard(0)`` on,
+    whole on the others), the ids and weights are gathered whole onto
+    every rank, each rank sums the rows its block holds (the others at
+    weight 0, so a bag of rows all elsewhere is 0), and the sums,
+    ``Partial`` over the split dims, are reduced onto the ids' batch
+    placement (a reduce-scatter where the ids were split by rows). An id
+    outside ``[-V, V)`` makes its bag NaN on every rank, so in the sum, as
+    in the unsharded call."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    split = split_dims(table, 0)
+    t_place = tuple(Shard(0) if i in split else Replicate() for i in range(mesh.ndim))
+    whole = tuple(Replicate() for _ in t_place)
+    out_place = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in t_place)
+    v = table.shape[0]
+    n_split = 1
+    for i in split:
+        n_split *= mesh.size(i)
+    rows = v // n_split
+
+    def local(tl, il, wl):
+        if n_split == 1:
+            return bag(tl, il, wl)
+        block = block_index(mesh, split)
+        gid = il.long()
+        gid = torch.where(gid < 0, gid + v, gid)
+        outside = ((gid < 0) | (gid >= v)).any(dim=1, keepdim=True)
+        rel = gid - block * rows
+        mine = (rel >= 0) & (rel < rows)
+        w = mine.float() if wl is None else torch.where(mine, wl.float(), 0.0)
+        out = bag(tl, torch.where(mine, rel, 0).to(torch.int32), w)
+        return out.masked_fill(outside, float("nan"))
+
+    batch = ids.placements if isinstance(ids, DTensor) else whole
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, whole, run_check=False)
+    if weights is not None and not isinstance(weights, DTensor):
+        weights = DTensor.from_local(weights, mesh, whole, run_check=False)
+    w_place = None if weights is None else whole
+    out = local_map(local, out_placements=list(out_place),
+                    in_placements=(t_place, whole, w_place),
+                    device_mesh=mesh, redistribute_inputs=True)(table, ids, weights)
+    return out.redistribute(mesh, tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                                        else Replicate() for pl in batch))
+
+
 def embedding_bag_plain_route(table: torch.Tensor, ids: torch.Tensor,
                               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``embedding_bag`` through both plain versions on any device: the
     route a check on the card holds the kernels against, forward and
     gradient, bit for bit. No user path calls it."""
+    if is_dtensor(table):
+        return _sharded(embedding_bag_plain_route, table, ids, weights)
     _check(table, ids, weights)
     _refuse_weight_grad(weights)
     if torch.is_grad_enabled() and table.requires_grad:

@@ -65,6 +65,19 @@ form's tiles do not fit a block), on CPU tensors in
 ``flash_attention_bwd_plain``. Serving runs under ``torch.inference_mode()``
 and keeps the forward with no ``lse`` written.
 
+Two more kinds of input. On ``meta`` tensors (the dry-run planner's) the
+wrapper is the kernel's shape function: the same checks as on the card,
+then empty outputs of the kernel's shapes (``lse`` too), inside the same
+``counts.kernel`` region, so a planned step counts the kernel's work and
+launches nothing. On DTensors (a step planned on a ``DeviceMesh``) it runs
+on each rank's local shards through ``local_map``, the twin of JAX's
+``shard_map``: the batch over the data axes, the heads over ``model``
+where they divide, the sequence whole (a sequence-parallel input is
+gathered first). Where the query heads split over ``model`` and the KV
+heads cannot (qwen3-0.6b's 8 over 16 ranks), the KV heads arrive whole and
+each rank slices the ones its query heads read (``_kv_heads_of``), so the
+local call keeps ``h // G``; their gradient is ``Partial`` over ``model``.
+
 ``launches`` counts the forward kernel's launches and ``bwd_launches`` the
 backward's (one a call of its C entry, which runs its three kernels), so a
 run can show that its path went through them; ``reset_launches`` and
@@ -81,6 +94,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import build
 from repro_torch.roofline import analysis, counts
 
@@ -362,6 +376,16 @@ def _check_group(g: int) -> None:
                          f"head, not {g}")
 
 
+def _check_shapes_for_kernel(q: torch.Tensor, k: torch.Tensor, grad: bool) -> None:
+    """The checks of ``_check_kernel`` that read shapes and types only."""
+    b, s, h, d = q.shape
+    _check_head_width(q.dtype, d, grad)
+    _check_group(h // k.shape[2])
+    if b > 65535 or k.shape[2] > 65535:
+        raise ValueError(f"the CUDA kernel's grid takes B and Hkv up to 65535, "
+                         f"not B={b} Hkv={k.shape[2]}")
+
+
 def _check_kernel(*tensors: torch.Tensor, grad: bool = False) -> None:
     """What the CUDA kernels take beyond ``_check``: q, k, v (and, for the
     backward, out and dout) on the card, a head width ``KERNEL_HEAD_DIMS``
@@ -371,12 +395,7 @@ def _check_kernel(*tensors: torch.Tensor, grad: bool = False) -> None:
     q, k = tensors[0], tensors[1]
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    b, s, h, d = q.shape
-    _check_head_width(q.dtype, d, grad)
-    _check_group(h // k.shape[2])
-    if b > 65535 or k.shape[2] > 65535:
-        raise ValueError(f"the CUDA kernel's grid takes B and Hkv up to 65535, "
-                         f"not B={b} Hkv={k.shape[2]}")
+    _check_shapes_for_kernel(q, k, grad)
     for name, t in zip(("q", "k", "v", "out", "dout", "lse"), tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -472,6 +491,9 @@ class FlashAttention(torch.autograd.Function):
         with counts.kernel(lambda: analysis.attention_work(*_dims(q, k), q.dtype, lse=True)):
             if q.device.type == "cpu":
                 out, lse = flash_attention_fwd_plain(q, k, v)
+            elif q.device.type == "meta":
+                out, lse = torch.empty_like(q), q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                                                            dtype=torch.float32)
             else:
                 out, lse = _launch(q, k, v, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -485,6 +507,8 @@ class FlashAttention(torch.autograd.Function):
             dout = dout.contiguous()   # autograd may hand over a strided gradient
             if q.device.type == "cpu":
                 return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+            if q.device.type == "meta":
+                return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             return _launch_bwd(q, k, v, out, lse, dout)
 
 
@@ -504,15 +528,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     ``KERNEL_ROWS``, raises ``ValueError`` before anything launches. Under a ``roofline.counts``
     counter either route counts as ``analysis.attention_work`` (with the lse
     where it goes through ``FlashAttention``), its backward as
-    ``analysis.attention_bwd_work``."""
+    ``analysis.attention_bwd_work``. Meta tensors get empty outputs after
+    the card's checks; DTensors run on their local shards (``_sharded``)."""
+    if is_dtensor(q):
+        return _sharded(q, k, v)
     _check(q, k, v)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if q.device.type != "cpu":
+    if q.device.type == "meta":
+        _check_shapes_for_kernel(q, k, grad)
+    elif q.device.type != "cpu":
         _check_kernel(q, k, v, grad=grad)   # before any launch, the forward's too
     if grad:
         return FlashAttention.apply(q, k, v)
     with counts.kernel(lambda: analysis.attention_work(*_dims(q, k), q.dtype)):
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
         return _launch(q, k, v)
+
+
+def _kv_heads_of(h_local: int, first: int, g: int, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads that query heads ``first .. first + h_local - 1`` read
+    (head h reads KV head h // g), cut from the whole k and v: a run of
+    ``h_local // g`` heads where ``g`` divides ``h_local``, the one head
+    where ``h_local`` divides ``g``, else one head a query head (G = 1)."""
+    if h_local % g == 0:
+        lo, n = first // g, h_local // g
+    elif g % h_local == 0:
+        lo, n = first // g, 1
+    else:
+        idx = torch.div(torch.arange(first, first + h_local, device=k.device), g,
+                        rounding_mode="floor")
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
+
+def _sharded(q, k, v):
+    """``flash_attention`` of DTensors on their mesh, through ``local_map``:
+    q placed (data axes, -, model, -), k and v (data axes, -, model or
+    whole, -), the data axes only where they divide B and ``model`` only
+    where it divides the heads; each rank runs the wrapper (the kernel, the
+    plain version or the shape function) on its shards. The output is
+    placed as q."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.mesh import axis_size, data_axes, mesh_shape
+    from repro_torch.distributed.sharding import P, placements
+
+    mesh = q.device_mesh
+    sizes = mesh_shape(mesh)
+    b, _, h, _ = q.shape
+    hkv = k.shape[2]
+    dp = data_axes(mesh)
+    batch = dp if dp and b % axis_size(mesh, *dp) == 0 else None
+    m = sizes.get("model", 1)
+    q_heads = "model" if "model" in sizes and h % m == 0 else None
+    kv_heads = "model" if q_heads is not None and hkv % m == 0 else None
+    q_place = placements(P(batch, None, q_heads, None), mesh)
+    kv_place = placements(P(batch, None, kv_heads, None), mesh)
+    sliced = q_heads is not None and kv_heads is None and m > 1
+    kv_grad = tuple(Partial() if sliced and name == "model" else pl
+                    for name, pl in zip(sizes, kv_place))
+
+    def local(ql, kl, vl):
+        if sliced:
+            first = mesh.get_local_rank("model") * ql.shape[2]
+            kl, vl = _kv_heads_of(ql.shape[2], first, h // hkv, kl, vl)
+        return flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous())
+
+    return local_map(local, out_placements=list(q_place),
+                     in_placements=(q_place, kv_place, kv_place),
+                     in_grad_placements=(q_place, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)

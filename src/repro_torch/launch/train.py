@@ -40,8 +40,9 @@ node features, a new graph a step, as the JAX launcher builds them).
 ``--full`` dlrm-mlperf does not fit one card: its 24.03e9 table elements
 need 16 bytes each for the parameter, its float32 master copy and the two
 moments (384.5 GB), so it waits for the table sharded over more than one
-card (the rules that shard it, ``distributed/sharding.py``, are ported;
-the planner and multi-card cells are ROADMAP.md §1 item 11's next steps);
+card (the rules that shard it, ``distributed/sharding.py``, and the
+planner, ``launch/specs.py``, are ported; multi-card cells are ROADMAP.md
+§1 item 11's next step);
 so does ``--full`` deepseek-coder-33b (3.334e10 parameters at 16
 bytes each: 533 GB), whose reduced config trains here and whose full width
 trains on one card only at a cut depth (``chip_smoke.py``'s lm-coder-train,

@@ -31,6 +31,17 @@ nodes.
 Where ``cfg.remat`` is set and grad is enabled, each processor layer runs
 under ``torch.utils.checkpoint`` (non-reentrant), JAX's ``jax.checkpoint``
 of the scan body: the same arithmetic, recomputed in the backward.
+
+A planned step (``launch/specs.py``) runs the model on DTensors: the
+sharding context's ``constrain`` places the node latents at JAX's places
+(``forward``: after the node encoder, on each layer's aggregate and its new
+latents), and the two ops DTensor has no rule for run on each rank's
+shards through ``local_map``, with JAX's semantics: the gather reads the
+whole node latents at the edges this rank holds (``_gather``), and the
+segment sum reduces this rank's edges into every segment, the partial sums
+then summed over the ranks that split the edges (``_aggregate``; ``max``
+gathers the edges whole first, as a maximum's gradient must reach the one
+rank that held it).
 """
 from __future__ import annotations
 
@@ -39,10 +50,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import init_generator, resolve_device
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core import export
 from repro_torch.core.treepath import tree_map
+from repro_torch.distributed.context import constrain
+from repro_torch.distributed.sharding import is_dtensor, split_dims
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_params
 
 
@@ -69,8 +82,11 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator, d_feat: int,
     on its own device and then moved to ``device``: ``node_enc`` (d_feat ->
     h), ``edge_enc`` (d_edge_in -> h), ``proc`` (per layer ``edge`` 3h -> h
     and ``node`` 2h -> h, stacked on a leading n_layers axis) and ``dec``
-    (h -> d_out, no norm). Every MLP has ``mlp_layers`` hidden layers of h."""
+    (h -> d_out, no norm). Every MLP has ``mlp_layers`` hidden layers of h.
+    On ``device="meta"`` the same tree of shapes and dtypes, nothing
+    drawn."""
     dev = resolve_device(device)
+    generator = init_generator(generator, dev)
     dt = getattr(torch, cfg.dtype)
     h = cfg.d_hidden
     params = {
@@ -104,8 +120,36 @@ def _gather_rows(ids: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]
 
 def _gather(v: torch.Tensor, rows: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
     """``v[rows]``, passing a gradient back only where ``inside``."""
-    got = v.index_select(0, rows)
+    if is_dtensor(rows):
+        got = _sharded_gather(v, rows)
+    else:
+        got = v.index_select(0, rows)
     return torch.where(inside[:, None], got, got.detach())
+
+
+def _edge_placement(t) -> tuple:
+    """A DTensor's placement on its dim 0 only: ``Shard(0)`` where it is
+    split by rows, ``Replicate`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    rows = split_dims(t, 0)
+    return tuple(Shard(0) if i in rows else Replicate() for i in range(t.device_mesh.ndim))
+
+
+def _sharded_gather(v, rows):
+    """``v.index_select(0, rows)`` of DTensors: v gathered whole, each rank
+    reading the rows its block of ``rows`` names; v's gradient is each
+    rank's share, ``Partial`` over the mesh dims that split the rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = rows.device_mesh
+    whole = tuple(Replicate() for _ in range(mesh.ndim))
+    if not isinstance(v, DTensor):
+        v = DTensor.from_local(v, mesh, whole, run_check=False)
+    edges = _edge_placement(rows)
+    v_grad = tuple(Replicate() if pl == Replicate() else Partial() for pl in edges)
+    return local_map(lambda vl, rl: vl.index_select(0, rl), out_placements=list(edges),
+                     in_placements=(whole, edges), in_grad_placements=(v_grad, edges),
+                     device_mesh=mesh, redistribute_inputs=True)(v, rows)
 
 
 def _aggregate(msgs: torch.Tensor, segments: torch.Tensor, n: int,
@@ -113,7 +157,10 @@ def _aggregate(msgs: torch.Tensor, segments: torch.Tensor, n: int,
     """``jax.ops.segment_{sum,max}`` of msgs (E, h) into n segments, with
     ``mean`` as their sum over ``max(count, 1)``. ``segments`` are in
     [0, n], a dropped edge's n: the reduction runs over n + 1 segments and
-    returns the first n."""
+    returns the first n. DTensors reduce on each rank's edges
+    (``_sharded_aggregate``)."""
+    if is_dtensor(msgs):
+        return _sharded_aggregate(msgs, segments, n, kind)
     shape = (n + 1, msgs.shape[1])
     if kind in ("sum", "mean"):
         s = torch.zeros(shape, dtype=msgs.dtype, device=msgs.device).index_add_(
@@ -130,24 +177,53 @@ def _aggregate(msgs: torch.Tensor, segments: torch.Tensor, n: int,
     raise ValueError(kind)
 
 
+def _sharded_aggregate(msgs, segments, n: int, kind: str):
+    """``_aggregate`` of DTensor messages and segments: each rank reduces
+    its block of edges into all n segments, and the partial sums (and
+    counts) are ``Partial`` over the mesh dims that split the edges; ``max``
+    gathers the edges whole first and reduces them on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = msgs.device_mesh
+    if not isinstance(segments, DTensor):
+        segments = DTensor.from_local(segments, mesh, _edge_placement(msgs), run_check=False)
+    edges = _edge_placement(msgs)
+    if kind == "max":
+        edges = tuple(Replicate() for _ in edges)
+    out = tuple(Partial() if pl != Replicate() else Replicate() for pl in edges)
+    if kind == "mean":
+        s = local_map(lambda m, g: _aggregate(m, g, n, "sum"), out_placements=list(out),
+                      in_placements=(edges, edges), device_mesh=mesh,
+                      redistribute_inputs=True)(msgs, segments)
+        c = local_map(lambda g: torch.zeros((n + 1, 1), dtype=msgs.dtype, device=g.device)
+                      .index_add_(0, g, torch.ones((g.shape[0], 1), dtype=msgs.dtype,
+                                                   device=g.device))[:n],
+                      out_placements=list(out), in_placements=(edges,), device_mesh=mesh,
+                      redistribute_inputs=True)(segments)
+        return s / torch.clamp(c, min=1.0)
+    return local_map(lambda m, g: _aggregate(m, g, n, kind), out_placements=list(out),
+                     in_placements=(edges, edges), device_mesh=mesh,
+                     redistribute_inputs=True)(msgs, segments)
+
+
 def _process(params: Dict, node_feats: torch.Tensor, edge_feats: torch.Tensor,
              senders, receivers, segments: torch.Tensor,
-             cfg: GNNConfig) -> torch.Tensor:
+             cfg: GNNConfig, place=lambda x, kind: x) -> torch.Tensor:
     """Encode, process and decode one (possibly disjoint) graph whose ids
     are resolved: ``senders``/``receivers`` the gathered rows and whether
     each passes a gradient (``_gather_rows``), ``segments`` each edge's
     segment (N, the graph's node count, where it is dropped)."""
     n = node_feats.shape[0]
     dt = getattr(torch, cfg.dtype)
-    v = _ln_mlp(params["node_enc"], node_feats.to(dt))
+    v = place(_ln_mlp(params["node_enc"], node_feats.to(dt)), "nodes")
     e = _ln_mlp(params["edge_enc"], edge_feats.to(dt))
 
     def body(v, e, lp):
         msg_in = torch.cat([e, _gather(v, *senders), _gather(v, *receivers)], dim=-1)
         e_new = e + _ln_mlp(lp["edge"], msg_in)
-        agg = _aggregate(e_new, segments, n, cfg.aggregator)
+        agg = place(_aggregate(e_new, segments, n, cfg.aggregator), "nodes")
         v_new = v + _ln_mlp(lp["node"], torch.cat([v, agg], dim=-1))
-        return v_new, e_new
+        return place(v_new, "nodes"), e_new
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(params["proc"]["edge"]["ln_w"].shape[0]):
@@ -168,7 +244,8 @@ def forward(params: Dict, node_feats: torch.Tensor, edge_feats: torch.Tensor,
     receivers = receivers.long()
     keep = (receivers >= 0) & (receivers < n)
     return _process(params, node_feats, edge_feats, _gather_rows(senders, n),
-                    _gather_rows(receivers, n), torch.where(keep, receivers, n), cfg)
+                    _gather_rows(receivers, n), torch.where(keep, receivers, n), cfg,
+                    constrain)
 
 
 def forward_batched(params: Dict, node_feats: torch.Tensor,

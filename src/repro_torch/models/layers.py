@@ -23,6 +23,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import randn
+from repro_torch.distributed.sharding import block_index, by_rows, is_dtensor, split_dims
+
 #: the mask value of every attention here: exp(-1e30 - m) is 0 without NaN
 #: where a whole row of a tile is masked, unlike -inf
 MASK = -1e30
@@ -34,14 +37,12 @@ MASK = -1e30
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn((d_in, d_out), generator=generator,
-                        device=generator.device) / math.sqrt(d_in)).to(dtype)
+    return (randn((d_in, d_out), generator) / math.sqrt(d_in)).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn((vocab, d), generator=generator,
-                        device=generator.device) * 0.02).to(dtype)
+    return (randn((vocab, d), generator) * 0.02).to(dtype)
 
 
 def mlp_params(generator: torch.Generator, dims: Tuple[int, ...],
@@ -158,7 +159,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.softmax(scores, dim=-1).to(v.dtype)
         return torch.einsum("bkgcs,bskd->bckgd", p, v)
 
-    qg = q.reshape(b, s, hkv, g, d)
+    qg = _whole_heads(q, 2, hkv).reshape(b, s, hkv, g, d)
     if s <= chunk:
         return attend(qg, kv_pos).reshape(b, s, h, d)
     if s % chunk:
@@ -181,7 +182,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     g = h // hkv
     s = k_cache.shape[1]
     scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(b, hkv, g, d)
+    # a DTensor query's heads whole: the products flatten (B, Hkv), which
+    # DTensor cannot split on both
+    qg = _whole_heads(q, 2, 1).reshape(b, hkv, g, d)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
     if kv_len is not None:
         mask = (torch.arange(s, device=q.device)[None, None, None, :]
@@ -210,14 +213,64 @@ def attn_params(generator: torch.Generator, d_model: int, n_heads: int, n_kv: in
     return p
 
 
+def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * d) -> (..., n, d). A DTensor whose last dim is split over
+    mesh dims whose ranks do not divide ``n`` (8 KV heads over 16 ranks)
+    is gathered along that dim first: a head is never cut."""
+    if is_dtensor(t):
+        t = _whole_heads(t, t.ndim - 1, n)
+    return t.reshape(*t.shape[:-1], n, d)
+
+
+def _whole_heads(t, dim: int, n: int):
+    """DTensor ``t`` gathered along ``dim`` unless the ranks that split it
+    divide ``n``; anything else as it is."""
+    from torch.distributed.tensor import Replicate
+    if not is_dtensor(t):
+        return t
+    split = split_dims(t, dim)
+    ranks = 1
+    for i in split:
+        ranks *= t.device_mesh.size(i)
+    if n % ranks == 0:
+        return t
+    return t.redistribute(t.device_mesh, tuple(Replicate() if i in split else pl
+                                              for i, pl in enumerate(t.placements)))
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``. DTensor ids (a planned step's) run on each rank's
+    own rows with the table gathered whole, its gradient reduced back onto
+    its layout (``sharding.by_rows``): an index with DTensor operands has
+    no reliable rule in DTensor."""
+    if is_dtensor(ids):
+        return by_rows(lambda i, t: t[i.long()], ids, table)
+    return table[ids.long()]
+
+
+def seq_whole(x):
+    """A DTensor (B, S, ...) with its sequence gathered where it is split
+    (the sequence-parallel residual before a product with weights:
+    Megatron-SP's all-gather, which XLA's partitioner inserts in the JAX
+    package); anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    split = split_dims(x, 1)
+    if not split:
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if i in split else pl
+                                         for i, pl in enumerate(x.placements)])
+
+
 def qkv_project(p: Dict, x: torch.Tensor, n_heads: int, n_kv: int, d_head: int,
                 positions: torch.Tensor, theta: float):
     """x (B, S, d_model) -> q (B, S, H, D), k, v (B, S, Hkv, D); q_norm and
     k_norm (qk_norm) apply before the rotation."""
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, d_head)
-    k = (x @ p["wk"]).reshape(b, s, n_kv, d_head)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, d_head)
+    x = seq_whole(x)
+    q = split_heads(x @ p["wq"], n_heads, d_head)
+    k = split_heads(x @ p["wk"], n_kv, d_head)
+    v = split_heads(x @ p["wv"], n_kv, d_head)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -236,6 +289,7 @@ def swiglu_params(generator: torch.Generator, d_model: int, d_ff: int, dtype) ->
 
 
 def swiglu_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    x = seq_whole(x)
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -249,11 +303,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``where`` (no gather), for vocab-sharded SPMD; on one card
     ``torch.gather`` picks the same value (that sum adds zeros to it)
     without a (B, S, V) index tensor, and ``torch.logsumexp`` subtracts the
-    row max as the JAX function does."""
+    row max as the JAX function does. DTensor logits (vocab-sharded in a
+    planned step) stay sharded: the log-sum-exp as the row max (of the
+    detached logits) plus the log of a sum of exponentials, each reduced
+    over the ranks that split the vocab, and the label's logit as JAX's
+    ``where`` sum, which each rank runs on its own vocab columns
+    (``_label_logit``)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if not is_dtensor(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(-1))
+        ll = _label_logit(logits, labels)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     return torch.mean(loss)
+
+
+def _label_logit(logits, labels):
+    """``logits[..., labels]`` of vocab-sharded DTensor logits: each rank
+    sums its own columns where the label falls (JAX's ``where`` sum over
+    the vocab, its iota offset by the rank's first column), and the sums
+    are ``Partial`` over the mesh dims that split the vocab."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    place = [pl if isinstance(pl, Shard) else Replicate() for pl in logits.placements]
+    vocab = split_dims(logits, logits.ndim - 1)
+    rows = [Replicate() if i in vocab else pl for i, pl in enumerate(place)]
+    out = [Partial() if i in vocab else pl for i, pl in enumerate(rows)]
+
+    def local(lg, lab):
+        lo = block_index(mesh, vocab) * lg.shape[-1]
+        iota = torch.arange(lo, lo + lg.shape[-1], device=lg.device)
+        return torch.where(iota == lab.long()[..., None], lg, 0.0).sum(-1)
+
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_map(local, out_placements=out, in_placements=(place, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)

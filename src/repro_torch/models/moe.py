@@ -77,7 +77,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import randn
 from repro_torch.configs.base import LMConfig, MoESpec
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers as L
 
 
@@ -92,7 +94,7 @@ def moe_params(generator: torch.Generator, cfg: LMConfig, dtype) -> Dict:
     dev = generator.device
 
     def normal(shape, std):   # one float32 temporary a tensor
-        return torch.randn(shape, generator=generator, device=dev).mul_(std)
+        return randn(shape, generator).mul_(std)
 
     p = {
         "router": normal((d, e), 1.0 / math.sqrt(d)),
@@ -186,7 +188,55 @@ def count_drops():
 def moe_apply(p: Dict, x: torch.Tensor, cfg: LMConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux_loss): the routed experts' weighted
-    outputs over each token's kept choices, plus the shared experts."""
+    outputs over each token's kept choices, plus the shared experts. On
+    DTensors (a planned decode step) through ``_moe_apply_sharded``."""
+    if is_dtensor(x):
+        return _moe_apply_sharded(p, x, cfg)
+    return _moe_apply(p, x, cfg)
+
+
+def _moe_apply_sharded(p: Dict, x, cfg: LMConfig):
+    """``moe_apply`` of DTensors, JAX's semantics (its groups and slots are
+    the whole batch's): every rank routes all the tokens (x and the router
+    gathered whole) and runs its own block of experts (their weights split
+    over ``model`` on their expert dim, as the ``lm`` rules place them); the
+    routed outputs are ``Partial`` over ``model``, summed where read, and
+    the shared experts run as DTensor ops beside them. The aux loss is the
+    same on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.mesh import mesh_shape
+    mesh = x.device_mesh
+    names = list(mesh_shape(mesh))
+    whole = [Replicate()] * mesh.ndim
+    m = names.index("model") if "model" in names else None
+    ep = m is not None and cfg.moe.n_routed % mesh.size(m) == 0
+    experts = [Shard(0) if ep and i == m else Replicate() for i in range(mesh.ndim)]
+    routed = [Partial() if ep and i == m else Replicate() for i in range(mesh.ndim)]
+
+    def local(xl, router, w_gate, w_up, w_down):
+        lo = mesh.get_local_rank(m) * w_gate.shape[0] if ep else 0
+        q = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        return _moe_apply(q, xl, cfg, expert_block=(lo, w_gate.shape[0]))
+
+    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    args = [a if isinstance(a, DTensor) else DTensor.from_local(a, mesh, whole, run_check=False)
+            for a in args]
+    y, aux = local_map(local, out_placements=(routed, whole),
+                       in_placements=(whole, whole, experts, experts, experts),
+                       device_mesh=mesh, redistribute_inputs=True)(*args)
+    if "shared" in p:
+        y = y + L.swiglu_apply(p["shared"], x)
+    return y, aux
+
+
+def _moe_apply(p: Dict, x: torch.Tensor, cfg: LMConfig, expert_block=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` on plain tensors. With ``expert_block`` = (first, n)
+    the expert weights in ``p`` are those n experts only: the routing is
+    over all of them, the FFN runs on the block, a pair routed elsewhere
+    reads 0, and the shared experts are left to the caller."""
     spec = cfg.moe
     b, s0, d = x.shape
     t = b * s0
@@ -218,15 +268,22 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: LMConfig
     dispatched = x_pad[rows.transpose(0, 1).reshape(e, g * c)]
 
     # expert FFN: one batched product per weight over the E experts
+    if expert_block is not None:
+        lo, n = expert_block
+        dispatched = dispatched[lo:lo + n]
     h = F.silu(torch.bmm(dispatched, p["w_gate"])) * torch.bmm(dispatched, p["w_up"])
-    eo = torch.bmm(h, p["w_down"]).reshape(e, g, c, d)
+    eo = torch.bmm(h, p["w_down"])
+    if expert_block is not None:
+        eo = torch.cat([eo.new_zeros((lo, g * c, d)), eo,
+                        eo.new_zeros((e - lo - n, g * c, d))])
+    eo = eo.reshape(e, g, c, d)
 
     # combine gather: each token reads its k slots, dropped ones times 0
     outs = eo[idx, gi, torch.clamp_max(pos_c, c - 1)]                 # (G,S,k,d)
     wk = (w * keep.float()).to(x.dtype)
     y = torch.einsum("gskd,gsk->gsd", outs, wk)
 
-    if "shared" in p:
+    if "shared" in p and expert_block is None:
         y = y + L.swiglu_apply(p["shared"], xg)
     return y.reshape(b, s0, d), aux
 

@@ -37,11 +37,16 @@ and 18 are not multiples of its 4), and their gradient is autograd's.
 ``loss_fn`` is the JAX package's binary cross-entropy for the CTR models
 and BERT4Rec's sampled softmax.
 
-The JAX code's ``constrain`` calls are sharding hints; ``distributed/
-context.py`` has them, and they come here with the dry-run planner, which
-runs these models sharded (ROADMAP.md §1 item 11), as they do to
-``models/gnn.py``. Nothing here disables autograd: serving
-callers run under ``torch.inference_mode()``.
+The JAX code's ``constrain`` calls are sharding hints, and they stand at
+JAX's places here (the candidates of each ``*_retrieval``): the identity on
+plain tensors, a redistribution of DTensors under a sharding context
+(``distributed/context.py``), as a planned step (``launch/specs.py``) runs
+these models. On a DTensor table split by rows, a lookup is row-wise
+sharded: the bag kernel's wrapper does it for DLRM's and BERT4Rec's
+lookups, ``take_rows`` for FM's and DIN's (every rank reads the rows of its
+block at every id, the others 0, and the sums are reduced onto the ids'
+placement). Nothing here disables autograd: serving callers run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -52,10 +57,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import init_generator, randn, resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core import export
 from repro_torch.core.treepath import tree_map
+from repro_torch.distributed.context import constrain
+from repro_torch.distributed.sharding import block_index, by_rows, is_dtensor, split_dims
 from repro_torch.kernels.embedding_bag import embedding_bag as _bag_kernel
 from repro_torch.kernels.embedding_bag import embedding_bag_plain_route
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
@@ -149,7 +156,7 @@ def init_fm(generator: torch.Generator, cfg: RecsysConfig) -> Dict:
     dev = generator.device
     return {
         "emb": _table_init(generator, v_total, cfg.embed_dim, dt),
-        "lin": (torch.randn((v_total,), generator=generator, device=dev) * 0.01).to(dt),
+        "lin": (randn((v_total,), generator) * 0.01).to(dt),
         "bias": torch.zeros((), dtype=torch.float32, device=dev),
     }
 
@@ -166,7 +173,10 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     gather and masked with ``torch.where``, so nothing waits on the card
     and no id raises (plain indexing raises on the CPU and asserts on the
     card, which ends the process's CUDA context). The gradient of a NaN row
-    goes nowhere: ``torch.where`` gives the clamped row none."""
+    goes nowhere: ``torch.where`` gives the clamped row none. A DTensor
+    table is read row-wise (``_take_rows_sharded``)."""
+    if is_dtensor(table):
+        return _take_rows_sharded(table, rows)
     v = table.shape[0]
     rows = rows.long()
     rows = torch.where(rows < 0, rows + v, rows)
@@ -175,6 +185,50 @@ def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     inside = inside.reshape(inside.shape + (1,) * (got.dim() - inside.dim()))
     return torch.where(inside, got, torch.full((), float("nan"), dtype=got.dtype,
                                                 device=got.device))
+
+
+def _take_rows_sharded(table, rows):
+    """``take_rows`` of a DTensor table, row-wise: the table stays split by
+    rows over the mesh dims it is ``Shard(0)`` on, the ids are gathered
+    whole, each rank reads the rows of its block (the others 0; an id
+    outside [-V, V) NaN on every rank), and the ``Partial`` sums are reduced
+    onto the ids' placement by rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    split = split_dims(table, 0)
+    t_place = tuple(Shard(0) if i in split else Replicate() for i in range(mesh.ndim))
+    whole = tuple(Replicate() for _ in t_place)
+    batch = (tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                   for pl in rows.placements) if isinstance(rows, DTensor) else whole)
+    if not isinstance(rows, DTensor):
+        rows = DTensor.from_local(rows, mesh, whole, run_check=False)
+    v = table.shape[0]
+    n_split = 1
+    for i in split:
+        n_split *= mesh.size(i)
+    per = v // n_split
+
+    def local(tl, rl):
+        if n_split == 1:
+            return take_rows(tl, rl)
+        block = block_index(mesh, split)
+        r = rl.long()
+        r = torch.where(r < 0, r + v, r)
+        outside = (r < 0) | (r >= v)
+        rel = r - block * per
+        mine = (rel >= 0) & (rel < per)
+        got = tl[torch.where(mine, rel, 0)]
+        pad = (1,) * (got.dim() - mine.dim())
+        got = torch.where(mine.reshape(mine.shape + pad), got, torch.zeros((), dtype=got.dtype,
+                                                                          device=got.device))
+        return torch.where(outside.reshape(outside.shape + pad),
+                           torch.full((), float("nan"), dtype=got.dtype, device=got.device), got)
+
+    out = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in t_place)
+    got = local_map(local, out_placements=list(out), in_placements=(t_place, whole),
+                    device_mesh=mesh, redistribute_inputs=True)(table, rows)
+    return got.redistribute(mesh, batch)
 
 
 def fm_forward(params: Dict, ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
@@ -200,8 +254,8 @@ def fm_retrieval(params: Dict, user_ids: torch.Tensor, cand_ids: torch.Tensor,
     const = (params["bias"] + take_rows(params["lin"], gu).float().sum(-1)
              + 0.5 * (sum_u.square() - vu.square().sum(dim=1)).sum(-1))
     gc = _field_rows(cand_ids, offs[-1])
-    vc = take_rows(params["emb"], gc).float()                        # (N,k)
-    lin_c = take_rows(params["lin"], gc).float()
+    vc = constrain(take_rows(params["emb"], gc).float(), "candidates")  # (N,k)
+    lin_c = constrain(take_rows(params["lin"], gc).float(), "candidates")
     return const[:, None] + lin_c[None, :] + sum_u @ vc.T            # (B,N)
 
 
@@ -214,6 +268,8 @@ def _table_init(generator: torch.Generator, rows: int, d: int,
     """A (rows, d) table at std 0.02 (the JAX init's), drawn in place in
     row chunks on the generator's device: no float32 copy of the table."""
     table = torch.empty((rows, d), dtype=dtype, device=generator.device)
+    if table.device.type == "meta":
+        return table
     for i in range(0, rows, INIT_CHUNK_ROWS):
         table[i:i + INIT_CHUNK_ROWS].normal_(0.0, 0.02, generator=generator)
     return table
@@ -236,7 +292,10 @@ def init_dlrm(generator: torch.Generator, cfg: RecsysConfig) -> Dict:
 
 def dot_interaction(vecs: torch.Tensor) -> torch.Tensor:
     """vecs (B, F, d) -> upper-triangle of pairwise dots (B, F*(F-1)/2),
-    in the row-major order of ``jnp.triu_indices(F, k=1)``."""
+    in the row-major order of ``jnp.triu_indices(F, k=1)``. DTensor vecs
+    run on each rank's rows (``sharding.by_rows``)."""
+    if is_dtensor(vecs):
+        return by_rows(dot_interaction, vecs)
     z = torch.bmm(vecs, vecs.transpose(1, 2))
     f = vecs.shape[1]
     iu, ju = torch.triu_indices(f, f, 1, device=vecs.device)
@@ -273,12 +332,13 @@ def dlrm_retrieval(params: Dict, dense: torch.Tensor, user_ids: torch.Tensor,
     bot = _bottom(params, dense)                                     # (1, d_bot)
     user_emb = embedding_lookup(params["emb"], user_ids, offs[:-1],
                                 lookup)                              # (1,25,d)
-    cand_emb = embedding_lookup(params["emb"], cand_ids[:, None], offs[-1:],
-                                lookup)                              # (N,1,d)
+    cand_emb = constrain(embedding_lookup(params["emb"], cand_ids[:, None], offs[-1:],
+                                          lookup), "candidates")     # (N,1,d)
     fixed = torch.cat([bot[:, None, :], user_emb], dim=1)            # (1,26,d)
-    vecs = torch.cat([fixed.expand(n, -1, -1), cand_emb], dim=1)     # (N,27,d)
+    vecs = constrain(torch.cat([fixed.expand(n, -1, -1), cand_emb], dim=1),
+                     "candidates")                                   # (N,27,d)
     x = torch.cat([bot.expand(n, -1), dot_interaction(vecs)], dim=-1)
-    return mlp_apply(params["top"], x)[:, 0].float()
+    return constrain(mlp_apply(params["top"], x)[:, 0].float(), "candidates")
 
 
 # ---------------------------------------------------------------------------
@@ -327,12 +387,12 @@ def din_retrieval(params: Dict, hist: torch.Tensor, hist_mask: torch.Tensor,
     gather at N scale."""
     n = cand_ids.shape[0]
     he = take_rows(params["emb"], hist)                              # (1,S,d)
-    te = take_rows(params["emb"], cand_ids)                          # (N,d)
+    te = constrain(take_rows(params["emb"], cand_ids), "candidates")  # (N,d)
     he_b = he.expand(n, -1, -1)
     mask_b = hist_mask.expand(n, -1)
-    interest = din_attention(params, he_b, te, mask_b)
+    interest = constrain(din_attention(params, he_b, te, mask_b), "candidates")
     x = torch.cat([interest, te], dim=-1)
-    return mlp_apply(params["out"], x)[:, 0].float()
+    return constrain(mlp_apply(params["out"], x)[:, 0].float(), "candidates")
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +503,7 @@ def bert4rec_retrieval(params: Dict, seq: torch.Tensor, cand_ids: torch.Tensor,
     one bag launch for the history and the candidates."""
     x, cand = _rows(params["emb"], [seq, cand_ids], lookup)
     rep = _encode_rows(params, x, cfg)[:, -1, :]
-    return (rep @ cand.T).float()
+    return (rep @ constrain(cand, "candidates").T).float()
 
 
 def bert4rec_pointwise(params: Dict, seq: torch.Tensor, target: torch.Tensor,
@@ -465,8 +525,11 @@ def init_model(cfg: RecsysConfig, generator: torch.Generator,
     0.02, dense layers at std 1/sqrt(fan_in), biases 0; FM's ``lin`` at std
     0.01), drawn from ``generator`` on ``device``, which must be the
     generator's own: a full-width table (48 GB in bfloat16 for dlrm-mlperf)
-    is drawn where it lives, never moved."""
+    is drawn where it lives, never moved. On ``device="meta"`` the same
+    tree of shapes and dtypes, nothing drawn, whatever ``generator``'s
+    device."""
     dev = resolve_device(device)
+    generator = init_generator(generator, dev)
     if generator.device.type != dev.type:
         raise ValueError(f"draw on {dev.type} with a {dev.type} generator, not "
                          f"{generator.device.type}: the table is drawn in place")

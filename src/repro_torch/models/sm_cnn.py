@@ -23,9 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import init_generator, randn, resolve_device
 from repro_torch.configs.base import TextPairConfig
 from repro_torch.core import export
+from repro_torch.distributed.sharding import by_rows, is_dtensor
+from repro_torch.models.layers import embed_rows
 
 
 def _dtype(cfg: TextPairConfig) -> torch.dtype:
@@ -36,17 +38,19 @@ def init_sm_cnn(cfg: TextPairConfig, generator: torch.Generator,
                 device="cuda") -> Dict:
     """Random parameters with the JAX init's distributions (normal embeddings
     at std 0.02, dense layers at std 1/sqrt(fan_in), zero biases), drawn
-    from ``generator`` on the CPU and then moved to ``device``."""
+    from ``generator`` on the CPU and then moved to ``device``. On
+    ``device="meta"`` the same tree of shapes and dtypes, nothing drawn."""
     dev = resolve_device(device)
+    generator = init_generator(generator, dev)
     dt = _dtype(cfg)
     w, d, f = cfg.filter_width, cfg.embed_dim, cfg.conv_filters
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=generator) * std).to(dt)
+        return (randn(shape, generator) * std).to(dt)
 
     def dense(d_in, d_out):
         return {"w": normal((d_in, d_out), 1.0 / math.sqrt(d_in)),
-                "b": torch.zeros((d_out,), dtype=dt)}
+                "b": torch.zeros((d_out,), dtype=dt, device=generator.device)}
 
     j_in = 2 * f + cfg.n_extra_feats
     tree = {
@@ -100,18 +104,43 @@ def im2col(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def conv_arm(conv: Dict, x_emb: torch.Tensor, width: int) -> torch.Tensor:
-    """Wide conv1d + tanh + global max-pool: (B, S, d) -> (B, F)."""
+    """Wide conv1d + tanh + global max-pool: (B, S, d) -> (B, F). DTensor
+    rows (a planned step's) run on each rank's rows
+    (``sharding.by_rows``)."""
+    if is_dtensor(x_emb):
+        return by_rows(lambda x, w, b: conv_arm({"w": w, "b": b}, x, width), x_emb,
+                       conv["w"], conv["b"])
     cols = im2col(x_emb, width)                   # (B, S+w-1, w*d)
     h = torch.tanh(cols @ conv["w"] + conv["b"])  # (B, S+w-1, F)
     return h.amax(dim=1)
+
+
+def naive_conv_arm(conv: Dict, x_emb: torch.Tensor, width: int) -> torch.Tensor:
+    """The paper's 'naive ND4J' formulation of ``conv_arm``: a loop over the
+    filters, each slid separately over the windows; (B, S, d) -> (B, F).
+    Kept as the contrast condition of the paper's section 4.1 (two orders
+    of magnitude slower than the im2col product); no serving path runs
+    it."""
+    b, s, d = x_emb.shape
+    f = conv["w"].shape[1]
+    pad = width - 1
+    xp = F.pad(x_emb, (0, 0, pad, pad))
+    n_win = s + width - 1
+    w3 = conv["w"].reshape(width, d, f)
+    outs = []
+    for fi in range(f):                       # python loop: intentionally naive
+        filt = w3[:, :, fi]                   # (w, d)
+        vals = [torch.sum(xp[:, i:i + width, :] * filt, dim=(1, 2)) for i in range(n_win)]
+        outs.append(torch.amax(torch.tanh(torch.stack(vals, 1) + conv["b"][fi]), dim=1))
+    return torch.stack(outs, dim=1)
 
 
 def forward(params: Dict, q_tok: torch.Tensor, a_tok: torch.Tensor,
             feats: torch.Tensor, cfg: TextPairConfig) -> torch.Tensor:
     """Returns log-probs (B, 2)."""
     emb = params["embed"]
-    xq = conv_arm(params["conv_q"], emb[q_tok.long()], cfg.filter_width)
-    xa = conv_arm(params["conv_a"], emb[a_tok.long()], cfg.filter_width)
+    xq = conv_arm(params["conv_q"], embed_rows(emb, q_tok), cfg.filter_width)
+    xa = conv_arm(params["conv_a"], embed_rows(emb, a_tok), cfg.filter_width)
     xj = torch.cat([xq, xa, feats.to(xq.dtype)], dim=-1)
     h = torch.tanh(xj @ params["join"]["w"] + params["join"]["b"])
     logits = h @ params["out"]["w"] + params["out"]["b"]

@@ -32,7 +32,11 @@ identity on plain tensors); under ``activation_sharding(...,
 moe_a2a=True)`` an MoE layer runs ``moe.moe_apply_a2a`` on the context's
 mesh in ``forward``, ``loss_fn`` and ``prefill``, remat's recompute under
 the same context, while ``decode_step`` runs ``moe_apply`` under any
-context, as JAX's does.
+context, as JAX's does. A planned step (``launch/specs.py``) runs these
+passes on DTensors: under the context's ``fsdp`` each layer's weights are
+gathered before it runs (``context.gather_layer``), ``prefill`` stacks the
+layers' K/V, and ``decode_step`` writes each rank's block of the cache
+(``_write_rows``).
 
 Training differentiates ``forward`` with autograd. Under ``"flash"`` the
 attention's gradient is the attention module's own backward
@@ -65,11 +69,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import init_generator, resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import export
 from repro_torch.distributed import context as shctx
 from repro_torch.distributed.context import constrain
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -165,8 +170,10 @@ def init_lm(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict:
     layer's as ``moe.moe_params``), drawn from ``generator`` on its own
     device and then moved to ``device``. The layers are stacked on a
     leading L axis: each stacked leaf is allocated once and filled layer by
-    layer, so the draw holds the weights plus one layer's tree."""
+    layer, so the draw holds the weights plus one layer's tree. On
+    ``device="meta"`` the same tree of shapes and dtypes, nothing drawn."""
     dev = resolve_device(device)
+    generator = init_generator(generator, dev)
     dt = _dtype(cfg)
     params = {"embed": L.embed_init(generator, cfg.vocab_padded, cfg.d_model, dt)}
     layers = None
@@ -204,9 +211,13 @@ def _block(cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor
                             cfg.d_head, positions, cfg.rope_theta)
     o = _attend(cfg, q, k, v)
     b, s, _, _ = o.shape
-    x = constrain(x + o.reshape(b, s, -1) @ lp["attn"]["wo"], "residual")
+    # each product placed on the residual's layout before the add (a
+    # reduce-scatter where its sum is split over "model"), so that its
+    # gradient arrives gathered, as DTensor's products take it
+    x = constrain(x + constrain(o.reshape(b, s, -1) @ lp["attn"]["wo"], "residual"),
+                  "residual")
     y, aux = _ffn(cfg, lp, L.rms_norm(x, lp["mlp_norm"]))
-    return constrain(x + y, "residual"), k, v, aux
+    return constrain(x + constrain(y, "residual"), "residual"), k, v, aux
 
 
 def _block_in(sharding, cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: torch.Tensor):
@@ -216,8 +227,9 @@ def _block_in(sharding, cfg: LMConfig, x: torch.Tensor, lp: Dict, positions: tor
     thread on the card), and must place and route as it did."""
     if sharding is None:
         return _block(cfg, x, lp, positions)
-    with shctx.activation_sharding(sharding.mesh, sharding.rules, sharding.moe_a2a):
-        return _block(cfg, x, lp, positions)
+    with shctx.activation_sharding(sharding.mesh, sharding.rules, sharding.moe_a2a,
+                                   sharding.fsdp):
+        return _block(cfg, x, shctx.gather_layer(lp), positions)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
@@ -226,7 +238,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     load-balance losses (float32; 0 for a dense model). With ``cfg.remat``
     and grad enabled each layer runs under ``checkpoint``: its activations
     are made again in the backward instead of kept."""
-    x = constrain(params["embed"][tokens.long()].to(_dtype(cfg)), "residual")
+    x = constrain(L.embed_rows(params["embed"], tokens).to(_dtype(cfg)), "residual")
     positions = torch.arange(tokens.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     sharding = shctx.current()
@@ -237,7 +249,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
             x, _, _, aux = checkpoint(_block_in, sharding, cfg, x, lp, positions,
                                       use_reentrant=False)
         else:
-            x, _, _, aux = _block(cfg, x, lp, positions)
+            x, _, _, aux = _block(cfg, x, shctx.gather_layer(lp), positions)
         if aux is not None:
             auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"])
@@ -245,7 +257,19 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     logits = constrain(constrain(x, "pre_logits") @ _head(params), "logits")
     aux = (torch.sum(torch.stack(auxes)) if auxes
            else torch.zeros((), dtype=torch.float32, device=x.device))
-    return _mask_padded_vocab(logits, cfg), aux
+    return _mask_padded_vocab(logits, cfg), _replicated_like(aux, x)
+
+
+def _replicated_like(t: torch.Tensor, x) -> torch.Tensor:
+    """``t``, a value every rank holds alike (``moe_apply_a2a``'s aux), as
+    a replicated DTensor on ``x``'s mesh where ``x`` is a DTensor: summed
+    into a DTensor loss as a plain tensor it would get a DTensor gradient,
+    which its plain graph cannot take."""
+    if not is_dtensor(x) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                              run_check=False)
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: LMConfig,
@@ -285,17 +309,26 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: LMConfig
     under ``torch.inference_mode()`` in serving, so ``cfg.remat`` (which
     JAX's prefill also applies) changes nothing here.
     """
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    x = L.embed_rows(params["embed"], tokens).to(_dtype(cfg))
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i in range(cfg.n_layers):
-        x, k, v, _ = _block(cfg, x, _layer(params["layers"], i), positions)
-        cache["k"][i] = k
-        cache["v"][i] = v
-    x = L.rms_norm(x[:, -1:, :], params["final_norm"])
+    if is_dtensor(x):
+        # a planned step's DTensors: the layers' K/V stacked at the end
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, k, v, _ = _block(cfg, x, _layer(params["layers"], i), positions)
+            ks.append(k)
+            vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+        cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                 "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+        for i in range(cfg.n_layers):
+            x, k, v, _ = _block(cfg, x, _layer(params["layers"], i), positions)
+            cache["k"][i] = k
+            cache["v"][i] = v
+    x = L.rms_norm(L.seq_whole(x)[:, -1:, :], params["final_norm"])
     logits = _mask_padded_vocab((x @ _head(params))[:, 0, :], cfg)
     return logits, cache
 
@@ -340,6 +373,34 @@ def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
     return q.float().mul_(scale[..., None]).to(dt)
 
 
+def _write_rows(cache: torch.Tensor, li: int, batch_ix: torch.Tensor,
+                pos: torch.Tensor, rows: torch.Tensor) -> None:
+    """``cache[li, b, pos[b]] = rows[b]`` for every row b, in place. A
+    DTensor cache (batch over the data axes, positions over ``model``) is
+    written on each rank's block: its own batch rows, at the positions its
+    block holds (the others write back what they read)."""
+    if not is_dtensor(cache):
+        cache[li, batch_ix, pos] = rows
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh, place = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, place)
+    batch = tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 1 else Replicate()
+                  for pl in place)
+    rows = rows.redistribute(mesh, batch).to_local() if is_dtensor(rows) else rows
+    pos = pos.redistribute(mesh, batch).to_local() if is_dtensor(pos) else pos
+    n_pos = local.shape[2]
+    rel = pos - offset[2]
+    mine = (rel >= 0) & (rel < n_pos)
+    rel = rel.clamp(0, n_pos - 1)
+    bi = torch.arange(local.shape[1], device=local.device)
+    here = local[li, bi, rel]
+    mine = mine.reshape(mine.shape + (1,) * (here.dim() - 1))
+    local[li, bi, rel] = torch.where(mine, rows.to(local.dtype), here)
+
+
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step.
@@ -356,7 +417,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     """
     b = tokens.shape[0]
     dt = _dtype(cfg)
-    x = params["embed"][tokens.long()][:, None, :].to(dt)   # (B,1,d)
+    x = L.embed_rows(params["embed"], tokens)[:, None, :].to(dt)   # (B,1,d)
     pos = pos.long()
     batch_ix = torch.arange(b, device=x.device)
     for li in range(cfg.n_layers):
@@ -367,13 +428,13 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         if cfg.kv_quant:
             for key, new in (("k", k), ("v", v)):
                 rows, scale = _kv_quantize(new[:, 0])
-                cache[key][li, batch_ix, pos] = rows
-                cache[f"{key}_scale"][li, batch_ix, pos] = scale
+                _write_rows(cache[key], li, batch_ix, pos, rows)
+                _write_rows(cache[f"{key}_scale"], li, batch_ix, pos, scale)
             k_read = _kv_dequantize(cache["k"][li], cache["k_scale"][li], dt)
             v_read = _kv_dequantize(cache["v"][li], cache["v_scale"][li], dt)
         else:
-            cache["k"][li, batch_ix, pos] = k[:, 0]
-            cache["v"][li, batch_ix, pos] = v[:, 0]
+            _write_rows(cache["k"], li, batch_ix, pos, k[:, 0])
+            _write_rows(cache["v"], li, batch_ix, pos, v[:, 0])
             k_read, v_read = cache["k"][li], cache["v"][li]
         o = L.decode_attention(q, k_read, v_read, kv_len=pos + 1)
         x = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]

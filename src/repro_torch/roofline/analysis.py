@@ -235,14 +235,19 @@ def attention_bwd_work(b: int, s: int, h: int, hkv: int, d: int,
     return 8 * b * h * d * s * (s + 1) // 2, n_bytes
 
 
-def embedding_bag_work(ids, weighted: bool, d: int, dtype) -> Tuple[float, float]:
+def embedding_bag_work(ids, weighted: bool, d: int, dtype,
+                       n_rows: Optional[int] = None) -> Tuple[float, float]:
     """(operations, bytes) of the bag sum, from this call's ids: the ids
     (and weights) read once, each distinct row they name read once, the
     (B, d) output written once; the d adds (and d multiplies, weighted) of
     each named row. They are not products: bound them with
-    ``products=False``."""
+    ``products=False``. Meta ids hold no values: their distinct rows are
+    taken as ``min(B * L, n_rows)``, the most they could name."""
     b, l = ids.shape
-    distinct = int(ids.unique().numel())
+    if ids.device.type == "meta":
+        distinct = ids.numel() if n_rows is None else min(ids.numel(), n_rows)
+    else:
+        distinct = int(ids.unique().numel())
     n_bytes = ids.numel() * (4 + (4 if weighted else 0)) + (distinct + b) * d * _size(dtype)
     return b * l * d * (2 if weighted else 1), n_bytes
 

@@ -14,14 +14,22 @@ program dispatches as it runs, not from compiled HLO.
   is counted as many times as it runs: there is no trip-count correction,
   where ``hlo_parse`` multiplies a ``while`` body by its trip count.
 * Collectives are the c10d ones the program dispatches (``c10d`` ops,
-  which ``torch.distributed`` calls, and the functional
-  ``_c10d_functional`` ones DTensor uses): all-to-all, all-reduce,
-  all-gather and reduce-scatter. Each adds its result's bytes to
+  which ``torch.distributed`` calls, the functional ``_c10d_functional``
+  ones DTensor uses, and DTensor's own ``shard_dim_alltoall``):
+  all-to-all, all-reduce, all-gather and reduce-scatter. Each adds its result's bytes to
   ``collective_bytes`` and one to ``n_collectives`` under its kind, and to
   ``link_bytes`` its ring-model bytes over the links at the group's size g,
   ``hlo_parse``'s model: 2 (g-1)/g of the result for an all-reduce, (g-1)/g
   for an all-gather or an all-to-all, (g-1) times the result for a
   reduce-scatter; a group of one adds 0.
+
+Under DTensor the counts are one rank's, as ``hlo_parse.analyze``'s are
+one device's: an op on DTensors is not counted at its global shapes;
+the counter hands it on to DTensor (returning ``NotImplemented``), and
+counts the ops DTensor then runs on this rank's local shards and the
+collectives its redistributions issue. The global-shape ops DTensor's
+sharding propagation runs under a ``FakeTensorMode`` to learn an output's
+shape are not counted either. Plain tensors are counted as before.
 
 A hand-written kernel counts as its work formula on either route. Its
 wrapper opens ``kernel(work)`` around the call: the active counter adds
@@ -102,6 +110,7 @@ _COLLECTIVE_OPS = {
     "all_gather_into_tensor": "all-gather",
     "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor": "reduce-scatter",
+    "shard_dim_alltoall": "all-to-all",     # DTensor's Shard(i) -> Shard(j)
 }
 
 
@@ -110,7 +119,7 @@ def _group_size(args) -> int:
     ``ProcessGroup`` argument (``c10d``) or a group name (functional)."""
     import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
-    for a in args:
+    for a in reversed(args):    # a functional op's group name comes last, after a reduce op's
         if isinstance(a, torch.ScriptObject):
             try:
                 return dist.ProcessGroup.unbox(a).size()
@@ -123,7 +132,7 @@ def _group_size(args) -> int:
 
 def collective(func, args, out) -> Optional[Tuple[str, int, int]]:
     """(kind, result bytes, group size) of a c10d collective, else None."""
-    if func.namespace not in ("c10d", "_c10d_functional"):
+    if func.namespace not in ("c10d", "_c10d_functional", "_dtensor"):
         return None
     kind = _COLLECTIVE_OPS.get(func.overloadpacket.__name__)
     if kind is None:
@@ -147,6 +156,15 @@ def op_flops(func, args, kwargs, out) -> int:
     return 0 if formula is None else formula(*args, **kwargs, out_val=out)
 
 
+def _dtensor_types(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _faking() -> bool:
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class Counter(TorchDispatchMode):
     """Adds up the FLOPs and bytes of every aten op dispatched while it is
     entered, outside hand-kernel regions (``kernel``); ``counts`` holds the
@@ -159,6 +177,12 @@ class Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _dtensor_types(types):
+            # DTensor runs the op on the local shards, which come back here
+            return NotImplemented
+        if _faking():
+            # sharding propagation's global-shape shadow of a DTensor op
+            return func(*args, **kwargs)
         if func.overloadpacket not in flop_registry:
             # a composite op (matmul under inference mode reaches the mode
             # whole) is counted as the ops it decomposes into

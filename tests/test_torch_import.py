@@ -62,7 +62,8 @@ def test_slice_modules_are_all_there():
               "repro_torch.configs.granite_3_2b", "repro_torch.distributed",
               "repro_torch.distributed.mesh", "repro_torch.distributed.sharding",
               "repro_torch.distributed.context", "repro_torch.launch.mesh",
-              "repro_torch.training.compression"):
+              "repro_torch.training.compression", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun"):
         assert m in mods, m
 
 

@@ -247,3 +247,68 @@ def compression_rank(rank, world, inputs, steps, out):
         means, errors = C.compressed_psum(g, errors)
         seen.append((means, errors))
     torch.save(seen, os.path.join(out, f"compression-{world}-{rank}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# launch/specs.py: planned steps by value
+# ---------------------------------------------------------------------------
+
+def planned_case(case):
+    """(arch, port config, port ShapeSpec, the plan function's name) of a
+    planned-step case: ``case`` is (arch, config overrides, ShapeSpec
+    fields) on the arch's reduced config."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    arch, over, fields = case
+    cfg = reduced(get_config(arch))
+    if "moe" in over:
+        over = dict(over, moe=dataclasses.replace(cfg.moe, **over["moe"]))
+    cfg = dataclasses.replace(cfg, **over)
+    fam = {"lm": "_plan_lm", "gnn": "_plan_gnn", "recsys": "_plan_recsys",
+           "textpair": "_plan_textpair"}[cfg.family]
+    return arch, cfg, ShapeSpec(**fields), fam
+
+
+def run_planned(case, mesh, values):
+    """The case's plan on ``mesh`` (a DeviceMesh), its arguments placed from
+    ``values`` ({path: array}, the arguments' full values), one step run:
+    {path: full output as numpy} (float32 for a bfloat16 leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.treepath import keystr, tree_map_with_path
+    from repro_torch.launch import specs
+    arch, cfg, shape, fam = planned_case(case)
+    plan = getattr(specs, fam)(arch, cfg, shape, mesh)
+    def value(i, p, t):
+        v = torch.from_numpy(np.array(values[keystr((i,) + tuple(p))])).to(t.dtype)
+        assert v.shape == t.shape, (keystr((i,) + tuple(p)), v.shape, t.shape)
+        return v
+
+    full = tuple(tree_map_with_path(lambda p, t: value(i, p, t), a)
+                 for i, a in enumerate(plan.args))
+    args = specs.dtensor_args(plan, mesh, full)
+    out = plan.fn(*args)
+    flat = {}
+
+    def keep(p, t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.detach()
+        flat[keystr(p)] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    tree_map_with_path(keep, out if isinstance(out, tuple) else (out,))
+    return flat
+
+
+def planned_rank(rank, world, cases, values_path, meshes, out):
+    """Every case of ``cases`` ({id: case}) on each mesh shape of ``meshes``
+    (over ("data", "model")), its values from the npz ``values_path`` (keys
+    "<id>|<path>"): rank 0 writes {(id, mesh): outputs}."""
+    z = np.load(values_path)
+    result = {}
+    for shape in meshes:
+        mesh = _mesh(shape)
+        for i, case in cases.items():
+            values = {k.split("|", 1)[1]: z[k] for k in z.files if k.startswith(f"{i}|")}
+            result[(i, tuple(shape))] = run_planned(case, mesh, values)
+    if rank == 0:
+        torch.save(result, os.path.join(out, "planned.pt"))
